@@ -55,6 +55,52 @@ class StreamCmd(Command):
     stdin: bool = False  # live pipe input (rtl_sdr - | quadjax stream ...)
 
 
+@dataclass
+class WaterfallCmd(Command):
+    """``waterfall``: stream a bank of capture files through the fused
+    waterfall kernel (``WaterfallRunner``), optionally reducing each
+    window to its peak in kernel (``-search``).  Terminal command: every
+    remaining token is a capture filename."""
+
+    filenames: list[str]
+    fft_width: int = 1024
+    stride: int | None = None  # defaults to width
+    windowing: str = "rectangular"
+    chunk_windows: int = 2_000  # matches the CLI default "2k" (decimal SI)
+    chunks: int | None = None
+    search: bool = False
+    out: str | None = None
+    sample_rate: str | None = None
+    format: str | None = None
+    mesh: tuple[int, int] | None = None
+    stdin: bool = False  # single live pipe stream instead of files
+
+
+@dataclass
+class ScanCmd(Command):
+    """``scan``: rtl_power-style band survey — per-bin average/max power
+    and occupancy (fraction of windows above ``-threshold``) over every
+    window of the capture(s), reduced on device chunk by chunk.
+    Terminal command: every remaining token is a capture filename."""
+
+    filenames: list[str]
+    fft_width: int = 1024
+    stride: int | None = None  # defaults to width
+    windowing: str = "rectangular"
+    chunk_windows: int = 2_000
+    chunks: int | None = None
+    threshold: float = 0.0
+    top: int = 20  # report the N strongest bins per stream
+    db: bool = False  # print power columns in dB (20*log10 of the magnitude)
+    plot: bool = False  # render {out|scan}.sK.png survey plots
+    out: str | None = None
+    overwrite: bool = False
+    sample_rate: str | None = None
+    format: str | None = None
+    mesh: tuple[int, int] | None = None
+    stdin: bool = False  # single live pipe stream instead of files
+
+
 def _parse_mesh(spec: str) -> tuple[int, int]:
     """``T`` or ``TxS`` -> (n_time, n_stream) mesh shape."""
     t, _, s = spec.partition("x")
@@ -210,6 +256,83 @@ def _parse_stream(args: _Args, raw_map) -> Command:
     )
 
 
+def _bank_flags(map_: dict) -> tuple[int, int | None, str, int, int | None]:
+    """(width, stride, window, chunk windows, chunks) of a bank command."""
+    fft_width = int(parse_si_uint(map_.pop("width", "1024")))
+    stride = map_.pop("stride", None)
+    stride = None if stride is None else int(parse_si_uint(stride))
+    windowing = map_.pop("window", "rectangular")
+    if windowing not in ("rectangular", "blackman-harris", "blackmanharris"):
+        raise ValueError(f"unknown -window: {windowing!r}")
+    chunk_windows = int(parse_si_uint(map_.pop("chunk", "2k")))
+    chunks = map_.pop("chunks", None)
+    chunks = None if chunks is None else int(parse_si_uint(chunks))
+    return fft_width, stride, windowing, chunk_windows, chunks
+
+
+def _bank_files(args: _Args, cmd: str, stdin: bool, sr, fmt) -> list[str]:
+    """A terminal bank command's capture files: every remaining token."""
+    filenames = []
+    while True:
+        tok = args.next()
+        if tok is None:
+            break
+        filenames.append(tok)
+    if stdin:
+        if sr is None or fmt is None:
+            raise ValueError(f"'{cmd} -stdin yes' requires -sr and -format")
+        if filenames:
+            raise ValueError(f"'{cmd} -stdin yes' takes no filenames")
+    elif not filenames:
+        raise ValueError(f"'{cmd}' requires at least one capture filename")
+    return filenames
+
+
+def _parse_waterfall(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    fft_width, stride, windowing, chunk_windows, chunks = _bank_flags(map_)
+    search = parse_bool(map_.pop("search", "no"))
+    out = map_.pop("out", None)
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    mesh = map_.pop("mesh", None)
+    stdin = parse_bool(map_.pop("stdin", "no"))
+    _ensure_empty(map_, "waterfall")
+    filenames = _bank_files(args, "waterfall", stdin, sr, fmt)
+    return WaterfallCmd(
+        filenames=filenames, fft_width=fft_width, stride=stride,
+        windowing=windowing, chunk_windows=chunk_windows, chunks=chunks,
+        search=search, out=out, sample_rate=sr, format=fmt,
+        mesh=None if mesh is None else _parse_mesh(mesh), stdin=stdin,
+    )
+
+
+def _parse_scan(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    fft_width, stride, windowing, chunk_windows, chunks = _bank_flags(map_)
+    threshold = parse_si_float(map_.pop("threshold", "0"))
+    top = int(parse_si_uint(map_.pop("top", "20")))
+    db = parse_bool(map_.pop("db", "no"))
+    plot = parse_bool(map_.pop("plot", "no"))
+    out = map_.pop("out", None)
+    overwrite = parse_bool(map_.pop("overwrite", "no"))
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    mesh = map_.pop("mesh", None)
+    stdin = parse_bool(map_.pop("stdin", "no"))
+    _ensure_empty(map_, "scan")
+    filenames = _bank_files(args, "scan", stdin, sr, fmt)
+    return ScanCmd(
+        filenames=filenames, fft_width=fft_width, stride=stride,
+        windowing=windowing, chunk_windows=chunk_windows, chunks=chunks,
+        threshold=threshold, top=top, db=db, plot=plot, out=out,
+        overwrite=overwrite, sample_rate=sr, format=fmt,
+        mesh=None if mesh is None else _parse_mesh(mesh), stdin=stdin,
+    )
+
+
 _PARSERS = {
     "stream": _parse_stream,
+    "waterfall": _parse_waterfall,
+    "scan": _parse_scan,
 }

@@ -19,9 +19,16 @@ from quadrs_tpu_torch import serve
 USAGE = """\
 usage: {us} \\
   stream [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] \\
-         [-chunk 4M] [-chunks N] [-search no] [-out PREFIX] FILENAME
+         [-chunk 4M] [-chunks N] [-search no] [-scan no] [-threshold 0] [-top 20] \\
+         [-db no] [-out PREFIX] FILENAME \\
+waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
+         [-chunks N] [-search no] [-out PREFIX] FILENAME... \\
+    scan [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] [-chunks N] \\
+         [-threshold 0 (occupancy level)] [-top 20] [-db no] [-out PREFIX (full \\
+         per-bin CSV)] [-overwrite no] FILENAME...
 
-(-mesh, -stdin, -scan and -trigger parse as in quadjax but are not yet ported.)
+(-mesh and -stdin, stream -trigger and scan -plot parse as in quadjax but are
+not yet ported.)
 
 Formats:
 
@@ -30,6 +37,13 @@ Formats:
  *  cu8: complex    unsigned (integers),  8-bit (RTL-SDR)
  * cs16: complex      signed (integers), 16-bit (Fancy)
 """
+
+
+_RUNNERS = {
+    argmod.StreamCmd: serve.run_stream,
+    argmod.WaterfallCmd: serve.run_waterfall,
+    argmod.ScanCmd: serve.run_scan,
+}
 
 
 def select_device() -> torch.device:
@@ -67,7 +81,7 @@ def main(argv: list[str] | None = None) -> int:
     try:
         device = select_device()
         for command in commands:
-            rc = serve.run_stream(command, device)
+            rc = _RUNNERS[type(command)](command, device)
             if rc:
                 return rc
     except (ValueError, RuntimeError, OSError, NotImplementedError) as e:

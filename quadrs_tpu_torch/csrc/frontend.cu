@@ -52,19 +52,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode.cuh"
+
 namespace {
 
-// The reference's decode formulas (src/lib.rs:248-253), IEEE f32.
-__device__ __forceinline__ float decode(float v) { return v; }
-__device__ __forceinline__ float decode(int8_t v) {
-  return __fdiv_rn(static_cast<float>(v), 127.0f);
-}
-__device__ __forceinline__ float decode(uint8_t v) {
-  return __fsub_rn(__fdiv_rn(static_cast<float>(v), 255.0f), 127.5f);
-}
-__device__ __forceinline__ float decode(int16_t v) {
-  return __fsub_rn(__fdiv_rn(static_cast<float>(v), 65535.0f), 32767.5f);
-}
+using qt::decode;
 
 template <typename T, bool STFT>
 __global__ void __launch_bounds__(256) frontend_kernel(

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``quadrs_tpu_torch/csrc/`` are compiled at first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, and bound with ``ctypes``.  The library lands in
+with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all at once, and
+linked into one shared library with a plain C interface, bound with
+``ctypes``.  The library lands in
 ``build/quadrs_tpu_torch/`` of the checkout (git-ignored), named by a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  Nothing here runs at import: the
@@ -22,20 +23,23 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "frontend.cu",)
+_SOURCES = (_PKG / "csrc" / "frontend.cu", _PKG / "csrc" / "waterfall.cu")
+_HEADERS = (_PKG / "csrc" / "decode.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "quadrs_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# argtypes of each entry point of csrc/frontend.cu; pointers and the stream
-# must be c_void_p, or ctypes passes them as 32-bit ints
+_F = ctypes.c_float
+# the waterfall entry points' shared leading arguments (csrc/waterfall.cu)
+_WATERFALL = (_I, _I, _P, _LL, _LL, _I, _LL, _LL, _I, _I, _I, _I, _P, _P)
+# argtypes of each entry point of csrc/*.cu; pointers and the stream must be
+# c_void_p, or ctypes passes them as 32-bit ints
 _SIGNATURES = {
     "qt_frontend_fir": (
         _I, _I, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _P,
@@ -43,6 +47,9 @@ _SIGNATURES = {
     "qt_frontend_fir_stft": (
         _I, _I, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _I, _P, _P,
     ),
+    "qt_waterfall_norms": (*_WATERFALL, _P, _P),
+    "qt_waterfall_search": (*_WATERFALL, _P, _P, _P),
+    "qt_waterfall_scan": (*_WATERFALL, _F, _P, _P, _P),
 }
 
 
@@ -83,7 +90,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
@@ -92,33 +99,39 @@ _lock = threading.Lock()
 _loaded: KernelLibrary | None = None
 
 
+def _run(cmd: list[str]) -> str:
+    """Run one nvcc command; return its output, raise if it fails."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def _build(out: pathlib.Path) -> tuple[str, float]:
+    """Compile every source at once, then link them into ``out``; returns
+    the build log and seconds."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(pathlib.Path(tmp) / f"{src.stem}.o") for src in _SOURCES]
+        with ThreadPoolExecutor(len(_SOURCES)) as pool:
+            logs = list(pool.map(_run, ([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                                        for src, o in zip(_SOURCES, objs))))
+        so = str(pathlib.Path(tmp) / "lib.so")
+        logs.append(_run([nvcc, *_ARCH, "-shared", "-o", so, *objs]))
+        # rename into place: a concurrent process never loads a half-written library
+        os.replace(so, out)
+    return "".join(logs), time.perf_counter() - t0
+
+
 def library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; raises on a failed
-    build.  Concurrent processes each compile to a temporary name and
-    rename into place, so a half-written library is never loaded."""
+    build."""
     global _loaded
     with _lock:
-        if _loaded is not None:
-            return _loaded
-        out = BUILD_DIR / f"libquadrs_frontend_{_digest()}.so"
-        log, seconds = "", 0.0
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _SOURCES)]
-            t0 = time.perf_counter()
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                seconds = time.perf_counter() - t0
-                log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-                    )
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        _loaded = KernelLibrary(out, log, seconds)
+        if _loaded is None:
+            out = BUILD_DIR / f"libquadrs_kernels_{_digest()}.so"
+            log, seconds = _build(out) if not out.exists() else ("", 0.0)
+            _loaded = KernelLibrary(out, log, seconds)
         return _loaded

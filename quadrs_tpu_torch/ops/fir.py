@@ -1,4 +1,4 @@
-"""FIR low-pass taps.
+"""FIR low-pass taps, and overlapped framing.
 
 Tap math mirrors the reference exactly in f32 (``src/filter.rs:86-105``):
 Blackman-windowed sinc, normalized to unit sum.  The decimating
@@ -8,8 +8,21 @@ convolution itself runs inside the fused frontend (:mod:`.frontend`).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _PI32 = np.float32(np.pi)
+
+
+def overlapped_frames(x: torch.Tensor, hop: int, m: int, n_frames: int) -> torch.Tensor:
+    """(..., L) -> (..., n_frames, m) frames at stride ``hop``, a view
+    through ``Tensor.unfold`` where ``x`` is long enough.  Like the JAX
+    package's ``_overlapped_frames``, ``x`` is first zero-padded to
+    ``(n_frames + ceil(m / hop) - 1) * hop`` samples: a skipping stride
+    (``hop > m``) needs that pad for its last frame's row."""
+    need = (n_frames + -(-m // hop) - 1) * hop
+    if x.shape[-1] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    return x[..., :need].unfold(-1, m, hop)[..., :n_frames, :]
 
 
 def lowpass_taps(cutoff: float, size: int) -> np.ndarray:

@@ -23,11 +23,16 @@ def fftshift(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[..., half:], x[..., :half]], dim=-1)
 
 
-def stft_norms(x: torch.Tensor, *, shift: bool = True) -> torch.Tensor:
+def stft_norms(
+    x: torch.Tensor, *, window: np.ndarray | torch.Tensor | None = None, shift: bool = True
+) -> torch.Tensor:
     """Magnitudes of the DFT of each row: ``x`` is (B, W) complex64
     windows, the result (B, W) f32 norms, fftshifted unless
-    ``shift=False``.  The magnitude is ``sqrt(re² + im²)`` on the real
-    planes, as the JAX package computes it."""
+    ``shift=False``.  ``window``: (W,) f32 weights each row is multiplied
+    by before the transform.  The magnitude is ``sqrt(re² + im²)`` on the
+    real planes, as the JAX package computes it."""
+    if window is not None:
+        x = x * torch.as_tensor(window, dtype=torch.float32, device=x.device)
     spec = torch.fft.fft(x, dim=-1)
     rr, ri = spec.real, spec.imag
     if shift:

@@ -132,7 +132,7 @@ def test_cuda_is_required_unless_cpu_is_asked(tmp_path, capsys, monkeypatch):
     "flags,what",
     [
         (["-mesh", "2"], "-mesh"),
-        (["-scan", "yes"], "-scan"),
+        (["-mesh", "1x1", "-scan", "yes"], "-mesh"),
         (["-trigger", "0.5", "-out", "burst"], "-trigger"),
         (["-stdin", "yes", "-sr", "21M", "-format", "cs8"], "-stdin"),
     ],
@@ -154,7 +154,7 @@ def test_parse_errors_match_jax(capsys):
         j_rc, _, j_err = run(jcli.main, argv, capsys)
         t_rc, _, t_err = run(tcli.main, argv, capsys)
         assert (t_rc, t_err) == (j_rc, j_err)
-    rc, out, err = run(tcli.main, ["waterfall", "f"], capsys)
+    rc, out, err = run(tcli.main, ["sparkfft", "f"], capsys)
     assert rc == 1 and "unrecognised command" in err and "usage:" in out
 
 
