@@ -1,4 +1,4 @@
-"""Smoke run of quadrs_tpu_torch's main path on one CUDA card.
+"""Smoke run of quadrs_tpu_torch's main paths on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 no JAX.  It exits non-zero, printing no result, when CUDA is
@@ -10,29 +10,37 @@ the run.  Phases:
 3. each kernel against its plain PyTorch version on the same CUDA
    tensors: the frontend kernels for every format and the envelope's
    corner cases, held to ``5e-5 * scale`` (the JAX package's
-   kernel-versus-chain bound); the three waterfall kernels for every
-   format, widths 256 to 8192, strides tiled, overlapped, not a
-   128-multiple and skipping, both windowings, held to the JAX package's
-   waterfall tolerances;
+   kernel-versus-chain bound); the v1 frontend kernel for every format,
+   D 1 to 64, 40 and 400 taps, partial tiles, short planes, an offset
+   near 1e9 and one 4M-sample cs8 chunk, to the same bound; the three
+   waterfall kernels for every format, widths 256 to 8192, strides tiled,
+   overlapped, not a 128-multiple and skipping, both windowings, held to
+   the JAX package's waterfall tolerances;
 4. the main paths through the CLI, launch counts and outputs checked:
    ``stream`` over a 2^26-sample synthetic cs8 capture at 21 Msps, with
    and without ``-search`` and with ``-scan`` (kernel 1), and the model's
-   fused-STFT route over the same staged chunks (kernel 2); then the
-   waterfall bank (BASELINE config 5) over 64 cs8 captures of 2^21
-   samples: ``waterfall`` at 1024 points, ``waterfall -stride 256
-   -search``, ``scan -stride 256``; then each waterfall kernel against
-   its plain version on every chunk the runner stages at strides 1024
-   and 256 (the ragged last chunks included), and the CLI's peaks and
+   fused-STFT route over the same staged chunks (kernel 2); the reference
+   chain over the same capture (``from ... shift ... lowpass ...`` into
+   ``sparkfft``, ``bucket``, ``write``, a 4000-tap ``write``, and
+   ``stream -decimate 100`` outside the fused envelope), torch ops with no
+   kernel, each held against the same argv on the CPU over a 2^22-sample
+   prefix; then the waterfall bank (BASELINE config 5) over 64 cs8
+   captures of 2^21 samples: ``waterfall`` at 1024 points, ``waterfall
+   -stride 256 -search``, ``scan -stride 256``; then each waterfall kernel
+   against its plain version on every chunk the runner stages at strides
+   1024 and 256 (the ragged last chunks included), and the CLI's peaks and
    survey against the plain version's stride-256 norms;
 5. CUDA-event times of the kernels and their plain versions at the main
    paths' shapes: one 4M-sample cs8 chunk of the stream chain (D 32, 400
-   taps, W 64), and one bank chunk (64 streams x 2000 windows x 1024
-   points) at strides 1024 and 256, each waterfall kernel first held
-   against its plain version on those inputs.
+   taps, W 64) for the frontend kernels and the v1 kernel, each
+   ``fir_decimate`` impl at the chain's batch shapes, and one bank chunk
+   (64 streams x 2000 windows x 1024 points) at strides 1024 and 256, each
+   waterfall kernel first held against its plain version on those inputs.
 
 The line before the last holds the kernels' JSON record, their errors
-taken at the main paths' shapes; the last line is ``{"ok": true,
-"device": {...}}``.
+taken at the main paths' shapes (the v1 kernel, which no path runs, at
+the stream chain's chunk); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -61,6 +69,13 @@ BANK_CHUNK = 2000  # the CLI's default -chunk 2k windows
 WF_RTOL = 2e-5  # the JAX package's waterfall kernel tolerance
 WF_WIDTHS = (256, 384, 1024, 2048, 4096, 8192)  # phase 3: 2048 and up as one window per block
 WF_WINDOWS = 301  # phase 3: no multiple of any window tile (8, 5, 2 or 1 windows)
+PREFIX_SAMPLES = 1 << 22  # phase 4: the prefix capture the CPU runs of the chain read
+BANDED_OUT = 125_000 - 77  # phase 3: v1 outputs per case, the last 2048-output tile partial
+# phase 5: the chain's FIR batches, (label, windows, decimate, taps, outputs
+# per window): sparkfft -width 64 over the stream chain (the executor's
+# 2^20-output budget), write's 0x1000-sample pulls, the same at 4000 taps
+FIR_SHAPES = [("sparkfft batch", 16384, 32, 400, 64), ("write batch", 256, 32, 400, 0x1000),
+              ("write batch, 4000 taps", 256, 32, 4000, 0x1000)]
 
 
 def card_line() -> str:
@@ -166,6 +181,57 @@ def phase_kernels() -> dict[str, tuple[float, float]]:
     return at_main
 
 
+def banded_inputs(fmt, d: int, taps: int, n_in: int, start: int, seed: int, n_out: int | None = None):
+    """(spec, planes, bases, n_out) of the v1 kernel for ``n_in`` raw
+    samples whose first sits at absolute ``start``, on the card; the
+    planes advanced past the group delay as its callers do.  ``n_out``
+    defaults to the outputs the samples cover."""
+    from quadrs_tpu_torch.formats import synth_planes
+    from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops.fir import lowpass_taps
+
+    spec = fe.FrontendSpec(fmt, SAMPLE_RATE, 280_000, d, lowpass_taps(200_000 / SAMPLE_RATE, taps).tobytes())
+    prefix = taps - taps // 2
+    n_out = (n_in - taps) // d if n_out is None else n_out
+    planes = torch.from_numpy(synth_planes(fmt, n_in, seed)).to(DEVICE)[:, prefix:]
+    bases = torch.from_numpy(fe.tile_bases(spec, start + prefix, -(-n_out // 2048))).to(DEVICE)
+    return spec, planes, bases, n_out
+
+
+def phase_banded_kernel() -> tuple[float, float]:
+    """Phase 3, the v1 kernel (``frontend_banded``) against its plain
+    version: every format, D 1 to 64, 40 and 400 taps, the last
+    2048-output tile partial; raw planes shorter than the tiles need (40
+    taps) and an absolute offset near 1e9 (400 taps); two long filters;
+    and one 4M-sample cs8 chunk at D 32, 400 taps (the stream chain's
+    configuration).  Returns the error at that chunk."""
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.ops import frontend as fe
+
+    failures: list[str] = []
+    n_main = chunk_len(bench_cfg(FileFormat.COMPLEX_INT8))
+    spec, planes, bases, n_out = banded_inputs(FileFormat.COMPLEX_INT8, 32, 400, n_main, 0, SEED)
+    at_main = compare("frontend_banded cs8 D32 400 taps, one 4M-sample chunk",
+                      fe.fused_frontend(planes, bases, spec, n_out), fe.fused_frontend_reference(planes, bases, spec, n_out),
+                      failures)
+    cases = [(fmt, d, taps) for fmt in FileFormat for d in (1, 4, 8, 32, 64) for taps in (40, 400)]
+    cases += [(FileFormat.COMPLEX_UINT8, 32, 4000), (FileFormat.COMPLEX_INT16, 64, 8192)]
+    for fmt, d, taps in cases:
+        full = BANDED_OUT * d + taps
+        n_in, start, label = full, 0, ""
+        if taps == 40:
+            n_in, label = int(full * 0.7), ", short planes"
+        elif taps == 400:
+            start, label = 999_999_937, ", offset 999999937"
+        spec, planes, bases, _ = banded_inputs(fmt, d, taps, n_in, start, d + taps, BANDED_OUT)
+        got = fe.fused_frontend(planes, bases, spec, BANDED_OUT)
+        want = fe.fused_frontend_reference(planes, bases, spec, BANDED_OUT)
+        compare(f"frontend_banded {fmt.value} D{d} {taps} taps{label}", got, want, failures)
+    if failures:
+        raise AssertionError(f"the v1 kernel disagrees with its plain version: {failures}")
+    return at_main
+
+
 def write_capture(path: str, n: int) -> None:
     """A cs8 capture at 21 Msps: uniform noise from ``default_rng(SEED)``
     plus a tone at -230 kHz, which ``-shift 280k`` brings to +50 kHz."""
@@ -193,23 +259,30 @@ def n_chunks(length: int, cfg) -> int:
     return count
 
 
-def run_cli(argv: list[str]) -> str:
+def run_cli(argv: list[str], expect_rc: int = 0, err_has: str = "") -> str:
+    """Run the port's CLI in this process; print the command and its
+    output (the first and last lines of a long one); raise unless it exits
+    ``expect_rc`` with ``err_has`` in its standard error."""
     from quadrs_tpu_torch.cli import main
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         rc = main(argv)
     out = buf.getvalue()
+    lines = out.strip().splitlines()
+    if len(lines) > 12:
+        lines = lines[:5] + [f"... ({len(lines)} lines)"] + lines[-3:]
     print("  $ python -m quadrs_tpu_torch " + " ".join(argv))
-    print("    " + out.strip().replace("\n", "\n    "))
-    if rc != 0:
-        raise AssertionError(f"stream exited {rc}")
+    lines = [line if len(line) <= 160 else f"{line[:150]} ... ({len(line)} chars)" for line in lines]
+    print("    " + "\n    ".join(lines + err.getvalue().strip().splitlines()))
+    if rc != expect_rc or err_has not in err.getvalue():
+        raise AssertionError(f"{argv[0]} exited {rc}: {err.getvalue().strip()}")
     return out
 
 
-def phase_main_path(card: str) -> dict[str, int]:
-    """Phase 4, the stream: the CLI's stream path over a 2^26-sample
-    capture; returns each kernel's launches over the phase."""
+def phase_main_path(card: str, path: str, tmp: str) -> dict[str, int]:
+    """Phase 4, the stream: the CLI's stream path over the 2^26-sample
+    capture at ``path``; returns each kernel's launches over the phase."""
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.models.receiver import PipelineModel
     from quadrs_tpu_torch.ops import frontend as fe
@@ -221,83 +294,201 @@ def phase_main_path(card: str) -> dict[str, int]:
     n = CAPTURE_SAMPLES
     cfg = bench_cfg(FileFormat.COMPLEX_INT8)
     chunks = n_chunks(n, cfg)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "smoke.sr21M.cs8")
-        write_capture(path, n)
-        prefix = os.path.join(tmp, "out")
-        k1, k2 = fe.frontend_fir, fe.frontend_fir_stft
-        k1.launches = k2.launches = 0  # counts of the main path only, from here
+    prefix = os.path.join(tmp, "out")
+    k1, k2 = fe.frontend_fir, fe.frontend_fir_stft
+    k1.launches = k2.launches = 0  # counts of the main path only, from here
 
-        out = run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-out", prefix, path])
-        print(f"    ({card})")
-        if (k1.launches, k2.launches) != (chunks, 0):
-            raise AssertionError(f"stream launched frontend_fir {k1.launches}x, stft {k2.launches}x; {chunks} chunks")
-        norms = np.fromfile(f"{prefix}.norms.f32", dtype=np.float32).reshape(-1, cfg.fft_width)
-        if not (np.isfinite(norms).all() and "stream peak window=" in out):
-            raise AssertionError("stream wrote non-finite norms or no peak line")
+    out = run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-out", prefix, path])
+    print(f"    ({card})")
+    if (k1.launches, k2.launches) != (chunks, 0):
+        raise AssertionError(f"stream launched frontend_fir {k1.launches}x, stft {k2.launches}x; {chunks} chunks")
+    norms = np.fromfile(f"{prefix}.norms.f32", dtype=np.float32).reshape(-1, cfg.fft_width)
+    if not (np.isfinite(norms).all() and "stream peak window=" in out):
+        raise AssertionError("stream wrote non-finite norms or no peak line")
 
-        before = k1.launches
-        run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-search", "yes", "-out", prefix, path])
-        print(f"    ({card})")
-        if k1.launches - before != chunks or k2.launches:
-            raise AssertionError(f"stream -search launched frontend_fir {k1.launches - before}x for {chunks} chunks")
-        peaks = np.loadtxt(f"{prefix}.peaks.csv", delimiter=",", skiprows=1, ndmin=2)
-        if peaks.shape[0] != norms.shape[0]:
-            raise AssertionError(f"{peaks.shape[0]} peak rows for {norms.shape[0]} windows")
-        bad = int(np.sum(peaks[:, 1].astype(np.int64) != np.argmax(norms, axis=1)))
-        print(f"  -search peak bins vs argmax of the -out norms: {bad} of {len(peaks)} differ")
-        if bad:
-            raise AssertionError("peak bins disagree with the norms")
+    before = k1.launches
+    run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-search", "yes", "-out", prefix, path])
+    print(f"    ({card})")
+    if k1.launches - before != chunks or k2.launches:
+        raise AssertionError(f"stream -search launched frontend_fir {k1.launches - before}x for {chunks} chunks")
+    peaks = np.loadtxt(f"{prefix}.peaks.csv", delimiter=",", skiprows=1, ndmin=2)
+    if peaks.shape[0] != norms.shape[0]:
+        raise AssertionError(f"{peaks.shape[0]} peak rows for {norms.shape[0]} windows")
+    bad = int(np.sum(peaks[:, 1].astype(np.int64) != np.argmax(norms, axis=1)))
+    print(f"  -search peak bins vs argmax of the -out norms: {bad} of {len(peaks)} differ")
+    if bad:
+        raise AssertionError("peak bins disagree with the norms")
 
-        before = k1.launches
-        thr = float(np.median(norms))
-        out = run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-scan", "yes", "-threshold", repr(thr),
-                       "-out", prefix, path])
-        print(f"    ({card})")
-        if k1.launches - before != chunks or k2.launches:
-            raise AssertionError(f"stream -scan launched frontend_fir {k1.launches - before}x for {chunks} chunks")
-        table = np.loadtxt(f"{prefix}.scan.csv", delimiter=",", skiprows=1, ndmin=2)
-        want_sum = norms.astype(np.float64).sum(axis=0)
-        got_sum = table[:, 2] * norms.shape[0]
-        tol = TOL * float(norms.max())
-        near = np.abs(norms - np.float32(thr)) <= tol
-        above_err = np.abs(table[:, 4] - (norms > np.float32(thr)).sum(axis=0)) - near.sum(axis=0)
-        print(f"  -scan sums vs the -out norms: max |diff| {np.abs(got_sum - want_sum).max():.4g} "
-              f"(bound {norms.shape[0] * tol:.4g}); counts off by more than the near-threshold norms: "
-              f"{int((above_err > 0).sum())} bins")
-        if (f"stream scan: {norms.shape[0]} windows of {cfg.fft_width} bins" not in out
-                or np.abs(got_sum - want_sum).max() > norms.shape[0] * tol
-                or np.abs(table[:, 3] - norms.max(axis=0)).max() > tol or (above_err > 0).any()):
-            raise AssertionError("stream -scan disagrees with the stream -out norms")
+    before = k1.launches
+    thr = float(np.median(norms))
+    out = run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-scan", "yes", "-threshold", repr(thr),
+                   "-out", prefix, path])
+    print(f"    ({card})")
+    if k1.launches - before != chunks or k2.launches:
+        raise AssertionError(f"stream -scan launched frontend_fir {k1.launches - before}x for {chunks} chunks")
+    table = np.loadtxt(f"{prefix}.scan.csv", delimiter=",", skiprows=1, ndmin=2)
+    want_sum = norms.astype(np.float64).sum(axis=0)
+    got_sum = table[:, 2] * norms.shape[0]
+    tol = TOL * float(norms.max())
+    near = np.abs(norms - np.float32(thr)) <= tol
+    above_err = np.abs(table[:, 4] - (norms > np.float32(thr)).sum(axis=0)) - near.sum(axis=0)
+    print(f"  -scan sums vs the -out norms: max |diff| {np.abs(got_sum - want_sum).max():.4g} "
+          f"(bound {norms.shape[0] * tol:.4g}); counts off by more than the near-threshold norms: "
+          f"{int((above_err > 0).sum())} bins")
+    if (f"stream scan: {norms.shape[0]} windows of {cfg.fft_width} bins" not in out
+            or np.abs(got_sum - want_sum).max() > norms.shape[0] * tol
+            or np.abs(table[:, 3] - norms.max(axis=0)).max() > tol or (above_err > 0).any()):
+        raise AssertionError("stream -scan disagrees with the stream -out norms")
 
-        # the first chunk's norms against the plain version on the card
-        model = PipelineModel(cfg).to(DEVICE)
-        src = open_capture(path)
-        la = cfg.taps + (cfg.taps - cfg.taps // 2)
-        n0 = min(CHUNK // (cfg.decimate * cfg.fft_width) * cfg.decimate * cfg.fft_width, n) + la
-        raw = torch.from_numpy(src.stage(0, n0)).to(DEVICE)
-        bases = torch.from_numpy(model.stream_bases(0, n0)).to(DEVICE)
-        n_out = (n0 - cfg.taps) // cfg.decimate // cfg.fft_width * cfg.fft_width
-        y = fe.fused_frontend_t_reference(
-            raw[:, cfg.taps - cfg.taps // 2 :], bases, model.frontend_spec, n_out,
-            n0 - (cfg.taps - cfg.taps // 2), model.frontend_tables(),
-        )
-        plain = stft_norms(torch.complex(y[0], y[1]).reshape(-1, cfg.fft_width))
-        compare("first chunk norms (stream -out vs plain)", torch.from_numpy(norms[: plain.shape[0]]).to(DEVICE), plain)
+    # the first chunk's norms against the plain version on the card
+    model = PipelineModel(cfg).to(DEVICE)
+    src = open_capture(path)
+    la = cfg.taps + (cfg.taps - cfg.taps // 2)
+    n0 = min(CHUNK // (cfg.decimate * cfg.fft_width) * cfg.decimate * cfg.fft_width, n) + la
+    raw = torch.from_numpy(src.stage(0, n0)).to(DEVICE)
+    bases = torch.from_numpy(model.stream_bases(0, n0)).to(DEVICE)
+    n_out = (n0 - cfg.taps) // cfg.decimate // cfg.fft_width * cfg.fft_width
+    y = fe.fused_frontend_t_reference(
+        raw[:, cfg.taps - cfg.taps // 2 :], bases, model.frontend_spec, n_out,
+        n0 - (cfg.taps - cfg.taps // 2), model.frontend_tables(),
+    )
+    plain = stft_norms(torch.complex(y[0], y[1]).reshape(-1, cfg.fft_width))
+    compare("first chunk norms (stream -out vs plain)", torch.from_numpy(norms[: plain.shape[0]]).to(DEVICE), plain)
 
-        # the model's fused-STFT route (kernel 2) over the runner's staged chunks
-        before = k1.launches
-        rows = []
-        for off, planes, valid in StreamRunner(src, model, DEVICE, chunk_samples=CHUNK)._chunks():
-            raw = torch.from_numpy(planes).to(DEVICE)
-            bases = torch.from_numpy(model.stream_bases(off, planes.shape[1])).to(DEVICE)
-            nv = None if valid == planes.shape[1] else valid
-            rows.append(model.step_stream_fused(raw, bases, nv, fuse_stft=True))
-        print(f"  step_stream_fused(fuse_stft=True) over {len(rows)} staged chunks")
-        if (k1.launches - before, k2.launches) != (0, chunks):
-            raise AssertionError(f"fused route launched frontend_fir_stft {k2.launches}x for {chunks} chunks")
-        compare("fused-STFT route vs stream -out norms", torch.cat(rows), torch.from_numpy(norms).to(DEVICE))
+    # the model's fused-STFT route (kernel 2) over the runner's staged chunks
+    before = k1.launches
+    rows = []
+    for off, planes, valid in StreamRunner(src, model, DEVICE, chunk_samples=CHUNK)._chunks():
+        raw = torch.from_numpy(planes).to(DEVICE)
+        bases = torch.from_numpy(model.stream_bases(off, planes.shape[1])).to(DEVICE)
+        nv = None if valid == planes.shape[1] else valid
+        rows.append(model.step_stream_fused(raw, bases, nv, fuse_stft=True))
+    print(f"  step_stream_fused(fuse_stft=True) over {len(rows)} staged chunks")
+    if (k1.launches - before, k2.launches) != (0, chunks):
+        raise AssertionError(f"fused route launched frontend_fir_stft {k2.launches}x for {chunks} chunks")
+    compare("fused-STFT route vs stream -out norms", torch.cat(rows), torch.from_numpy(norms).to(DEVICE))
     return {"frontend_fir": k1.launches, "frontend_fir_stft": k2.launches}
+
+
+SPARK_BOUNDS = np.concatenate([[0.08, 1.0], np.float32(0.08) + (np.float32(1.0) - np.float32(0.08)) / np.float32(7.0)
+                               * np.arange(1, 7, dtype=np.float32)]).astype(np.float32)
+
+
+def all_launches() -> dict[str, int]:
+    from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops import waterfall as wf
+
+    return {k.__name__: k.launches for k in (fe.frontend_fir, fe.frontend_fir_stft, fe.frontend_banded,
+                                             wf.waterfall_norms, wf.waterfall_search, wf.waterfall_scan)}
+
+
+def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
+    """Phase 4, the reference chain: the port's CLI over the 2^26-sample
+    capture on the card (sparkfft, bucket, write, the 4000-tap write that
+    takes os_poly, and stream outside the fused envelope), each checked
+    against the same argv on the CPU over a 2^22-sample prefix capture.
+    The chain is torch ops: no kernel of the port may launch.  Returns
+    each run's wall seconds."""
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import Executor
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream import LowPass, Shift
+
+    pre = os.path.join(tmp, "prefix.sr21M.cs8")
+    with open(cap, "rb") as f, open(pre, "wb") as g:
+        g.write(f.read(PREFIX_SAMPLES * 2))
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 matmuls are on: the chain's products would keep ~3 digits")
+    lp200 = ["shift", "280k", "lowpass", "-power", "200", "-decimate", "32", "200k"]
+    lp2000 = ["shift", "280k", "lowpass", "-power", "2000", "-decimate", "32", "200k"]
+    walls: dict[str, float] = {}
+
+    def both(name: str, argv, expect_rc=0, err=("", "")):
+        """``argv(capture, tag)`` on the card over the capture, then on the
+        CPU over the prefix; returns both stdouts."""
+        os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
+        before = all_launches()
+        t0 = time.perf_counter()
+        out = run_cli(argv(cap, "gpu"), expect_rc, err[0])
+        walls[name] = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
+        print(f"    {name}: {walls[name]:.3f}s, {CAPTURE_SAMPLES / walls[name] / 1e6:.1f} Msps ({card}); "
+              f"kernel launches: {launched or 'none'}")
+        if launched:
+            raise AssertionError(f"{name} launched {launched}: the chain runs as torch ops")
+        os.environ["QUADRS_PLATFORM"] = "cpu"
+        try:
+            cpu_out = run_cli(argv(pre, "cpu"), expect_rc, err[1])
+        finally:
+            os.environ.pop("QUADRS_PLATFORM", None)
+        return out, cpu_out
+
+    def chain_stream(path, taps_power=200):
+        return LowPass(Shift(open_capture(path), 280_000), 200_000, 32, 2 * taps_power)
+
+    # sparkfft: rows equal except glyphs whose plain norm is within f32 noise of a level
+    out, cpu_out = both("sparkfft", lambda path, tag: ["from", path, *lp200, "sparkfft", "-width", "64", "-stride", "16"])
+    rows, cpu_rows = out.splitlines()[1:], cpu_out.splitlines()[1:]
+    length = 1 + (CAPTURE_SAMPLES - 400) // 32
+    if len(rows) != len(range(0, length - 64, 16)) or not cpu_rows:
+        raise AssertionError(f"sparkfft printed {len(rows)} rows for a {length}-sample stream")
+    bad = [r for r in range(len(cpu_rows)) if rows[r] != cpu_rows[r]]
+    near = 0
+    if bad:
+        norms = Executor(chain_stream(pre), 64, "cpu", post=stft_norms).run(np.asarray(bad, dtype=np.int64) * 16)[0]
+        for i, r in enumerate(bad):
+            for k, (a, b) in enumerate(zip(rows[r][1:-1], cpu_rows[r][1:-1])):
+                if a != b:
+                    margin = float(np.abs(SPARK_BOUNDS - norms[i, k]).min() / max(float(norms[i, k]), 1e-12))
+                    if margin > TOL:
+                        raise AssertionError(f"sparkfft row {r} bin {k}: {a!r} vs {b!r}, {margin:.2e} from a level")
+                    near += 1
+    print(f"  sparkfft: {len(cpu_rows)} rows of the prefix compared, {len(bad)} differ, {near} glyphs within "
+          f"{TOL} of a level")
+
+    # bucket: digits equal except near-ties of the plain half sums
+    out, cpu_out = both("bucket", lambda path, tag: ["from", path, *lp200, "bucket", "-by", "freq", "2"])
+    digits, cpu_digits = out.strip(), cpu_out.strip()
+    if len(digits) != (length - 128) // 128 or set(digits) - {"0", "1"}:
+        raise AssertionError(f"bucket printed {len(digits)} digits for a {length}-sample stream")
+    bad = [i for i in range(len(cpu_digits)) if digits[i] != cpu_digits[i]]
+    if bad:
+        def halves(x):
+            n = stft_norms(x, shift=False)
+            return n[:, :64].sum(1), n[:, 64:].sum(1)
+
+        first, second = Executor(chain_stream(pre), 128, "cpu", post=halves).run(np.asarray(bad, dtype=np.int64) * 128)[0]
+        if (np.abs(first - second) > TOL * np.maximum(first, second)).any():
+            raise AssertionError("bucket digits differ away from a near-tie")
+    print(f"  bucket: {len(cpu_digits)} digits of the prefix compared, {len(bad)} differ (near-ties)")
+
+    # write: the decimated file stream ends on the reference's zero-length read
+    for name, lp, size in (("write", lp200, 400), ("write (4000 taps, os_poly)", lp2000, 4000)):
+        full_len, pre_len = (1 + (n - size) // 32 for n in (CAPTURE_SAMPLES, PREFIX_SAMPLES))
+        both(name, lambda path, tag: ["from", path, *lp, "write", os.path.join(tmp, f"{tag}{size}")], 1,
+             (f"short read at offset {full_len - 1} of {full_len}", f"short read at offset {pre_len - 1} of {pre_len}"))
+        got = np.fromfile(os.path.join(tmp, f"gpu{size}.sr656250.cf32"), np.complex64)
+        want = np.fromfile(os.path.join(tmp, f"cpu{size}.sr656250.cf32"), np.complex64)
+        same = (PREFIX_SAMPLES - size) // (0x1000 * 32) * 0x1000  # the prefix's full 0x1000-sample pulls
+        if got.shape != (full_len - 1,) or not np.isfinite(got).all():
+            raise AssertionError(f"{name} wrote {got.shape} samples of a {full_len}-sample stream")
+        err = float(np.abs(got[:same] - want[:same]).max())
+        scale = float(np.abs(want[:same]).max())
+        print(f"  {name}: {got.shape[0]} samples written; the prefix's first {same}: max |diff| {err:.3e}, "
+              f"scale {scale:.4g}, err/scale {err / scale:.3e}")
+        if err > 1e-5 * scale:
+            raise AssertionError(f"{name} disagrees with the CPU run")
+
+    # stream outside the fused envelope: the chain route
+    both("stream -decimate 100", lambda path, tag: ["stream", "-shift", "280k", "-decimate", "100", "-chunk",
+                                                   str(CHUNK), "-out", os.path.join(tmp, tag), path])
+    got = np.fromfile(os.path.join(tmp, "gpu.norms.f32"), np.float32).reshape(-1, 64)
+    want = np.fromfile(os.path.join(tmp, "cpu.norms.f32"), np.float32).reshape(-1, 64)
+    first = CHUNK // (100 * 64)  # windows of the first chunk, the same samples in both captures
+    if got.shape[0] != CAPTURE_SAMPLES // 6400 or not np.isfinite(got).all():
+        raise AssertionError(f"stream -decimate 100 wrote {got.shape[0]} windows")
+    compare("stream -decimate 100, first chunk (card vs CPU)", torch.from_numpy(got[:first]), torch.from_numpy(want[:first]))
+    return walls
 
 
 def synth_on_device(fmt, shape, seed: int) -> torch.Tensor:
@@ -586,6 +777,55 @@ def phase_timing(card: str) -> dict[str, float]:
     return ms
 
 
+def phase_chain_timing(card: str) -> dict[str, float]:
+    """Phase 5, the v1 kernel and the chain's FIR: CUDA-event times of
+    ``frontend_banded`` and its plain version at one 4M-sample cs8 chunk
+    (D 32, 400 taps), in mirrored order; then of each ``fir_decimate``
+    impl at the chain's batch shapes (the ``auto`` thresholds and frame
+    sizes are the JAX package's, measured on a TPU v5e)."""
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops.fir import IMPLS, auto_impl, fir_decimate, lowpass_taps
+
+    n = chunk_len(bench_cfg(FileFormat.COMPLEX_INT8))
+    spec, planes, bases, n_out = banded_inputs(FileFormat.COMPLEX_INT8, 32, 400, n, 0, SEED)
+    tables = fe.banded_tables(spec, device=DEVICE)
+    variants = {
+        "banded": lambda: fe.frontend_banded(planes, bases, tables, spec, n_out),
+        "plain_banded": lambda: fe.fused_frontend_reference(planes, bases, spec, n_out),
+    }
+    runs: dict[str, list[float]] = {k: [] for k in variants}
+    for k in list(variants) + list(reversed(variants)):
+        runs[k].append(time_ms(variants[k]))
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"  timing: the v1 kernel at one cs8 chunk of {n} samples, D 32, 400 taps ({card})")
+    for k, v in runs.items():
+        print(f"    {k:14s} {ms[k]:.4f} ms  (runs {', '.join(f'{x:.4f}' for x in v)})  {n / ms[k] / 1e3:.1f} Msps")
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for label, b, d, taps, n_out in FIR_SHAPES:
+        n_in = n_out * d + taps
+        x = torch.complex(torch.randn((b, n_in), generator=g, device=DEVICE),
+                          torch.randn((b, n_in), generator=g, device=DEVICE))
+        h = lowpass_taps(200_000 / SAMPLE_RATE, taps)
+        ref = fir_decimate(x, h, d, n_out, impl="polyphase")
+        line = []
+        for impl in IMPLS:
+            if impl == "direct" and taps > 1000:
+                line.append(f"{impl} not measured (its frames would take {b * n_out * taps * 8 / 2**30:.0f} GiB)")
+                continue
+            err = float((fir_decimate(x, h, d, n_out, impl=impl) - ref).abs().max())
+            t = time_ms(lambda: fir_decimate(x, h, d, n_out, impl=impl), iters=5)
+            ms[f"fir {impl} @ {label}"] = t
+            line.append(f"{impl} {t:.3f} ms ({b * n_in / t / 1e3:.0f} Msps in, |diff| vs polyphase {err:.1e})")
+        print(f"  fir_decimate at the {label}: {b} x {n_in} -> {n_out}, D {d}, {taps} taps, auto takes "
+              f"{auto_impl(taps, d, b * n_out)} ({card})")
+        for item in line:
+            print(f"    {item}")
+        del x, ref
+    return ms
+
+
 def phase_waterfall_timing(card: str, at_main: dict[str, tuple[float, float]]) -> dict[str, float]:
     """Phase 5, the bank: CUDA-event times of each waterfall kernel and
     its plain version at one full chunk, 64 streams x 2000 windows x 1024
@@ -643,14 +883,29 @@ def main() -> int:
             print("    " + line.strip())
     print("phase 3: kernels against their plain versions")
     at_main = phase_kernels()
+    at_main["frontend_banded"] = phase_banded_kernel()
     phase_waterfall_kernels()
     print("phase 4: the main paths")
-    launches = phase_main_path(card)
+    from quadrs_tpu_torch.ops import frontend as fe
+
+    fe.frontend_banded.launches = 0  # counts of the main paths only, from here
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "smoke.sr21M.cs8")
+        write_capture(cap, CAPTURE_SAMPLES)
+        launches = phase_main_path(card, cap, tmp)
+        phase_chain_path(card, cap, tmp)
     bank_launches, bank_err = phase_bank_path(card)
     launches.update(bank_launches)
+    # no path of the JAX package runs the v1 function, so no main path of
+    # the port may: it is held to its plain version in phases 3 and 5
+    launches["frontend_banded"] = fe.frontend_banded.launches
+    print(f"  frontend_banded: {launches['frontend_banded']} launches over the main paths")
+    if launches["frontend_banded"]:
+        raise AssertionError("a main path launched frontend_banded")
     at_main.update(bank_err)
     print("phase 5: timing")
     ms = phase_timing(card)
+    ms.update(phase_chain_timing(card))
     wf_ms = phase_waterfall_timing(card, at_main)
 
     # errors at the main paths' shapes: max_abs_err, and err_over_max
@@ -664,6 +919,9 @@ def main() -> int:
         {"name": "frontend_fir_stft", "route": "cuda", "source": src,
          "replaces": "quadrs_tpu/ops/frontend_pallas.py:513", "launches": launches["frontend_fir_stft"],
          "ms": ms["kernel2"], "plain_ms": ms["plain_stft_epilogue"]},
+        {"name": "frontend_banded", "route": "cuda", "source": src,
+         "replaces": "quadrs_tpu/ops/frontend_pallas.py:146", "launches": launches["frontend_banded"], "path": None,
+         "ms": ms["banded"], "plain_ms": ms["plain_banded"]},
     ]
     # each waterfall kernel at the stride of its main-path run
     for name, line, key in (("waterfall_norms", 149, "norms@1024"), ("waterfall_search", 219, "search@256"),

@@ -20,11 +20,15 @@ Stage 2 runs without the runner's background staging, so its total is
 longer than a run's wall time; it says what each stage costs, not how they
 overlap.  Stage 3 says how they overlap.
 
-Then the same three stages for the waterfall bank over ``chip_smoke.py``'s
-64 cs8 captures of 2^21 samples (1024 points, 2000-window chunks), for the
-CLI's three runs: ``waterfall`` (stride 1024, its sink the CLI's per-stream
-peak tracking and norms files), ``waterfall -stride 256 -search`` (the
-CLI's CSV lines) and ``scan -stride 256`` (the host's f64 totals).
+Then the same three stages for the reference chain's ``from CAP shift
+280k lowpass -power 200 -decimate 32 200k sparkfft -width 64 -stride 16``
+over the same capture (its Executor batches of 16384 windows; staging
+includes the host's planning, the sink is the glyph strings and their
+lines), and for the waterfall bank over ``chip_smoke.py``'s 64 cs8
+captures of 2^21 samples (1024 points, 2000-window chunks), for the CLI's
+three runs: ``waterfall`` (stride 1024, its sink the CLI's per-stream peak
+tracking and norms files), ``waterfall -stride 256 -search`` (the CLI's
+CSV lines) and ``scan -stride 256`` (the host's f64 totals).
 """
 
 from __future__ import annotations
@@ -168,6 +172,70 @@ def profile_bank(card: str) -> None:
             close()
 
 
+def profile_chain(card: str, path: str) -> None:
+    """The reference chain's sparkfft over the capture at ``path``: two
+    warm runs, the stage breakdown of its Executor batches, a profiled
+    warm run."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import _to_device, root_step_of, window_batches
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream import LowPass, Shift
+
+    stream = LowPass(Shift(open_capture(path), 280_000), 200_000, 32, 400)
+    src, width, stride = stream.root(), 64, 16
+    out = io.StringIO()
+
+    def run() -> float:
+        out.seek(0)
+        out.truncate()
+        t0 = time.perf_counter()
+        sinks.spark_fft(stream, width, stride, out=lambda line: print(line, file=out), device=cs.DEVICE)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()  # warm-up: page cache, cuFFT plans, allocator
+    for rep in range(2):
+        wall = run()
+        print(f"chain sparkfft warm run {rep}: {wall * 1e3:.2f} ms, {src.length / wall / 1e6:.1f} Msps ({card})")
+    offsets = np.arange(0, stream.length - width, stride, dtype=np.int64)
+    _, batches = window_batches(offsets, width, root_step=root_step_of(stream))
+
+    def staged():
+        for offs in batches:
+            lo = stream.span(int(offs.min()), width)[0]
+            s_off, s_n = stream.span(int(offs.max()), width)
+            yield src.stage(lo, s_off + s_n), stream.plan(offs, width, lo)
+
+    def upload(item):
+        planes, plan = item
+        ctx = {"buf": torch.from_numpy(planes).to(cs.DEVICE), "device": cs.DEVICE}
+        return 0, (ctx, _to_device(plan.prep, cs.DEVICE))
+
+    def step(ctx, prep):
+        return stft_norms(stream.read_batch(ctx, prep, width))
+
+    def sink(_, norms):
+        for line in sinks.glyph_rows(norms, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX):
+            print(f"│{line}│", file=out)
+
+    t = stage_breakdown(staged(), upload, step, sink, cs.DEVICE)
+    total = sum(t.values())
+    print(f"  sequential breakdown, {len(batches)} batches, total {total * 1e3:.2f} ms: "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in t.items()) + f" ({card})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run() * 1e3
+    busy, kinds = device_busy(prof)
+    print(f"  profiled warm run: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{100 * (1 - busy / wall):.1f}% ({card})")
+    for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms:9.3f} ms  {n:4d}x  {k}")
+
+
 def device_busy(prof) -> tuple[float, dict[str, list]]:
     """(union of the device's event intervals in ms, {kind: [ms, count]})."""
     from torch.autograd import DeviceType
@@ -232,6 +300,7 @@ def main() -> int:
                   f"idle share {100 * (1 - busy / wall):.1f}% ({card})")
             for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
                 print(f"  {ms:9.3f} ms  {n:4d}x  {k}")
+        profile_chain(card, path)
     profile_bank(card)
     return 0
 

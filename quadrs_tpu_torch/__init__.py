@@ -1,10 +1,16 @@
 """quadrs_tpu_torch — the PyTorch and CUDA port of quadrs_tpu.
 
+The reference command chain (``from``/``gen`` -> ``shift`` -> ``lowpass``
+-> ``sparkfft``/``bucket``/``write``): a lazy stream graph pulled window
+by window with the reference's per-read semantics, each batch of windows
+computed by torch ops on the device (:mod:`.pipeline`, :mod:`.sinks`).
+
 The streaming receiver chain (``stream``): raw IQ capture planes
 (cf32 / cs8 / cu8 / cs16) are decoded, shifted by an exact NCO, low-pass
 filtered with decimation and turned into fftshifted STFT magnitudes, or
-surveyed per bin (``stream -scan``).  Decode, mix and FIR run as one
-hand-written CUDA kernel for Hopper (``csrc/frontend.cu``).
+surveyed per bin (``stream -scan``).  Inside its envelope decode, mix and
+FIR run as one hand-written CUDA kernel for Hopper (``csrc/frontend.cu``);
+outside it, as torch ops (``ops/fir.fir_decimate``).
 
 The waterfall bank (``waterfall``, ``waterfall -search``, ``scan``):
 many captures decode, window and transform at once into spectrogram

@@ -1,26 +1,42 @@
 """The CLI grammar of the ported commands, mirroring the JAX package's
 parser (itself the reference's, ``src/args.rs``): a sequence of
 subcommands, each followed by ``-flag value`` pairs and then positional
-arguments.  Only ``stream`` is ported so far.
+arguments.
+
+    from [-sr R] [-format F] FILE  shift [-]FREQ  lowpass [-power P]
+    [-decimate D] FREQ  sparkfft [-width W] [-stride S] [-range LO:HI]
+    bucket [-width W] [-stride S] -by freq COUNT  write [-overwrite B]
+    PREFIX  gen [-cos F]* [-len SECS] RATE  stream ...  waterfall ...
+    scan ...
+
+``resample``, ``dcblock``, ``agc``, ``iqbal``, ``find``, ``ui`` and ``eui``
+parse as in the JAX package; running them raises "not yet ported".
 
 Parsing rules preserved from ``read_just_args`` (``src/args.rs:404-445``):
 flags are collected until the first non-flag token; a ``-``-prefixed
 token whose *third* character is a digit is treated as a negative-number
-positional rather than a flag; duplicate flags are rejected; numbers
-take SI suffixes.
+positional rather than a flag (so ``-500`` is a shift frequency but
+``-5k`` is read as a flag named ``5k``: the reference's quirk, kept);
+duplicate flags are rejected except for the repeatable ``gen -cos`` and
+``find -pattern``; numbers take SI suffixes.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterator, Sequence
 
+from quadrs_tpu_torch import pipeline as ops
 from quadrs_tpu_torch.utils.si import (
     parse_bool,
+    parse_plain_float,
+    parse_plain_uint,
     parse_si_float,
     parse_si_int,
     parse_si_uint,
 )
+from quadrs_tpu_torch.utils.sniff import guess_details
 
 
 class Command:
@@ -28,9 +44,52 @@ class Command:
 
 
 @dataclass
+class Octagon(Command):
+    """A pipeline operation command (the reference's naming, src/args.rs:14)."""
+
+    op: ops.Operation
+
+
+@dataclass
+class Ui(Command):
+    """``ui``: the waterfall renderer (parsed as in the JAX package; not
+    yet ported, ROADMAP A14)."""
+
+    fft_width: int = 8
+    stretch: int = 4
+    stride: int = 4
+    frames: int = 1
+    live: bool = False
+    rows: int | None = None
+    cols: int | None = None
+    stdin: bool = False
+    sample_rate: str | None = None
+    format: str | None = None
+
+
+@dataclass
+class Eui(Command):
+    """``eui``: the sliced waterfall renderer (parsed as in the JAX
+    package; not yet ported, ROADMAP A14)."""
+
+    filename: Path | None
+    start_pct: float = 46.0
+    end_pct: float = 46.3
+    fft_width: int = 512
+    frames: int = 1
+    live: bool = False
+    stride: int | None = None
+    rows: int | None = None
+    cols: int | None = None
+    stdin: bool = False
+    sample_rate: str | None = None
+    format: str | None = None
+
+
+@dataclass
 class StreamCmd(Command):
-    """``stream``: drive the fused shift -> lowpass -> STFT chain over a
-    capture file at full rate (the StreamRunner serving path)."""
+    """``stream``: drive the shift -> lowpass -> STFT chain over a capture
+    file at full rate (the StreamRunner serving path)."""
 
     filename: str | None
     shift: int = 0
@@ -331,7 +390,336 @@ def _parse_scan(args: _Args, raw_map) -> Command:
     )
 
 
+def _parse_from(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    filename = args.next()
+    if filename is None:
+        raise ValueError("'from' requires a filename argument")
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    _ensure_empty(map_, "from")
+    details = guess_details(filename, sr, fmt)
+    return Octagon(ops.From(details=details, filename=filename))
+
+
+def _parse_shift(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    _ensure_empty(map_, "shift")
+    freq = args.next()
+    if freq is None:
+        raise ValueError("'shift' requires a frequency argument")
+    return Octagon(ops.ShiftOp(frequency=parse_si_int(freq)))
+
+
+def _parse_lowpass(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    freq = args.next()
+    if freq is None:
+        raise ValueError("'lowpass' requires a frequency argument")
+    frequency = parse_si_uint(freq)
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 40
+    decimate = parse_si_uint(map_.pop("decimate", "8"))
+    _ensure_empty(map_, "lowpass")
+    return Octagon(ops.LowPassOp(size=size, decimate=decimate, frequency=frequency))
+
+
+def _parse_find(args: _Args, raw_map) -> Command:
+    # find keeps the repeatable -pattern (a template BANK, like gen -cos)
+    map_all = dict(raw_map)
+    patterns = map_all.pop("pattern", None)
+    map_ = _no_duplicates(map_all)
+    if patterns is None:
+        raise ValueError("'find' requires -pattern FILE (the template capture)")
+    threshold = parse_si_float(map_.pop("threshold", "0.5"))
+    if not 0.0 < threshold <= 1.0:
+        raise ValueError("-threshold must be in (0, 1]")
+    top = int(parse_si_uint(map_.pop("top", "0")))
+    distance = map_.pop("distance", None)
+    distance = None if distance is None else int(parse_si_uint(distance))
+    freq_tol = parse_si_float(map_.pop("freq-tol", "0"))
+    if freq_tol < 0:
+        raise ValueError("-freq-tol must be >= 0")
+    freq_step = map_.pop("freq-step", None)
+    freq_step = None if freq_step is None else parse_si_float(freq_step)
+    if freq_step is not None and freq_step <= 0:
+        raise ValueError("-freq-step must be positive")
+    stdin = parse_bool(map_.pop("stdin", "no"))
+    write = map_.pop("write", None)
+    wr_flags = {"pre", "post"} & set(map_)
+    if wr_flags and write is None:
+        raise ValueError(
+            f"-{sorted(wr_flags)[0]} requires 'find -write PREFIX'"
+        )
+    pre = int(parse_si_uint(map_.pop("pre", "0")))
+    post = int(parse_si_uint(map_.pop("post", "0")))
+    overwrite = parse_bool(map_.pop("overwrite", "no"))
+    if write is not None and stdin:
+        raise ValueError(
+            "find -write needs a seekable capture file, not -stdin"
+        )
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    mesh = map_.pop("mesh", None)
+    mesh = None if mesh is None else _parse_mesh(mesh)
+    if mesh is not None and mesh[1] != 1:
+        raise ValueError("find -mesh shards one capture: use T or Tx1")
+    if mesh is not None and stdin:
+        raise ValueError("find -mesh needs a capture file, not -stdin")
+    _ensure_empty(map_, "find")
+    if stdin:
+        # -sr/-format describe the PIPE (it has no name to sniff);
+        # the template files sniff from their own names
+        if sr is None or fmt is None:
+            raise ValueError("find -stdin requires -sr and -format")
+        details = tuple(guess_details(p, None, None) for p in patterns)
+    else:
+        details = tuple(guess_details(p, sr, fmt) for p in patterns)
+    return Octagon(
+        ops.FindOp(
+            details=details, filenames=tuple(patterns), threshold=threshold,
+            top=top, distance=distance, freq_tol=freq_tol,
+            freq_step=freq_step, stdin=stdin, sample_rate=sr, format=fmt,
+            write=write, pre=pre, post=post, overwrite=overwrite,
+            mesh=mesh,
+        )
+    )
+
+
+def _parse_resample(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    ratio = args.next()
+    if ratio is None:
+        raise ValueError("'resample' requires an UP/DOWN ratio argument")
+    if "/" not in ratio:
+        raise ValueError(f"resample ratio must be UP/DOWN (e.g. 3/2): '{ratio}'")
+    up_s, down_s = ratio.split("/", 1)
+    up, down = int(parse_si_uint(up_s)), int(parse_si_uint(down_s))
+    if up == 0 or down == 0:
+        raise ValueError(f"resample ratio terms must be positive: '{ratio}'")
+    power = map_.pop("power", None)
+    size = map_.pop("size", None)
+    if power is not None and size is not None:
+        raise ValueError("resample takes -power or -size, not both")
+    _ensure_empty(map_, "resample")
+    return Octagon(
+        ops.ResampleOp(
+            up=up,
+            down=down,
+            size=int(parse_si_uint(size)) if size is not None else None,
+            power=int(parse_si_uint(power)) if power is not None else 8,
+        )
+    )
+
+
+def _parse_dcblock(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    window = int(parse_si_uint(map_.pop("window", "32k")))
+    if window < 1:
+        raise ValueError("-window must be at least 1")
+    _ensure_empty(map_, "dcblock")
+    return Octagon(ops.DcBlockOp(window=window))
+
+
+def _parse_agc(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    target = parse_si_float(map_.pop("target", "1"))
+    if target <= 0:
+        raise ValueError("-target must be positive")
+    window = int(parse_si_uint(map_.pop("window", "4k")))
+    if window < 1:
+        raise ValueError("-window must be at least 1")
+    max_gain = parse_si_float(map_.pop("max-gain", "1k"))
+    if max_gain <= 0:
+        raise ValueError("-max-gain must be positive")
+    _ensure_empty(map_, "agc")
+    return Octagon(ops.AgcOp(target=target, window=window, max_gain=max_gain))
+
+
+def _parse_iqbal(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    c_raw = map_.pop("c", None)
+    c: complex | None = None
+    if c_raw is not None:
+        if ":" not in c_raw:
+            raise ValueError(f"-c must be RE:IM (e.g. 0.01:-0.002): '{c_raw}'")
+        re_s, im_s = c_raw.split(":", 1)
+        c = complex(parse_plain_float(re_s), parse_plain_float(im_s))
+    est = int(parse_si_uint(map_.pop("est", "256k")))
+    if c_raw is not None and "est" in raw_map:
+        raise ValueError("iqbal takes -c or -est, not both")
+    if est < 2:
+        raise ValueError("-est must be at least 2")
+    _ensure_empty(map_, "iqbal")
+    return Octagon(ops.IqbalOp(c=c, est=est))
+
+
+def _parse_sparkfft(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    width = int(parse_si_uint(map_.pop("width", "128")))
+    stride = parse_si_uint(map_.pop("stride", str(width)))
+    min_ = max_ = None
+    rng = map_.pop("range", None)
+    if rng is not None:
+        if ":" not in rng:
+            raise ValueError(f"range argument must contain a ':': '{rng}'")
+        lo, hi = rng.split(":", 1)
+        min_, max_ = parse_plain_float(lo), parse_plain_float(hi)
+    _ensure_empty(map_, "sparkfft")
+    return Octagon(ops.SparkFftOp(width=width, stride=stride, min=min_, max=max_))
+
+
+def _parse_bucket(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    levels = args.next()
+    if levels is None:
+        raise ValueError("bucket usage: bucket -by freq [number-of-buckets]")
+    levels = parse_plain_uint(levels)  # no SI suffix (src/args.rs:225-228)
+    width = int(parse_si_uint(map_.pop("width", "128")))
+    stride = parse_si_uint(map_.pop("stride", str(width)))
+    by = map_.pop("by", None)
+    if by != "freq":
+        raise ValueError(f"must bucket -by freq, not {by!r}")
+    _ensure_empty(map_, "bucket")
+    return Octagon(ops.BucketOp(fft_width=width, stride=stride, levels=levels))
+
+
+def _parse_write(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    overwrite = parse_bool(map_.pop("overwrite", "false"))
+    fmt = map_.pop("format", None)
+    if fmt is not None and fmt not in ("cf32", "cs8", "cu8", "cs16"):
+        raise ValueError(f"unknown -format: {fmt!r} (cf32|cs8|cu8|cs16)")
+    _ensure_empty(map_, "write")
+    prefix = args.next()
+    if prefix is None:
+        raise ValueError("'write' requires a filename prefix argument")
+    return Octagon(ops.WriteOp(overwrite=overwrite, prefix=prefix, format=fmt))
+
+
+def _parse_gen(args: _Args, raw_map) -> Command:
+    # gen keeps the repeatable -cos (src/args.rs:35,273-307)
+    map_ = dict(raw_map)
+    cos_vals = map_.pop("cos", None)
+    if cos_vals is None:
+        raise ValueError("gen requires at least one operation")
+    cos = [parse_si_int(v) for v in cos_vals]
+    len_vals = map_.pop("len", None)
+    if len_vals is None:
+        seconds = 1.0
+    elif len(len_vals) == 1:
+        seconds = parse_si_float(len_vals[0])
+    else:
+        raise ValueError("len requires exactly one value")
+
+    def _one(name: str, default: str) -> str:
+        vals = map_.pop(name, None)
+        if vals is None:
+            return default
+        if len(vals) != 1:
+            raise ValueError(f"{name} requires exactly one value")
+        return vals[0]
+
+    noise = parse_si_float(_one("noise", "0"))
+    if noise < 0:
+        raise ValueError("-noise must be >= 0")
+    seed = int(parse_si_uint(_one("seed", "0")))
+    _ensure_empty(map_, "gen")
+    rate = args.next()
+    if rate is None:
+        raise ValueError("sample rate argument required")
+    sample_rate = parse_si_uint(rate)
+    return Octagon(
+        ops.GenOp(
+            seconds=seconds, sample_rate=sample_rate, cos=cos,
+            noise=noise, seed=seed,
+        )
+    )
+
+
+def _parse_ui(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    fft_width = int(parse_si_uint(map_.pop("fft", "8")))
+    stretch = int(parse_si_uint(map_.pop("stretch", "4")))
+    stride = int(parse_si_uint(map_.pop("stride", "4")))
+    frames = int(parse_si_uint(map_.pop("frames", "1")))
+    live = parse_bool(map_.pop("live", "no"))
+    rows = map_.pop("rows", None)
+    rows = None if rows is None else int(parse_si_uint(rows))
+    cols = map_.pop("cols", None)
+    cols = None if cols is None else int(parse_si_uint(cols))
+    stdin = parse_bool(map_.pop("stdin", "no"))
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    if stdin:
+        if not live:
+            raise ValueError("'ui -stdin yes' requires -live yes (a pipe "
+                             "cannot back the PNG renderer)")
+        if sr is None or fmt is None:
+            raise ValueError("'ui -stdin yes' requires -sr and -format")
+    _ensure_empty(map_, "ui")
+    return Ui(
+        fft_width=fft_width, stretch=stretch, stride=stride, frames=frames,
+        live=live, rows=rows, cols=cols, stdin=stdin, sample_rate=sr,
+        format=fmt,
+    )
+
+
+def _parse_eui(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    start = parse_si_float(map_.pop("start", "46.0"))
+    end = parse_si_float(map_.pop("end", "46.3"))
+    fft_width = int(parse_si_uint(map_.pop("fft", "512")))
+    frames = int(parse_si_uint(map_.pop("frames", "1")))
+    live = parse_bool(map_.pop("live", "no"))
+    stride = map_.pop("stride", None)
+    stride = None if stride is None else int(parse_si_uint(stride))
+    rows = map_.pop("rows", None)
+    rows = None if rows is None else int(parse_si_uint(rows))
+    cols = map_.pop("cols", None)
+    cols = None if cols is None else int(parse_si_uint(cols))
+    stdin = parse_bool(map_.pop("stdin", "no"))
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    if stdin:
+        if not live:
+            raise ValueError("'eui -stdin yes' requires -live yes (a pipe "
+                             "cannot be percentage-sliced for a PNG render)")
+        if sr is None or fmt is None:
+            raise ValueError("'eui -stdin yes' requires -sr and -format")
+    map_.clear()  # reference eui drops any other flags silently
+    filename = args.next() if not stdin else None
+    return Eui(
+        filename=None if filename is None else Path(filename),
+        start_pct=start,
+        end_pct=end,
+        fft_width=fft_width,
+        frames=frames,
+        live=live,
+        stride=stride,
+        rows=rows,
+        cols=cols,
+        stdin=stdin,
+        sample_rate=sr,
+        format=fmt,
+    )
+
+
 _PARSERS = {
+    "from": _parse_from,
+    "shift": _parse_shift,
+    "lowpass": _parse_lowpass,
+    "resample": _parse_resample,
+    "dcblock": _parse_dcblock,
+    "agc": _parse_agc,
+    "iqbal": _parse_iqbal,
+    "sparkfft": _parse_sparkfft,
+    "bucket": _parse_bucket,
+    "find": _parse_find,
+    "write": _parse_write,
+    "gen": _parse_gen,
+    "ui": _parse_ui,
+    "eui": _parse_eui,
     "stream": _parse_stream,
     "waterfall": _parse_waterfall,
     "scan": _parse_scan,

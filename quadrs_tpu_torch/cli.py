@@ -1,13 +1,15 @@
 """Command-line entry point: ``python -m quadrs_tpu_torch``.
 
-Parses argv into commands, prints usage on error or when empty, then runs
-each command on the device ``QUADRS_PLATFORM`` names: ``cpu``, or
-``cuda`` (the default).  With CUDA asked for and none available the run
-fails; it never carries on silently on the CPU.
+Mirrors ``quadrs_tpu.cli`` (itself ``src/bin/quadrs.rs``): parse argv into
+commands, print usage on error or when empty, then fold the commands
+over the stream accumulator, on the device ``QUADRS_PLATFORM`` names:
+``cpu``, or ``cuda`` (the default).  With CUDA asked for and none
+available the run fails; it never carries on silently on the CPU.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 
@@ -15,9 +17,18 @@ import torch
 
 from quadrs_tpu_torch import args as argmod
 from quadrs_tpu_torch import serve
+from quadrs_tpu_torch.ops.frontend import no_tf32
+from quadrs_tpu_torch.pipeline import run_pipeline
 
 USAGE = """\
 usage: {us} \\
+    from [-sr SAMPLE_RATE] [-format cf32|cs8|cu8|cs16] FILENAME.sr32k.cf32 \\
+   shift [-]FREQUENCY \\
+ lowpass [-power 20] [-decimate 8] FREQUENCY \\
+sparkfft [-width 128] [-stride =width] [-range LOW:HIGH] \\
+  bucket [-width 128] [-stride =width] [-by freq] COUNT \\
+   write [-overwrite no] [-format cf32|cs8|cu8|cs16 (quantize; default cf32)] FILENAME_PREFIX \\
+     gen [-cos FREQUENCY]* [-len 1 (second)] [-noise 0 (sigma/component, seeded)] [-seed 0] SAMPLE_RATE \\
   stream [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] \\
          [-chunk 4M] [-chunks N] [-search no] [-scan no] [-threshold 0] [-top 20] \\
          [-db no] [-out PREFIX] FILENAME \\
@@ -27,8 +38,8 @@ waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
          [-threshold 0 (occupancy level)] [-top 20] [-db no] [-out PREFIX (full \\
          per-bin CSV)] [-overwrite no] FILENAME...
 
-(-mesh and -stdin, stream -trigger and scan -plot parse as in quadjax but are
-not yet ported.)
+(resample, dcblock, agc, iqbal, find, ui and eui, and -mesh, -stdin, stream
+-trigger and scan -plot, parse as in quadjax but are not yet ported.)
 
 Formats:
 
@@ -59,6 +70,7 @@ def select_device() -> torch.device:
             "CUDA is not available (torch.cuda.is_available() is False); "
             "set QUADRS_PLATFORM=cpu to run on the CPU"
         )
+    no_tf32()
     return torch.device("cuda")
 
 
@@ -78,12 +90,22 @@ def main(argv: list[str] | None = None) -> int:
         print("Error: no commands provided", file=sys.stderr)
         return 1
 
+    stream = None
     try:
         device = select_device()
-        for command in commands:
-            rc = _RUNNERS[type(command)](command, device)
-            if rc:
-                return rc
+        # each run of chainable commands folds over the accumulator, which
+        # carries across the runner commands between them
+        for chained, group in itertools.groupby(commands, key=lambda c: isinstance(c, argmod.Octagon)):
+            if chained:
+                stream = run_pipeline([c.op for c in group], device=device, stream=stream)
+                continue
+            for command in group:
+                if isinstance(command, (argmod.Ui, argmod.Eui)):
+                    name = "ui" if isinstance(command, argmod.Ui) else "eui"
+                    raise NotImplementedError(f"{name} is not yet ported to quadrs_tpu_torch (ROADMAP A14)")
+                rc = _RUNNERS[type(command)](command, device)
+                if rc:
+                    return rc
     except (ValueError, RuntimeError, OSError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

@@ -4,8 +4,23 @@
 //
 // Replaces the TPU kernel quadrs_tpu/ops/frontend_pallas.py::_kernel_t, as
 // launched by fused_frontend_t without stft_width (frontend_fir below) and
-// with it (frontend_fir_stft).  The Python wrapper and the plain PyTorch
-// version of the same function are in quadrs_tpu_torch/ops/frontend.py.
+// with it (frontend_fir_stft); and the v1 kernel frontend_pallas.py::_kernel,
+// as launched by fused_frontend (frontend_banded).  The Python wrappers and
+// the plain PyTorch versions of the same functions are in
+// quadrs_tpu_torch/ops/frontend.py.
+//
+// The v1 function differs from the first two only in its mix and its phase
+// tiles: each sample rotates by cosf/sinf(base[t] + delta[q]) of its own
+// angle (an f32 sum, accurate trig per element; delta is the host-exact
+// in-tile angle table), tiles are 2048 outputs, and any filter length is
+// taken as long as the staged span fits in shared memory.  The TPU ran it
+// as a banded matmul, lhs (16, span) @ W (span, 128) with W[p, l] =
+// h[p - l*D]; nine tenths of W are zeros, and the 16-row lhs assembly is a
+// VMEM artefact.  Here it is the same polyphase body as kernel 1 (the
+// multiply-adds of the band's nonzeros only), with the per-element trig in
+// the staging loop: at D 32 and 400 taps that is two accurate
+// transcendentals per input sample beside 26 FMAs, so the trig, not the
+// FIR, is the larger share of the staging work.
 //
 // What bounds it on the H100.  Each decimated output costs 2*K FMAs
 // (re and im, K = ceil(taps/D)*D padded taps) and reads D new input
@@ -58,7 +73,10 @@ namespace {
 
 using qt::decode;
 
-template <typename T, bool STFT>
+// ANGLE: the v1 mix, cosf/sinf(base + tab_cos[q]) per element (tab_cos holds
+// the in-tile angles, tab_sin is unused); otherwise the host cos/sin tables
+// rotated by the tile's base angle.
+template <typename T, bool STFT, bool ANGLE>
 __global__ void __launch_bounds__(256) frontend_kernel(
     const T* __restrict__ re, const T* __restrict__ im, long long n_ok,
     const float* __restrict__ bases, const float* __restrict__ tab_cos,
@@ -90,10 +108,17 @@ __global__ void __launch_bounds__(256) frontend_kernel(
       a = decode(re[p]);
       b = decode(im[p]);
     }
-    const float cd = tab_cos[q0 + s];
-    const float sd = tab_sin[q0 + s];
-    const float c = __fsub_rn(__fmul_rn(cd, cb), __fmul_rn(sd, sb));
-    const float sn = __fadd_rn(__fmul_rn(sd, cb), __fmul_rn(cd, sb));
+    float c, sn;
+    if constexpr (ANGLE) {
+      const float theta = __fadd_rn(base, tab_cos[q0 + s]);
+      c = cosf(theta);
+      sn = sinf(theta);
+    } else {
+      const float cd = tab_cos[q0 + s];
+      const float sd = tab_sin[q0 + s];
+      c = __fsub_rn(__fmul_rn(cd, cb), __fmul_rn(sd, sb));
+      sn = __fadd_rn(__fmul_rn(sd, cb), __fmul_rn(cd, sb));
+    }
     const int col = s / d;
     const int dd = s - col * d;
     xr[dd * row + col] = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, sn));
@@ -159,7 +184,7 @@ __global__ void __launch_bounds__(256) frontend_kernel(
   if (i < n_out) norms[i] = sqrtf(zr * zr + zi * zi);
 }
 
-template <typename T, bool STFT>
+template <typename T, bool STFT, bool ANGLE>
 int launch(int device, const void* re, const void* im, long long n_ok,
            const float* bases, const float* tab_cos, const float* tab_sin,
            const float* h, int d, int m_sub, int tout, int bout,
@@ -177,7 +202,7 @@ int launch(int device, const void* re, const void* im, long long n_ok,
        (STFT ? 2 * static_cast<size_t>(bout) + 2 * static_cast<size_t>(width)
              : 0)) *
       sizeof(float);
-  auto kern = frontend_kernel<T, STFT>;
+  auto kern = frontend_kernel<T, STFT, ANGLE>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -191,17 +216,17 @@ int launch(int device, const void* re, const void* im, long long n_ok,
 }
 
 // fmt codes: 0 cf32 (float), 1 cs8 (int8), 2 cu8 (uint8), 3 cs16 (int16)
-template <bool STFT>
+template <bool STFT, bool ANGLE>
 int dispatch(int fmt, int device, const void* re, const void* im,
              long long n_ok, const float* bases, const float* tab_cos,
              const float* tab_sin, const float* h, int d, int m_sub, int tout,
              int bout, long long n_out, float* out_re, float* out_im,
              const float* tw_cos, const float* tw_sin, int width,
              float* norms, void* stream) {
-#define QT_LAUNCH(T)                                                         \
-  launch<T, STFT>(device, re, im, n_ok, bases, tab_cos, tab_sin, h, d,       \
-                  m_sub, tout, bout, n_out, out_re, out_im, tw_cos, tw_sin, \
-                  width, norms, stream)
+#define QT_LAUNCH(T)                                                        \
+  launch<T, STFT, ANGLE>(device, re, im, n_ok, bases, tab_cos, tab_sin, h, \
+                         d, m_sub, tout, bout, n_out, out_re, out_im,       \
+                         tw_cos, tw_sin, width, norms, stream)
   switch (fmt) {
     case 0: return QT_LAUNCH(float);
     case 1: return QT_LAUNCH(int8_t);
@@ -222,9 +247,10 @@ int qt_frontend_fir(int fmt, int device, const void* re, const void* im,
                     const float* tab_sin, const float* h, int d, int m_sub,
                     int tout, int bout, long long n_out, float* out_re,
                     float* out_im, void* stream) {
-  return dispatch<false>(fmt, device, re, im, n_ok, bases, tab_cos, tab_sin,
-                         h, d, m_sub, tout, bout, n_out, out_re, out_im,
-                         nullptr, nullptr, 0, nullptr, stream);
+  return dispatch<false, false>(fmt, device, re, im, n_ok, bases, tab_cos,
+                                tab_sin, h, d, m_sub, tout, bout, n_out,
+                                out_re, out_im, nullptr, nullptr, 0, nullptr,
+                                stream);
 }
 
 // Kernel 2: (n_out / width, width) f32 fftshifted STFT norms into norms.
@@ -235,9 +261,22 @@ int qt_frontend_fir_stft(int fmt, int device, const void* re, const void* im,
                          long long n_out, const float* tw_cos,
                          const float* tw_sin, int width, float* norms,
                          void* stream) {
-  return dispatch<true>(fmt, device, re, im, n_ok, bases, tab_cos, tab_sin, h,
-                        d, m_sub, tout, bout, n_out, nullptr, nullptr, tw_cos,
-                        tw_sin, width, norms, stream);
+  return dispatch<true, false>(fmt, device, re, im, n_ok, bases, tab_cos,
+                               tab_sin, h, d, m_sub, tout, bout, n_out,
+                               nullptr, nullptr, tw_cos, tw_sin, width, norms,
+                               stream);
+}
+
+// Kernel 3 (v1): (2, n_out) f32 decimated planes into out_re / out_im, the
+// mix by cosf/sinf(bases[t] + delta[q]) per element, tout outputs per tile.
+int qt_frontend_banded(int fmt, int device, const void* re, const void* im,
+                       long long n_ok, const float* bases, const float* delta,
+                       const float* h, int d, int m_sub, int tout, int bout,
+                       long long n_out, float* out_re, float* out_im,
+                       void* stream) {
+  return dispatch<false, true>(fmt, device, re, im, n_ok, bases, delta,
+                               nullptr, h, d, m_sub, tout, bout, n_out, out_re,
+                               out_im, nullptr, nullptr, 0, nullptr, stream);
 }
 
 const char* qt_error_string(int code) {

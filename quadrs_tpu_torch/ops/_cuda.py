@@ -47,6 +47,7 @@ _SIGNATURES = {
     "qt_frontend_fir_stft": (
         _I, _I, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _I, _P, _P,
     ),
+    "qt_frontend_banded": (_I, _I, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _P),
     "qt_waterfall_norms": (*_WATERFALL, _P, _P),
     "qt_waterfall_search": (*_WATERFALL, _P, _P, _P),
     "qt_waterfall_scan": (*_WATERFALL, _F, _P, _P, _P),

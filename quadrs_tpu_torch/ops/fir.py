@@ -1,16 +1,48 @@
-"""FIR low-pass taps, and overlapped framing.
+"""FIR low-pass taps and the decimating convolution.
 
 Tap math mirrors the reference exactly in f32 (``src/filter.rs:86-105``):
 Blackman-windowed sinc, normalized to unit sum.  The decimating
-convolution itself runs inside the fused frontend (:mod:`.frontend`).
+convolution evaluates the reference's indexing
+
+    y[i] = sum_{j=0}^{N-1} x[i*D + ceil(N/2) + j] * h[j]
+
+(``convoluted[N + i*D]`` of ``src/filter.rs:78-80`` expressed directly).
+Out-of-block taps contribute zero: callers pre-mask the block at its
+valid extent, matching ``complex_convolve``'s bounds-skip
+(``src/filter.rs:116``).
+
+The counterpart of ``quadrs_tpu.ops.fir``, in plain torch ops (cuBLAS
+and cuFFT on the card), with its five implementations:
+
+* ``direct``: overlapping frames, one ``(B*n_out, N) @ (N,)`` product
+  per real plane;
+* ``polyphase``: ``M = ceil(N/D)`` phase subfilters, one ``(..., D) @
+  (D, M)`` product, then ``M`` shifted adds;
+* ``banded``: 128 outputs per row of one dense banded product;
+* ``overlap_save``: blockwise FFT correlation at the full rate;
+* ``os_poly``: polyphase overlap-save, every FFT at the decimated rate
+  (on ``torch.fft``: the JAX package's MXU factorization of these FFTs is
+  a TPU layout and is not ported).
+
+The frame sizes and the ``auto`` thresholds are the JAX package's, which
+were measured on a TPU v5e; they change outputs only by rounding, and
+keeping them keeps the parity tests tight.  Matrix products run in full
+f32: ``torch.backends.cuda.matmul.allow_tf32`` must stay False (the CLI
+sets it so), and nothing here uses ``conv1d``, which cuDNN would run in
+TF32 by default.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 _PI32 = np.float32(np.pi)
+
+IMPLS = ("direct", "polyphase", "banded", "overlap_save", "os_poly")
+_SPECTRAL = ("overlap_save", "os_poly")
 
 
 def overlapped_frames(x: torch.Tensor, hop: int, m: int, n_frames: int) -> torch.Tensor:
@@ -55,3 +87,177 @@ def lowpass_taps(cutoff: float, size: int) -> np.ndarray:
 
     taps = (sinc * window).astype(np.float32)
     return (taps / taps.sum(dtype=np.float32)).astype(np.float32)
+
+
+def is_spectral(size: int, d: int) -> bool:
+    """True when ``auto`` routes a (taps, decimate) pair to a
+    frequency-domain impl: more than 64 polyphase subfilters.  The
+    receiver premixes the NCO into complex taps exactly when this holds."""
+    return -(-size // d) > 64
+
+
+def auto_impl(size: int, d: int, total_out: int) -> str:
+    """The impl ``auto`` takes for ``size`` taps at decimation ``d`` and
+    ``total_out`` outputs over the batch (the JAX package's v5e rule)."""
+    if is_spectral(size, d):
+        return "os_poly"
+    if d >= 4:
+        return "banded" if total_out >= (1 << 17) else "polyphase"
+    return "direct"
+
+
+def _planes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on the real and imaginary planes of complex ``x``, real ``w``."""
+    return torch.complex(torch.matmul(x.real, w), torch.matmul(x.imag, w))
+
+
+def fir_decimate(
+    x: torch.Tensor,
+    taps: np.ndarray,
+    decimate: int,
+    n_out: int,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Decimating FIR over a batch of blocks.
+
+    ``x``: (B, n_in) complex64 with ``n_in = n_out*decimate + len(taps)``
+    (shorter blocks count as zero-padded); entries past each block's
+    valid extent must already be zero.  Returns (B, n_out) complex64 on
+    ``x``'s device.  ``taps`` may be complex64 (a modulated band-pass
+    filter): the spectral impls take it as it is, the time-domain impls
+    as two real passes.
+    """
+    taps = np.asarray(taps)
+    if not np.iscomplexobj(taps):
+        taps = taps.astype(np.float32)
+    size = len(taps)
+    d = int(decimate)
+    if impl == "auto":
+        impl = auto_impl(size, d, int(x.shape[0]) * n_out)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown fir impl: {impl}")
+
+    if np.iscomplexobj(taps) and impl not in _SPECTRAL:
+        # after auto resolves: a time-domain impl would otherwise drop the
+        # imaginary part
+        hr = np.ascontiguousarray(taps.real, dtype=np.float32)
+        hi = np.ascontiguousarray(taps.imag, dtype=np.float32)
+        return fir_decimate(x, hr, d, n_out, impl=impl) + 1j * fir_decimate(x, hi, d, n_out, impl=impl)
+
+    # drop the group-delay prefix ceil(N/2) and cover the last frame
+    needed = (n_out - 1) * d + size
+    x = x[:, size - size // 2 :]
+    if x.shape[1] < needed:
+        x = torch.nn.functional.pad(x, (0, needed - x.shape[1]))
+    dev = x.device
+
+    if impl == "direct":
+        frames = overlapped_frames(x, d, size, n_out)  # (B, n_out, size)
+        return _planes(frames, torch.as_tensor(taps, device=dev))
+
+    if impl == "polyphase":
+        m = -(-size // d)
+        h = np.zeros(m * d, dtype=np.float32)
+        h[:size] = taps
+        hp = torch.as_tensor(np.ascontiguousarray(h.reshape(m, d).T), device=dev)  # (d, m)
+        t = -(-x.shape[1] // d)
+        if x.shape[1] < t * d:
+            x = torch.nn.functional.pad(x, (0, t * d - x.shape[1]))
+        c = _planes(x.reshape(x.shape[0], t, d), hp)  # (B, t, m)
+        out = c[:, 0:n_out, 0]
+        for k in range(1, m):
+            out = out + c[:, k : k + n_out, k]
+        return out
+
+    if impl == "banded":
+        return _banded(x, taps, d, n_out)
+    if impl == "overlap_save":
+        return _overlap_save(x, taps, d, n_out)
+    return _overlap_save_poly(x, taps, d, n_out)
+
+
+@functools.lru_cache(maxsize=16)
+def banded_weights(taps_key: bytes, d: int) -> np.ndarray:
+    """(span_p, 128) banded matrix ``W[p, l] = h[p - l*d]``: 128 decimated
+    outputs per row of input span.  ``taps_key``: the f32 taps' bytes."""
+    taps = np.frombuffer(taps_key, dtype=np.float32)
+    size = len(taps)
+    span = 127 * d + size
+    span_p = -(-span // 128) * 128
+    w = np.zeros((span_p, 128), dtype=np.float32)
+    for l in range(128):
+        w[l * d : l * d + size, l] = taps
+    w.setflags(write=False)
+    return w
+
+
+def _banded(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) -> torch.Tensor:
+    """One dense banded product: groups of 128 outputs share one input
+    span, ``(B, groups, span) @ (span, 128)``."""
+    w = banded_weights(taps.astype(np.float32).tobytes(), d)
+    groups = -(-n_out // 128)
+    lhs = overlapped_frames(x, 128 * d, w.shape[0], groups)  # (B, groups, span_p)
+    y = _planes(lhs, torch.tensor(w, device=x.device))  # (B, groups, 128)
+    return y.reshape(x.shape[0], groups * 128)[:, :n_out]
+
+
+def _correlation_spectrum(h: np.ndarray, n: int, axis: int = -1) -> np.ndarray:
+    """``sum_j h[j] e^{+2 pi i j k / n} = conj(FFT(conj(h)))`` in f64: a
+    product with it correlates; the inner conj makes complex taps right."""
+    return np.conj(np.fft.fft(np.conj(h.astype(np.complex128)), n=n, axis=axis))
+
+
+def _overlap_save_poly(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) -> torch.Tensor:
+    """Polyphase overlap-save: split tap index ``j = q*d + r`` so that
+    ``y[i] = sum_r corr(x_r, h_r)[i]`` with ``x_r[n] = x[n*d + r]`` and
+    ``h_r[q] = h[q*d + r]``; every FFT runs at the decimated rate and the
+    phase spectra sum before the one inverse transform."""
+    size = len(taps)
+    md = -(-size // d)  # decimated-domain subfilter length
+    # the JAX package's frame: a 128K-sample raw frame, capped at 4096
+    # bins, floored by 2x the subfilter, never past one frame of outputs
+    base = max(min(131072 // d, 4096), 512)
+    m2 = 1 << (max(2 * md, min(base, n_out + md - 1)) - 1).bit_length()
+    hop2 = m2 - md + 1  # valid correlation outputs per frame
+    n_frames = -(-n_out // hop2)
+
+    hp = np.zeros((md * d,), dtype=np.complex128)
+    hp[:size] = taps
+    h_f = _correlation_spectrum(hp.reshape(md, d), m2, axis=0).T  # (d, m2)
+    hf = torch.complex(
+        torch.tensor(h_f.real.astype(np.float32), device=x.device),
+        torch.tensor(h_f.imag.astype(np.float32), device=x.device),
+    )
+
+    # raw frames at stride hop2*d; (m2, d) makes the phase split a view
+    frames = overlapped_frames(x, hop2 * d, m2 * d, n_frames)  # (B, F, m2*d)
+    b = x.shape[0]
+    ph = frames.reshape(b, n_frames, m2, d).transpose(2, 3)  # (B, F, d, m2)
+    acc = torch.sum(torch.fft.fft(ph) * hf, dim=2)  # (B, F, m2)
+    y = torch.fft.ifft(acc)[:, :, :hop2]
+    return y.reshape(b, n_frames * hop2)[:, :n_out]
+
+
+def _overlap_save(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) -> torch.Tensor:
+    """Frequency-domain decimating correlation over overlapped frames of
+    ``x`` (group-delay prefix already dropped):
+    ``y[i] = sum_j x[i*d + j] h[j]``."""
+    size = len(taps)
+    # the JAX package's frame: a power of two past ~4x the filter
+    m = 1 << max(size * 4 - 1, 4096).bit_length()
+    hop = ((m - size + 1) // d) * d
+    if hop <= 0:
+        raise ValueError("filter too long for overlap-save frame")
+    n_frames = -(-(n_out * d) // hop)
+
+    h_f = _correlation_spectrum(taps, m)
+    hf = torch.complex(
+        torch.tensor(h_f.real.astype(np.float32), device=x.device),
+        torch.tensor(h_f.imag.astype(np.float32), device=x.device),
+    )
+    frames = overlapped_frames(x, hop, m, n_frames)  # (B, n_frames, m)
+    corr = torch.fft.ifft(torch.fft.fft(frames) * hf)
+    # linear-valid decimated outputs of each frame: 0, d, ..., hop-d
+    picks = corr[:, :, 0:hop:d]
+    return picks.reshape(x.shape[0], n_frames * (hop // d))[:, :n_out]

@@ -1,13 +1,15 @@
 """Fused frontend: decode -> exact NCO mix -> polyphase decimating FIR,
 optionally followed by the fftshifted STFT magnitudes.
 
-The counterpart of ``quadrs_tpu.ops.frontend_pallas.fused_frontend_t``,
-with the same arguments and outputs.  On a CUDA tensor it launches the
-hand-written kernels of ``csrc/frontend.cu`` (:func:`frontend_fir`,
-:func:`frontend_fir_stft`); on a CPU tensor it runs
-:func:`fused_frontend_t_reference`, the plain PyTorch version of the same
-function.  A CUDA tensor never reaches the plain version through
-:func:`fused_frontend_t`, and no failure falls back to it.
+The counterpart of ``quadrs_tpu.ops.frontend_pallas``: ``fused_frontend_t``
+and, at the end of this module, the v1 ``fused_frontend``, with the same
+arguments and outputs.  On a CUDA tensor they launch the hand-written
+kernels of ``csrc/frontend.cu`` (:func:`frontend_fir`,
+:func:`frontend_fir_stft`, :func:`frontend_banded`); on a CPU tensor they
+run :func:`fused_frontend_t_reference` and :func:`fused_frontend_reference`,
+the plain PyTorch versions of the same functions.  A CUDA tensor never
+reaches a plain version through the entry points, and no failure falls
+back to one.
 
 Phase planning is the JAX package's, unchanged: ``tout`` decimated
 outputs form one phase tile with its own host-exact base angle
@@ -195,8 +197,11 @@ def _block_outputs(decimate: int) -> int:
     return 256 if decimate <= 32 else 128
 
 
-def _check_launch(planes, bases, tables, spec, n_out, n_ok, stft_width):
-    """Raise unless every input is what the kernel takes."""
+def _check_inputs(planes, spec: FrontendSpec, n_ok: int, want: dict) -> None:
+    """Raise unless ``planes`` are (2, n) native planes on a CUDA device
+    with unit stride, ``0 <= n_ok <= n``, and each of ``want``'s
+    ``name: (tensor, shape)`` is a contiguous f32 tensor of that shape on
+    the same device."""
     dev = planes.device
     if dev.type != "cuda":
         raise ValueError(f"the frontend kernel takes CUDA tensors, got {dev}")
@@ -212,16 +217,6 @@ def _check_launch(planes, bases, tables, spec, n_out, n_ok, stft_width):
     if not 0 <= n_ok <= planes.shape[1]:
         # the kernel reads every sample below n_ok
         raise ValueError(f"n_ok {n_ok} outside [0, {planes.shape[1]}]")
-    d, tout = spec.decimate, _tout_t(spec)
-    want = {
-        "bases": (bases, (-(-n_out // tout),)),
-        "hp": (tables.hp, (max(8, -(-spec.m_sub // 8) * 8), d)),
-        "cos": (tables.cos, ((tout + _HALO) * d,)),
-        "sin": (tables.sin, ((tout + _HALO) * d,)),
-    }
-    if stft_width is not None:
-        want["stft_cos"] = (tables.stft_cos, (stft_width,))
-        want["stft_sin"] = (tables.stft_sin, (stft_width,))
     for name, (x, shape) in want.items():
         if (
             x is None
@@ -234,6 +229,21 @@ def _check_launch(planes, bases, tables, spec, n_out, n_ok, stft_width):
                 f"{name} must be a contiguous f32 {shape} tensor on {dev}, got "
                 f"{None if x is None else (tuple(x.shape), x.dtype, x.device)}"
             )
+
+
+def _check_launch(planes, bases, tables, spec, n_out, n_ok, stft_width):
+    """Raise unless every input is what kernel 1 or 2 takes."""
+    d, tout = spec.decimate, _tout_t(spec)
+    want = {
+        "bases": (bases, (-(-n_out // tout),)),
+        "hp": (tables.hp, (max(8, -(-spec.m_sub // 8) * 8), d)),
+        "cos": (tables.cos, ((tout + _HALO) * d,)),
+        "sin": (tables.sin, ((tout + _HALO) * d,)),
+    }
+    if stft_width is not None:
+        want["stft_cos"] = (tables.stft_cos, (stft_width,))
+        want["stft_sin"] = (tables.stft_sin, (stft_width,))
+    _check_inputs(planes, spec, n_ok, want)
 
 
 def _kernel_args(planes, bases, tables, spec, n_ok):
@@ -319,6 +329,19 @@ def no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _polyphase_fir(x: torch.Tensor, hp: torch.Tensor, m_sub: int, tout: int, n_out: int) -> torch.Tensor:
+    """The plain versions' FIR: ``x`` (tiles, cols, D) mixed samples of
+    each phase tile and what follows it, ``hp`` (>= m_sub, D) polyphase
+    taps; ``y[t*tout + i] = sum_m sum_dd hp[m, dd] x[t, i + m, dd]``, each
+    subfilter summed first (one ``(cols, D) @ (D, m)`` product), then the
+    subfilters along the diagonals ``C2[i + m, m]``."""
+    c2 = torch.matmul(x, hp.T)  # (tiles, cols, m)
+    y = c2[:, 0:tout, 0].clone()
+    for m in range(1, m_sub):
+        y += c2[:, m : m + tout, m]
+    return y.reshape(-1)[:n_out]
+
+
 def fused_frontend_t_reference(
     planes: torch.Tensor,
     bases: torch.Tensor,
@@ -352,14 +375,8 @@ def fused_frontend_t_reference(
     mre = (xr * c - xi * s).reshape(tiles, cols, d)
     mim = (xr * s + xi * c).reshape(tiles, cols, d)
 
-    def fir(x):
-        c2 = torch.matmul(x, tables.hp.T)  # (tiles, cols, m_pad)
-        y = c2[:, 0:tout, 0].clone()
-        for m in range(1, m_sub):
-            y += c2[:, m : m + tout, m]
-        return y.reshape(-1)[:n_out]
-
-    yr, yi = fir(mre), fir(mim)
+    yr = _polyphase_fir(mre, tables.hp, m_sub, tout, n_out)
+    yi = _polyphase_fir(mim, tables.hp, m_sub, tout, n_out)
     if stft_width is None:
         return torch.stack([yr, yi])
     w = stft_width
@@ -414,3 +431,182 @@ def fused_frontend_t(
     if planes.device.type == "cpu":
         return fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables, stft_width)
     raise ValueError(f"the fused frontend runs on cuda or cpu, got {planes.device}")
+
+
+# ---------------------------------------------------------------------------
+# v1: the JAX package's first fused frontend (``fused_frontend``), whose
+# TPU kernel ran the FIR as a banded matmul.  It computes the same
+# decode -> mix -> FIR as above, with two differences of contract: the mix
+# is cos/sin(base[t] + delta[q]) per element (an f32 sum and f32 trig, not
+# a table rotation), and a phase tile is 2048 outputs.  No path of the JAX
+# package runs it; it is ported as a kernel with its plain version.
+# ---------------------------------------------------------------------------
+
+_TOUT_V1 = 2048  # outputs per v1 phase tile (the TPU's 16 x 128 output block)
+_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
+
+
+def supported(decimate: int) -> bool:
+    """The v1 envelope: ``decimate`` divides 128 (the TPU kernel's lhs
+    rows land on row boundaries), at most 64."""
+    return decimate in (1, 2, 4, 8, 16, 32, 64)
+
+
+@functools.lru_cache(maxsize=8)
+def _plan(spec: FrontendSpec) -> tuple[int, int, np.ndarray]:
+    """(l_in, halo_p, delta): raw samples per tile, the halo after it that
+    the JAX package reads (at least 32 rows of 128, covering the banded
+    span), and the host-exact in-tile angles ``delta[q] = angle(q)``.
+    ``delta[:l_in + halo_p]`` are the JAX package's ``delta_main`` and
+    ``delta_halo`` in sample order; the table runs on to the last sample a
+    block of the kernel stages, ``(2048 + m_sub - 1) * D``."""
+    d = spec.decimate
+    size = len(spec.taps)
+    l_in = _TOUT_V1 * d
+    span_p = -(-(127 * d + size) // 128) * 128
+    halo_p = -(-max(span_p - 128 * d, 32 * 128) // 128) * 128
+    n_tab = max(l_in + halo_p, (_TOUT_V1 + spec.m_sub - 1) * d)
+    delta = ExactNCO(spec.shift_freq, spec.sample_rate).angles(np.arange(n_tab, dtype=np.int64))
+    return l_in, halo_p, delta
+
+
+def tile_bases(spec: FrontendSpec, global_start: int, tiles: int) -> np.ndarray:
+    """Host-exact per-tile NCO base angles for :func:`fused_frontend`
+    (2048-output tiles)."""
+    l_in = _TOUT_V1 * spec.decimate
+    offs = global_start + np.arange(tiles, dtype=np.int64) * l_in
+    return ExactNCO(spec.shift_freq, spec.sample_rate).angles(offs)
+
+
+@dataclass(frozen=True)
+class BandedTables:
+    """The v1 frontend's tensors: ``taps`` (m_sub * D,) zero-padded f32
+    taps, ``delta`` the :func:`_plan` angle table."""
+
+    taps: torch.Tensor
+    delta: torch.Tensor
+
+
+def banded_tables(spec: FrontendSpec, device=None) -> BandedTables:
+    h = np.zeros(spec.m_sub * spec.decimate, dtype=np.float32)
+    h[: len(spec.taps)] = spec.taps
+    return BandedTables(torch.tensor(h, device=device), torch.tensor(_plan(spec)[2], device=device))
+
+
+def _banded_block_outputs(spec: FrontendSpec) -> int:
+    """Outputs per CUDA block of the v1 kernel: the largest of 256 (128
+    past D 32), 128, 64, 32 whose staged span and taps fit in shared
+    memory; raises when none does."""
+    d, m_sub = spec.decimate, spec.m_sub
+    for bout in (256, 128, 64, 32):
+        if bout == 256 and d > 32:
+            continue
+        row = (bout + m_sub - 1) | 1
+        if (2 * d * row + m_sub * d) * 4 <= _SMEM_BYTES:
+            return bout
+    raise ValueError(f"{len(spec.taps)} taps at decimate {d}: the staged span exceeds shared memory")
+
+
+def frontend_banded(
+    planes, bases, tables: BandedTables, spec: FrontendSpec, n_out: int
+) -> torch.Tensor:
+    """Kernel 3 (``qt_frontend_banded``): (2, n_out) f32 decimated planes
+    of the v1 function; samples past ``planes.shape[1]`` count as zero.
+    :attr:`launches` counts the launches."""
+    from quadrs_tpu_torch.ops._cuda import library
+
+    dev = planes.device
+    _check_inputs(planes, spec, planes.shape[1], {
+        "bases": (bases, (-(-n_out // _TOUT_V1),)),
+        "taps": (tables.taps, (spec.m_sub * spec.decimate,)),
+        "delta": (tables.delta, (len(_plan(spec)[2]),)),
+    })
+    bout = _banded_block_outputs(spec)
+    out = torch.empty((2, n_out), dtype=torch.float32, device=dev)
+    lib = library()
+    lib.call(
+        "qt_frontend_banded",
+        _FMT_CODE[spec.fmt], dev.index, planes[0].data_ptr(), planes[1].data_ptr(), planes.shape[1],
+        bases.data_ptr(), tables.delta.data_ptr(), tables.taps.data_ptr(), spec.decimate, spec.m_sub,
+        _TOUT_V1, bout, n_out, out[0].data_ptr(), out[1].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    frontend_banded.launches += 1
+    return out
+
+
+frontend_banded.launches = 0
+
+
+def fused_frontend_reference(
+    planes: torch.Tensor, bases: torch.Tensor, spec: FrontendSpec, n_out: int
+) -> torch.Tensor:
+    """The plain PyTorch version of the v1 function, on any device: per
+    2048-output tile, decode the tile's samples and those after it, zero
+    samples past ``planes.shape[1]``, mix by ``cos/sin(base[t] + delta)``,
+    then the FIR.
+
+    The FIR sums each polyphase subfilter first, as the kernel does
+    (:func:`_polyphase_fir`), where the JAX package's banded matmul
+    ``lhs (16, span) @ W (span, 128)`` sums each output's taps in one run.
+    The two agree to f32 rounding at a few hundred taps; past a few
+    thousand taps of cu8 or cs16 the output is a small residual of the
+    decode's large DC offset, f32 loses it in any order (4000 taps of cu8
+    at decimate 32: ~2e-4 of the output's scale against an f64 sum), and
+    only the kernel and this version share their rounding."""
+    d, m_sub = spec.decimate, spec.m_sub
+    l_in, _, delta = _plan(spec)
+    tiles = -(-n_out // _TOUT_V1)
+    span = len(delta)  # the samples of a tile and what follows it, a multiple of D
+    need = (tiles - 1) * l_in + span
+    n_ok = min(planes.shape[1], need)
+
+    def decoded(plane):
+        x = torch.zeros(need, dtype=torch.float32, device=planes.device)
+        x[:n_ok] = decode_plane(plane[:n_ok], spec.fmt)
+        return x.unfold(0, span, l_in)  # (tiles, span)
+
+    xr, xi = decoded(planes[0]), decoded(planes[1])
+    theta = bases[:, None] + torch.as_tensor(delta, device=planes.device)[None, :]
+    c, s = torch.cos(theta), torch.sin(theta)
+    mre = (xr * c - xi * s).reshape(tiles, span // d, d)
+    mim = (xr * s + xi * c).reshape(tiles, span // d, d)
+    h = np.zeros(m_sub * d, dtype=np.float32)
+    h[: len(spec.taps)] = spec.taps
+    hp = torch.tensor(h.reshape(m_sub, d), device=planes.device)
+    return torch.stack([
+        _polyphase_fir(mre, hp, m_sub, _TOUT_V1, n_out),
+        _polyphase_fir(mim, hp, m_sub, _TOUT_V1, n_out),
+    ])
+
+
+def fused_frontend(
+    planes: torch.Tensor,
+    bases: torch.Tensor,
+    spec: FrontendSpec,
+    n_out: int,
+    *,
+    tables: BandedTables | None = None,
+) -> torch.Tensor:
+    """Decode -> mix -> FIR over a contiguous chunk, the contract of the
+    JAX ``fused_frontend`` (v1).
+
+    ``planes``: (2, n) native-dtype planes, already advanced past the FIR
+    group delay; samples past ``n`` count as zero (decoded domain).
+    ``bases``: (ceil(n_out / 2048),) f32 per-tile angles from
+    :func:`tile_bases`.  Returns (2, n_out) f32 decimated planes.
+    ``tables``: the :func:`banded_tables` on the planes' device (planned
+    here when omitted).  A CUDA tensor goes to the kernel, a CPU tensor to
+    the plain version; any other device raises."""
+    d = spec.decimate
+    if not supported(d):
+        raise ValueError(f"the v1 frontend requires decimate | 128 (at most 64), got {d}")
+    if n_out == 0:
+        return torch.zeros((2, 0), dtype=torch.float32, device=planes.device)
+    if planes.device.type == "cuda":
+        if tables is None:
+            tables = banded_tables(spec, device=planes.device)
+        return frontend_banded(planes, bases, tables, spec, n_out)
+    if planes.device.type == "cpu":
+        return fused_frontend_reference(planes, bases, spec, n_out)
+    raise ValueError(f"the v1 frontend runs on cuda or cpu, got {planes.device}")

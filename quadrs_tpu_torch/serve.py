@@ -73,8 +73,9 @@ class _PeakTracker:
 
 
 def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
-    """Drive the fused shift -> lowpass -> STFT chain over a capture on
-    ``device``."""
+    """Drive the shift -> lowpass -> STFT chain over a capture on
+    ``device``: through the fused frontend inside its envelope, through
+    the chain of torch ops outside it (``StreamRunner``'s ``auto``)."""
     from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
     from quadrs_tpu_torch.stream_runner import StreamRunner
 

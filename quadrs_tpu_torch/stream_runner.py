@@ -3,10 +3,12 @@
 :class:`StreamRunner` processes one capture as one continuous stream: a
 background thread stages chunks of native-dtype planes, each chunk
 carries the FIR's lookahead past its end (so the filter sees the true
-continuation), and each chunk runs through
-``PipelineModel.step_stream_fused`` on the runner's device.  Every
-chunk's NCO phase is planned exactly on the host from its absolute
-offset, so chunking is invisible in the output.
+continuation), and each chunk runs through the receiver model on the
+runner's device, by one of two routes: the fused frontend
+(``PipelineModel.step_stream_fused``) or the chain of torch ops
+(``PipelineModel.step_stream``).  Every chunk's NCO phase is planned
+exactly on the host from its absolute offset, so chunking is invisible
+in the output.
 
 :class:`WaterfallRunner` streams a bank of equal-length captures through
 the waterfall model, a whole number of window starts per chunk.
@@ -139,12 +141,22 @@ def _background(gen, depth: int = 2):
             q.get_nowait()
 
 
+FRONTENDS = ("auto", "fused", "chain")
+
+
 class StreamRunner:
-    """Drive one capture through the fused receiver chain on ``device``.
+    """Drive one capture through the receiver chain on ``device``.
 
     ``chunk_samples`` is rounded down to a whole number of STFT windows.
     ``on_windows(first_window_index, norms)`` receives (windows,
     fft_width) f32 rows per chunk.
+
+    ``frontend``: ``auto`` (what the CLI uses) takes the fused frontend
+    inside its envelope and the chain of torch ops outside it (decimate
+    above 64, or more than 128 subfilters).  ``fused`` and ``chain``
+    force one route, as the JAX runner's knob does, so that tests can
+    hold the two routes against each other; ``fused`` outside the
+    envelope is refused.
     """
 
     def __init__(
@@ -153,12 +165,20 @@ class StreamRunner:
         model: PipelineModel,
         device: torch.device | str,
         chunk_samples: int = 1 << 22,
+        frontend: str = "auto",
     ):
         if source.format is not model.cfg.fmt:
             raise ValueError(
                 f"source format {source.format} != model format {model.cfg.fmt}"
             )
-        model.require_fused()
+        if frontend not in FRONTENDS:
+            raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
+        if frontend == "fused" and not model.fused_supported():
+            raise ValueError(
+                f"decimate {model.cfg.decimate} with {model.cfg.taps} taps is outside the fused "
+                "frontend's envelope: use frontend='chain' or 'auto'"
+            )
+        self.fused = frontend == "fused" or (frontend == "auto" and model.fused_supported())
         cfg = model.cfg
         self.source = source
         self.device = torch.device(device)
@@ -199,7 +219,7 @@ class StreamRunner:
         """Process the capture from ``start_window`` onward; resuming is
         exact, since NCO phases are planned from absolute offsets.
         ``max_chunks`` stops after that many chunks."""
-        return self._run(self.model.step_stream_fused, on_windows, start_window, max_chunks)
+        return self._run("norms", on_windows, start_window, max_chunks)
 
     def run_search(
         self,
@@ -211,7 +231,7 @@ class StreamRunner:
         ``on_peaks(first_window_index, (idx, val))`` receives per chunk
         the (windows,) int32 fftshifted peak bins and f32 magnitudes —
         ``argmax``/``max`` over :meth:`run`'s rows."""
-        return self._run(self.model.step_stream_fused_search, on_peaks, start_window, max_chunks)
+        return self._run("search", on_peaks, start_window, max_chunks)
 
     def run_scan(
         self,
@@ -224,29 +244,42 @@ class StreamRunner:
         ``threshold``.  Each chunk's norms reduce on the device; only
         ``3 * width`` values per chunk cross to the host.  Bin ``width//2``
         is the channel centre, the frequency at minus the shift."""
-        from quadrs_tpu_torch.ops.waterfall import scan_of
-
-        def step(raw, bases, n_valid):
-            return scan_of(self.model.step_stream_fused(raw, bases, n_valid)[None], threshold)
-
         totals = _ScanTotals(1, self.model.cfg.fft_width)
-        stats = self._run(step, totals.add, start_window, max_chunks)
+        stats = self._run("scan", totals.add, start_window, max_chunks, threshold)
         return totals.result(threshold, stats, stats.windows_out)
 
-    def _run(self, step, emit, start_window: int, max_chunks) -> RunStats:
-        """Drive the chunks through ``step(raw, bases, n_valid)``; ``emit``
-        receives its output on the host."""
+    def _step(self, mode: str, off: int, planes: np.ndarray, valid: int, threshold: float):
+        """One chunk through the runner's route: its ``norms``, its
+        per-window peaks (``search``) or its survey stats (``scan``)."""
         model = self.model
-        cfg = model.cfg
+        raw = torch.from_numpy(planes).to(self.device)
+        nv = None if valid == planes.shape[1] else int(valid)
+        if self.fused:
+            # per-tile bases, planned on the host from the absolute offset
+            head = torch.from_numpy(model.stream_bases(off, planes.shape[1])).to(self.device)
+            norms_of, search_of = model.step_stream_fused, model.step_stream_fused_search
+        else:
+            head = model.theta0(np.asarray([off]))[0]  # the chunk's first-sample phase
+            norms_of, search_of = model.step_stream, model.step_stream_search
+        if mode == "search":
+            return search_of(raw, head, nv)
+        norms = norms_of(raw, head, nv)
+        if mode == "norms":
+            return norms
+        from quadrs_tpu_torch.ops.waterfall import scan_of
+
+        return scan_of(norms[None], threshold)
+
+    def _run(self, mode: str, emit, start_window: int, max_chunks, threshold: float = 0.0) -> RunStats:
+        """Drive the chunks through :meth:`_step`; ``emit`` receives its
+        output on the host."""
+        cfg = self.model.cfg
         stats = RunStats()
         t0 = time.perf_counter()
         done = 0
         chunks = _background(self._chunks(start_window * self._win_raw))
         for off, planes, valid in chunks:
-            raw = torch.from_numpy(planes).to(self.device)
-            bases = torch.from_numpy(model.stream_bases(off, planes.shape[1])).to(self.device)
-            nv = None if valid == planes.shape[1] else int(valid)
-            out = step(raw, bases, nv)
+            out = self._step(mode, off, planes, valid, threshold)
             stats.samples_in += planes.shape[1] - self._lookahead
             stats.windows_out += (planes.shape[1] - cfg.taps) // cfg.decimate // cfg.fft_width
             if emit is not None:

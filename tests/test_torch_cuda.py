@@ -7,8 +7,11 @@ machine with a card and ``nvcc``, run them with
 conftest imports jax, which such a machine need not have); the first
 test builds the kernels.  Frontend tolerance ``5e-5 * scale``, the JAX
 package's kernel-versus-chain bound; waterfall tolerances the JAX
-package's waterfall ones (``tests/test_waterfall_pallas.py``)."""
+package's waterfall ones (``tests/test_waterfall_pallas.py``).  The
+chain of torch ops (``step_stream``, the reference chain's sinks) runs on
+the card and on CPU tensors, held to the same bound."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -179,3 +182,149 @@ def test_waterfall_wrappers_check_inputs(cuda):
         with pytest.raises(ValueError, match=match):
             wf.waterfall_scan(*args, 1.0)
     assert (wf.waterfall_norms.launches, wf.waterfall_search.launches, wf.waterfall_scan.launches) == counts
+
+
+def banded_case(fmt, d, taps, n_out, frac, start, device):
+    from quadrs_tpu_torch.ops.fir import lowpass_taps
+
+    spec = fe.FrontendSpec(fmt, 21_000_000, 280_000, d, lowpass_taps(200e3 / 21e6, taps).tobytes())
+    planes = torch.from_numpy(synth_planes(fmt, int((n_out * d + taps) * frac), seed=d + taps)).to(device)
+    bases = torch.from_numpy(fe.tile_bases(spec, start, -(-n_out // 2048))).to(device)
+    return spec, planes, bases
+
+
+@pytest.mark.parametrize("fmt", list(FileFormat))
+@pytest.mark.parametrize("d", [1, 4, 8, 32, 64])
+@pytest.mark.parametrize("taps", [40, 400])
+def test_frontend_banded_matches_plain(cuda, fmt, d, taps):
+    """The v1 kernel: 5000 outputs (the last 2048-output tile partial);
+    raw planes shorter than the tiles need at D 4 and 64; an absolute
+    offset near 1e9 at D 8."""
+    frac = 0.6 if d in (4, 64) else 1.0
+    start = 999_999_937 if d == 8 else 0
+    spec, planes, bases = banded_case(fmt, d, taps, 5000, frac, start, cuda)
+    before = fe.frontend_banded.launches
+    got = fe.fused_frontend(planes, bases, spec, 5000)
+    assert fe.frontend_banded.launches == before + 1
+    assert_close(got, fe.fused_frontend_reference(planes, bases, spec, 5000))
+
+
+def test_frontend_banded_checks_inputs(cuda):
+    spec, planes, bases = banded_case(FileFormat.COMPLEX_INT8, 32, 400, 3000, 1.0, 0, cuda)
+    tables = fe.banded_tables(spec, device=cuda)
+    before = fe.frontend_banded.launches
+    bad = [
+        ((planes.to(torch.int16), bases, tables, spec, 3000), "must be torch.int8"),
+        ((planes, bases[:-1], tables, spec, 3000), "bases"),
+        ((planes, bases.cpu(), tables, spec, 3000), "bases"),
+        ((planes.t().contiguous().t(), bases, tables, spec, 3000), "unit stride"),
+        ((planes, bases, fe.BandedTables(tables.taps[:-1], tables.delta), spec, 3000), "taps"),
+    ]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            fe.frontend_banded(*args)
+    assert fe.frontend_banded.launches == before
+
+
+def chain_model(fmt, d, taps, width, impl="auto"):
+    return PipelineModel(
+        PipelineConfig(
+            sample_rate=21_000_000, shift_freq=280_000, lp_freq=200_000,
+            decimate=d, taps=taps, fft_width=width, fmt=fmt, fir_impl=impl,
+        )
+    )
+
+
+def step_stream_f64(cfg, raw, offset, valid):
+    """``step_stream``'s function summed in f64 on the host: the f32
+    decode, then the exact NCO angles, the FIR and the DFT in f64."""
+    from quadrs_tpu_torch.formats import decode_plane
+    from quadrs_tpu_torch.ops.fir import lowpass_taps
+    from quadrs_tpu_torch.ops.nco import ExactNCO
+
+    n = raw.shape[-1]
+    x = decode_plane(raw[0], cfg.fmt).astype(np.float64) + 1j * decode_plane(raw[1], cfg.fmt).astype(np.float64)
+    if valid is not None:
+        x[valid:] = 0
+    x *= np.exp(1j * ExactNCO(cfg.shift_freq, cfg.sample_rate).angles(offset + np.arange(n), dtype=np.float64))
+    h = lowpass_taps(cfg.lp_freq / cfg.sample_rate, cfg.taps).astype(np.float64)
+    prefix = cfg.taps - cfg.taps // 2  # the group delay fir_decimate drops
+    n_dec = (n - cfg.taps) // cfg.decimate
+    n_windows = n_dec // cfg.fft_width
+    xp = np.concatenate([x[prefix:], np.zeros(cfg.taps + cfg.decimate)])
+    y = np.lib.stride_tricks.sliding_window_view(xp, cfg.taps)[: n_dec * cfg.decimate : cfg.decimate] @ h
+    spec = np.fft.fft(y[: n_windows * cfg.fft_width].reshape(n_windows, cfg.fft_width), axis=-1)
+    return np.abs(np.fft.fftshift(spec, axes=-1))
+
+
+@pytest.mark.parametrize(
+    "fmt,d,taps,width,impl,tol",
+    [
+        (FileFormat.COMPLEX_UINT8, 100, 400, 64, "auto", TOL),  # outside the fused envelope
+        # premixed taps, os_poly.  cs16 decodes to a -32767.5 DC that the
+        # shift puts in the stopband, and the output is mostly its residual
+        # there: JAX's XLA chain, the CPU's and the card's lie 4.6e-5,
+        # 5.4e-5 and 8.9e-5 of scale from an f64 sum on this input, card
+        # and CPU 8.3e-5 apart (PERF.md)
+        (FileFormat.COMPLEX_INT16, 8, 1100, 128, "auto", 2e-4),
+        (FileFormat.COMPLEX_INT8, 8, 1100, 128, "auto", TOL),
+        (FileFormat.COMPLEX_INT8, 32, 400, 64, "banded", TOL),
+        (FileFormat.COMPLEX_FLOAT32, 32, 400, 64, "overlap_save", TOL),
+        (FileFormat.COMPLEX_INT8, 4, 40, 64, "direct", TOL),
+    ],
+)
+def test_step_stream_matches_cpu(cuda, fmt, d, taps, width, impl, tol):
+    """The chain of torch ops on the card against the same calls on CPU
+    tensors, a masked tail included; both within ``tol·scale`` of an f64
+    sum of the same function."""
+    model = chain_model(fmt, d, taps, width, impl)
+    n = d * width * 50 + taps + 777
+    raw = synth_planes(fmt, n, seed=d)
+    offset = 999_999_937
+    theta0 = model.theta0(np.asarray([offset]))[0]
+    for valid in (None, n - 5 * d * width):
+        want = model.step_stream(torch.from_numpy(raw), theta0, valid)
+        got = model.to(cuda).step_stream(torch.from_numpy(raw).to(cuda), theta0, valid)
+        torch.cuda.synchronize()
+        model.cpu()
+        exact = step_stream_f64(model.cfg, raw, offset, valid)
+        scale = float(exact.max())
+        assert got.shape == want.shape == exact.shape and bool(torch.isfinite(got).all())
+        got, want = got.cpu().numpy(), want.numpy()
+        for a, b in ((got, want), (got, exact), (want, exact)):
+            assert float(np.abs(a - b).max()) <= tol * scale
+
+
+def test_reference_chain_matches_cpu(cuda, tmp_path):
+    """The reference chain's sinks on the card against the same calls on
+    the CPU: spectrogram norms, bucket digits outside near-ties, written
+    samples."""
+    from quadrs_tpu_torch import sinks, sources, stream
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import Executor
+
+    rng = np.random.default_rng(5)
+    raw = rng.integers(-127, 128, 2 * 400_000).astype(np.int8).view(np.uint8)
+    src = sources.SampleSource(raw, FileFormat.COMPLEX_INT8, 21_000_000)
+    chain = stream.LowPass(stream.Shift(src, 280_000), 200_000, 32, 400)
+    offs = np.arange(0, chain.length - 64, 16)
+    norms = {dev: Executor(chain, 64, dev, post=stft_norms).run(offs) for dev in ("cpu", cuda)}
+    assert list(norms["cpu"][1]) == list(norms[cuda][1])
+    assert_close(torch.from_numpy(norms[cuda][0]).to(cuda), torch.from_numpy(norms["cpu"][0]).to(cuda))
+
+    def halves(x):
+        n = stft_norms(x, shift=False)
+        return n[:, :64].sum(1), n[:, 64:].sum(1)
+
+    first, second = Executor(chain, 128, "cpu", post=halves).run(np.arange((chain.length - 128) // 16) * 16)[0]
+    clear = np.abs(first - second) > 1e-5 * np.maximum(first, second)  # not a near-tie
+    g = np.asarray(sinks.freq_levels(chain, 128, 16, device=cuda).vals)
+    c = np.asarray(sinks.freq_levels(chain, 128, 16, device="cpu").vals)
+    assert len(g) == len(c) == len(clear) and clear.mean() > 0.99
+    assert np.array_equal(g[clear], c[clear])
+
+    gen = stream.LowPass(stream.Shift(sources.ToneGen([2000, -13_000], 48_000, 3.0), 1000), 4000, 4, 40)
+    got = np.fromfile(sinks.do_write(gen, False, "g", directory=str(tmp_path), device=cuda), np.complex64)
+    want = np.fromfile(sinks.do_write(gen, False, "c", directory=str(tmp_path), device="cpu"), np.complex64)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())

@@ -1,6 +1,9 @@
-"""The port's receiver chain (``step_stream_fused`` and its search
-variant, on the CPU) against quadrs_tpu's XLA chain ``jit_step_stream``
-and its Pallas chain ``jit_step_stream_pallas`` (interpreted here).
+"""The port's receiver chain on the CPU against quadrs_tpu's: the fused
+route (``step_stream_fused`` and its search variant) against the JAX
+package's XLA chain ``jit_step_stream`` and its Pallas chain
+``jit_step_stream_pallas`` (interpreted here); the chain of torch ops
+(``step_windows``, ``step_stream``, ``step_stream_search``) against the
+XLA chains; and ``StreamRunner`` on both routes against the JAX runner.
 
 Norms agree to ``5e-5 * scale`` (the JAX package's kernel-versus-chain
 bound).  Peak bins are exact wherever a window's top two magnitudes
@@ -24,8 +27,9 @@ from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel  # no
 TOL = 5e-5
 
 
-def models(fmt, d, taps, width):
-    args = dict(sample_rate=1_000_000, shift_freq=12_345, lp_freq=50_000, decimate=d, taps=taps, fft_width=width)
+def models(fmt, d, taps, width, fir_impl="auto"):
+    args = dict(sample_rate=1_000_000, shift_freq=12_345, lp_freq=50_000, decimate=d, taps=taps, fft_width=width,
+                fir_impl=fir_impl)
     return JModel(JConfig(fmt=JFormat(fmt), **args)), PipelineModel(PipelineConfig(fmt=FileFormat(fmt), **args))
 
 
@@ -139,6 +143,15 @@ def test_runner_matches_jax_runner():
     """StreamRunner over an in-memory cu8 capture, 3-window chunks and a
     ragged tail, against quadrs_tpu's runner: the same windows, the same
     norms and peaks, exact resume, ``max_chunks``."""
+    check_runner("auto")
+
+
+def test_runner_chain_route_matches_jax_runner():
+    """The same through the chain of torch ops inside the fused envelope."""
+    check_runner("chain")
+
+
+def check_runner(frontend):
     from quadrs_tpu_torch.sources import SampleSource
     from quadrs_tpu_torch.stream_runner import StreamRunner
 
@@ -148,7 +161,9 @@ def test_runner_matches_jax_runner():
 
     def runner():
         src = SampleSource(data, FileFormat.COMPLEX_UINT8, 1_000_000)
-        return StreamRunner(src, tm, "cpu", chunk_samples=3 * RUNNER_WIN + 5)
+        return StreamRunner(src, tm, "cpu", chunk_samples=3 * RUNNER_WIN + 5, frontend=frontend)
+
+    assert runner().fused == (frontend == "auto")
 
     rows = []
     stats = runner().run(lambda w0, r: rows.append((w0, r)))
@@ -194,20 +209,128 @@ def test_fused_stft_over_runner_chunks_matches_jax_runner():
 
 
 def test_outside_envelope_raises():
+    """The fused route refuses configurations outside its envelope
+    (decimate above 64, more than 128 subfilters); the runner's ``auto``
+    takes the chain there, and ``fused`` raises."""
     _, tm = models("cs8", 65, 400, 64)
     assert not tm.fused_supported()
     raw = torch.zeros((2, 65 * 64 * 2 + 400), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="outside the fused"):
         tm.step_stream_fused(raw, torch.zeros(1))
-    _, long = models("cs8", 8, 1100, 64)  # m_sub 138
+    _, long = models("cs8", 8, 1100, 128)  # m_sub 138
     assert not long.fused_supported()
 
     from quadrs_tpu_torch.sources import SampleSource
     from quadrs_tpu_torch.stream_runner import StreamRunner
 
     src = SampleSource(np.zeros(100_000, np.uint8), FileFormat.COMPLEX_INT8, 1_000_000)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        StreamRunner(src, long, "cpu")
+    with pytest.raises(ValueError, match="outside the fused"):
+        StreamRunner(src, long, "cpu", frontend="fused")
+    assert not StreamRunner(src, long, "cpu").fused
+    assert StreamRunner(src, models("cs8", 8, 400, 64)[1], "cpu").fused
+    with pytest.raises(ValueError, match="frontend must be"):
+        StreamRunner(src, long, "cpu", frontend="pallas")
     _, cu8 = models("cu8", 8, 40, 64)
     with pytest.raises(ValueError, match="source format"):
         StreamRunner(src, cu8, "cpu")
+
+
+# (fmt, decimate, taps, width, absolute offset, zero-padded tail, fir impl)
+CHAIN_CASES = [
+    ("cs8", 32, 400, 64, 0, None, "auto"),
+    ("cf32", 3, 40, 64, 999_999_937, 5, "auto"),
+    ("cu8", 100, 400, 32, 4096, 3 * 100 * 32, "auto"),  # outside the fused envelope
+    ("cs16", 8, 1100, 64, 999_999_937, 777, "auto"),  # m_sub 138 > 64: premixed taps, os_poly
+    ("cu8", 8, 400, 32, 0, 100, "banded"),
+    ("cf32", 4, 96, 16, 12_345, None, "overlap_save"),  # premixed taps at m_sub 24
+]
+
+
+@pytest.mark.parametrize("fmt,d,taps,width,offset,tail,impl", CHAIN_CASES)
+def test_chain_matches_jax(fmt, d, taps, width, offset, tail, impl):
+    """``step_stream`` (with ``valid`` masking), ``step_stream_search`` and
+    ``step_windows`` against the JAX package's XLA chains."""
+    jm, tm = models(fmt, d, taps, width, impl)
+    assert tm._spectral_fir == jm._spectral_fir
+    n = d * width * 6 + taps + 29
+    raw = jm.synth_raw(n, seed=d + width)
+    if tail is not None:
+        raw = np.pad(raw, ((0, 0), (0, tail)))  # zero bytes past the capture
+    theta0 = jm.theta0(np.asarray([offset]))[0]
+    want = np.asarray(jm.jit_step_stream(raw, theta0, np.int32(n)))
+    got = tm.step_stream(torch.from_numpy(raw), theta0, n).numpy()
+    scale = max(np.abs(want).max(), 1e-6)
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL * scale)
+
+    idx, val = tm.step_stream_search(torch.from_numpy(raw), theta0, n)
+    assert idx.dtype == torch.int32
+    assert_peaks_match(idx.numpy(), val.numpy(), want, TOL * scale)
+
+    b = 5
+    windows = jm.synth_raw(b * jm.cfg.window_raw, seed=width).reshape(2, b, -1).transpose(1, 0, 2).copy()
+    thetas = jm.theta0(offset + 977 * np.arange(b, dtype=np.int64))
+    want = np.asarray(jm.jit_step_windows(windows, thetas))
+    got = tm.step_windows(torch.from_numpy(windows), thetas).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL * max(np.abs(want).max(), 1e-6))
+
+
+def test_load_reference_arrays_chain_route():
+    """Taps loaded from the JAX package's model drive the chain route,
+    the spectral chain's premixed taps included."""
+    for d, taps in [(100, 400), (8, 1100)]:
+        jm, tm = models("cs16", d, taps, 32)
+        jm.taps = (jm.taps * np.float32(1.5)).astype(np.float32)  # not the default taps
+        tm.load_reference_arrays({"taps": jm.taps})
+        assert tm.taps.numpy().tobytes() == jm.taps.tobytes()
+        assert tm._premixed_taps.tobytes() == jm._premixed_taps.tobytes()
+        n = d * 32 * 4 + taps
+        raw = jm.synth_raw(n, seed=2)
+        theta0 = jm.theta0(np.asarray([77]))[0]
+        want = np.asarray(jm.jit_step_stream(raw, theta0, np.int32(n)))
+        got = tm.step_stream(torch.from_numpy(raw), theta0).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=TOL * np.abs(want).max())
+    with pytest.raises(ValueError, match="taps must have shape"):
+        tm.load_reference_arrays({"taps": np.zeros(3, np.float32)})
+
+
+def test_runner_outside_envelope_matches_jax_runner():
+    """StreamRunner at decimate 100 (outside the fused envelope) takes the
+    chain and gives the JAX runner's windows, norms and peaks over an
+    in-memory cu8 capture with a ragged tail; resuming is exact."""
+    from quadrs_tpu.sources import SampleSource as JSource
+    from quadrs_tpu.stream_runner import StreamRunner as JRunner
+
+    from quadrs_tpu_torch.sources import SampleSource
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+
+    jm, tm = models("cu8", 100, 400, 16)
+    win = 100 * 16
+    n = 9 * win + 333
+    data = np.ascontiguousarray(jm.synth_raw(n, seed=4).T).reshape(-1)
+    want_rows = []
+    JRunner(JSource(data, JFormat.COMPLEX_UINT8, 1_000_000), jm, chunk_samples=3 * win).run(
+        lambda w0, r: want_rows.append((w0, r))
+    )
+    want = np.concatenate([r for _, r in want_rows])
+    tol = TOL * want.max()
+
+    def runner():
+        return StreamRunner(SampleSource(data, FileFormat.COMPLEX_UINT8, 1_000_000), tm, "cpu", chunk_samples=3 * win)
+
+    assert not runner().fused
+    rows = []
+    stats = runner().run(lambda w0, r: rows.append((w0, r)))
+    assert [w0 for w0, _ in rows] == [w0 for w0, _ in want_rows]
+    np.testing.assert_allclose(np.concatenate([r for _, r in rows]), want, rtol=0, atol=tol)
+    assert stats.windows_out == len(want)
+
+    peaks = []
+    runner().run_search(lambda w0, p: peaks.append(p))
+    assert_peaks_match(np.concatenate([p[0] for p in peaks]), np.concatenate([p[1] for p in peaks]), want, tol)
+    tail = []
+    runner().run(lambda w0, r: tail.append(r), start_window=4)
+    np.testing.assert_allclose(np.concatenate(tail), want[4:], rtol=0, atol=tol)
+    survey = runner().run_scan(threshold=float(np.median(want)))
+    assert survey.windows == len(want)
+    np.testing.assert_allclose(survey.sum_norms[0], want.astype(np.float64).sum(0), rtol=1e-5, atol=len(want) * tol)
