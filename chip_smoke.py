@@ -14,8 +14,9 @@ the run.  Phases:
    D 1 to 64, 40 and 400 taps, partial tiles, short planes, an offset
    near 1e9 and one 4M-sample cs8 chunk, to the same bound; the three
    waterfall kernels for every format, widths 256 to 8192, strides tiled,
-   overlapped, not a 128-multiple and skipping, both windowings, held to
-   the JAX package's waterfall tolerances;
+   overlapped, not a 128-multiple and skipping, both windowings, then
+   hop 1 and N-1, sliced and odd-strided views and width 640, held to the
+   JAX package's waterfall tolerances;
 4. the main paths through the CLI, launch counts and outputs checked:
    ``stream`` over a 2^26-sample synthetic cs8 capture at 21 Msps, with
    and without ``-search`` and with ``-scan`` (kernel 1), and the model's
@@ -30,17 +31,24 @@ the run.  Phases:
    against its plain version on every chunk the runner stages at strides
    1024 and 256 (the ragged last chunks included), and the CLI's peaks and
    survey against the plain version's stride-256 norms;
-5. CUDA-event times of the kernels and their plain versions at the main
-   paths' shapes: one 4M-sample cs8 chunk of the stream chain (D 32, 400
-   taps, W 64) for the frontend kernels and the v1 kernel, each
-   ``fir_decimate`` impl at the chain's batch shapes, and one bank chunk
-   (64 streams x 2000 windows x 1024 points) at strides 1024 and 256, each
+5. CUDA-event times of the kernels, their plain versions and their
+   yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
+   stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
+   v1 kernel (yardstick: cuDNN's ``conv1d`` over the mixed planes, TF32
+   off), each ``fir_decimate`` impl at the chain's batch shapes, and one
+   bank chunk (64 streams x 2000 windows x 1024 points) at strides 1024
+   and 256 (yardstick: ``torch.fft.fft`` over the decoded frames), each
    waterfall kernel first held against its plain version on those inputs.
+   A yardstick does part of its kernel's work; its inputs are made outside
+   the timed region, and the port never calls it.
 
-The line before the last holds the kernels' JSON record, their errors
-taken at the main paths' shapes (the v1 kernel, which no path runs, at
-the stream chain's chunk); the last line is ``{"ok": true, "device":
-{...}}``.
+The line before the last but one holds the kernels' JSON record: their
+errors taken at the main paths' shapes (the v1 kernel, which no path
+runs, at the stream chain's chunk), launches over the main paths, times,
+``bound_ms`` (the larger of the bytes in and out once over 3.35 TB/s and
+the f32 operations over 67 TFLOP/s) with ``bound_by``, and
+``library_ms``.  Then the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -67,8 +75,18 @@ BANK_STREAMS = 64  # BASELINE config 5: 64 parallel cs8 streams, 1024 points
 BANK_SAMPLES = 1 << 21  # per capture: 64 x 4 MiB of cs8
 BANK_CHUNK = 2000  # the CLI's default -chunk 2k windows
 WF_RTOL = 2e-5  # the JAX package's waterfall kernel tolerance
-WF_WIDTHS = (256, 384, 1024, 2048, 4096, 8192)  # phase 3: 2048 and up as one window per block
-WF_WINDOWS = 301  # phase 3: no multiple of any window tile (8, 5, 2 or 1 windows)
+WF_WIDTHS = (256, 384, 640, 1024, 2048, 4096, 8192)  # phase 3: 2048 and up as one window per block
+WF_WINDOWS = 301  # phase 3: no multiple of any window tile (8, 5, 3, 2 or 1 windows)
+# phase 3, the staged loads' edge cases: (width, stride, windowing, view of
+# the planes): hop 1 and hop N-1; a base pointer off every 16-byte boundary
+# (a view 3 samples into its rows); rows of odd length (stream and plane
+# strides no multiple of 16 bytes); width 640 (b = 5); 8192 at stride 1
+WF_EDGE_CASES = [
+    (256, 1, "rectangular", "contiguous"), (1024, 1, "blackman-harris", "sliced"),
+    (1024, 1023, "rectangular", "sliced"), (1024, 256, "blackman-harris", "padded"),
+    (640, 200, "blackman-harris", "padded"), (640, 640, "rectangular", "sliced"),
+    (384, 384, "blackman-harris", "padded"), (8192, 1, "rectangular", "sliced"),
+]
 PREFIX_SAMPLES = 1 << 22  # phase 4: the prefix capture the CPU runs of the chain read
 BANDED_OUT = 125_000 - 77  # phase 3: v1 outputs per case, the last 2048-output tile partial
 # phase 5: the chain's FIR batches, (label, windows, decimate, taps, outputs
@@ -562,9 +580,10 @@ def fold(worst: dict[str, tuple[float, float]], errs: dict[str, tuple[float, flo
 
 def phase_waterfall_kernels() -> None:
     """Phase 3, the bank: every waterfall kernel against its plain version
-    for every format, widths 256 to 8192, strides tiled, width/4, 96 and
-    width+300, both windowings, over 301 windows (no multiple of any
-    window tile)."""
+    for every format, widths 256 to 8192 (640 among them), strides tiled,
+    width/4, 96 and width+300, both windowings, over 301 windows (no
+    multiple of any window tile); then :data:`WF_EDGE_CASES` for every
+    format."""
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.ops import waterfall as wf
 
@@ -580,6 +599,18 @@ def phase_waterfall_kernels() -> None:
                     tables = wf.waterfall_tables(spec, device=DEVICE)
                     label = f"{fmt.value} W{width} stride {stride} {windowing} {streams}x{nw}"
                     check_waterfall(label, spec, planes, nw, stride, tables, failures)
+    for width, stride, windowing, view in WF_EDGE_CASES:
+        streams = 64 if width <= 1024 else 8
+        n = (nw - 1) * stride + width + 5
+        extra = {"contiguous": 0, "sliced": 3, "padded": 5 + (n + 5) % 2 + 1}[view]
+        for k, fmt in enumerate(FileFormat):
+            raw = synth_on_device(fmt, (streams, 2, n + extra), seed=width + stride + k)
+            planes = raw[:, :, 3:] if view == "sliced" else raw[:, :, :n]
+            spec = wf.WaterfallSpec(fmt, width, windowing)
+            tables = wf.waterfall_tables(spec, device=DEVICE)
+            label = (f"{fmt.value} W{width} stride {stride} {windowing} {view} (strides {planes.stride()}, "
+                     f"offset {planes.storage_offset()}) {streams}x{nw}")
+            check_waterfall(label, spec, planes, nw, stride, tables, failures)
     if failures:
         raise AssertionError(f"waterfall kernels disagree with their plain versions: {failures}")
 
@@ -726,6 +757,17 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
     return launches, at_main
 
 
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM (on-chip-measurement guide)
+F32_FLOPS = 67e12  # f32 outside the tensor cores
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(the least ms the card could take: bytes over the HBM rate or
+    operations over the f32 peak, the larger; which of the two it is)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def time_ms(fn, iters: int = 20) -> float:
     for _ in range(3):
         fn()
@@ -756,6 +798,19 @@ def phase_timing(card: str) -> dict[str, float]:
     def unfused_norms(y):
         return stft_norms(torch.complex(y[0], y[1]).reshape(-1, w))
 
+    # the yardstick: one cuDNN call, the decimating FIR over the decoded,
+    # already-mixed planes (part of the kernels' work), in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    from quadrs_tpu_torch.formats import decode_plane
+    from quadrs_tpu_torch.ops.fir import lowpass_taps
+
+    n_in = n_out * cfg.decimate + cfg.taps - 1
+    z = torch.complex(decode_plane(planes[0, :n_in], cfg.fmt), decode_plane(planes[1, :n_in], cfg.fmt))
+    ph = torch.arange(n_in, dtype=torch.float64, device=DEVICE) * (-2 * np.pi * cfg.shift_freq / cfg.sample_rate)
+    z = z * torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+    x = torch.stack([z.real, z.imag])[:, None].contiguous()  # (2, 1, n_in) mixed planes
+    h = torch.from_numpy(lowpass_taps(cfg.lp_freq / cfg.sample_rate, cfg.taps)[::-1].copy()).view(1, 1, -1).to(DEVICE)
+
     variants = {
         "kernel1": lambda: fe.frontend_fir(planes, bases, tables, spec, n_out, n_ok),
         "kernel1+stft_norms": lambda: unfused_norms(fe.frontend_fir(planes, bases, tables, spec, n_out, n_ok)),
@@ -763,6 +818,7 @@ def phase_timing(card: str) -> dict[str, float]:
         "plain": lambda: fe.fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables),
         "plain+stft_norms": lambda: unfused_norms(fe.fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables)),
         "plain_stft_epilogue": lambda: fe.fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables, w),
+        "library_conv1d": lambda: torch.nn.functional.conv1d(x, h, stride=cfg.decimate),
     }
     order = list(variants) + list(reversed(variants))
     runs: dict[str, list[float]] = {k: [] for k in variants}
@@ -774,6 +830,13 @@ def phase_timing(card: str) -> dict[str, float]:
     for k, v in runs.items():
         print(f"    {k:22s} {ms[k]:.4f} ms  (runs {', '.join(f'{x:.4f}' for x in v)})  "
               f"{samples / ms[k] / 1e3:.1f} Msps")
+    # the bounds: bytes in (planes, bases) and out once; f32 operations
+    # of the FIR (4 per tap and output) and the mix (6 per sample), plus
+    # the STFT's 5 W log2 W per window for kernel 2
+    fir_flops = 4 * n_out * cfg.taps + 6 * samples
+    in_bytes = planes.numel() * planes.element_size() + bases.numel() * bases.element_size()
+    ms["bound kernel1"] = bound(in_bytes + 8 * n_out, fir_flops)
+    ms["bound kernel2"] = bound(in_bytes + 4 * n_out, fir_flops + n_out * 5 * int(np.log2(w)))
     return ms
 
 
@@ -832,8 +895,9 @@ def phase_waterfall_timing(card: str, at_main: dict[str, tuple[float, float]]) -
     points of cs8, at strides 1024 and 256, in mirrored order; each
     kernel is first held against its plain version on those inputs
     (folded into ``at_main``)."""
-    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.formats import FileFormat, decode_plane
     from quadrs_tpu_torch.ops import waterfall as wf
+    from quadrs_tpu_torch.ops.fir import overlapped_frames
 
     spec = wf.WaterfallSpec(FileFormat.COMPLEX_INT8, 1024)
     tables = wf.waterfall_tables(spec, device=DEVICE)
@@ -846,7 +910,12 @@ def phase_waterfall_timing(card: str, at_main: dict[str, tuple[float, float]]) -
         fold(at_main, check_waterfall(label, spec, planes, nw, stride, tables, failures, thr=thr))
         if failures:
             raise AssertionError(f"waterfall kernels disagree with their plain versions: {failures}")
+        # the yardstick: one cuFFT call over the decoded (S*nw, 1024)
+        # complex64 frames, made outside the timed region (part of the work)
+        z = torch.complex(decode_plane(planes[:, 0], spec.fmt), decode_plane(planes[:, 1], spec.fmt))
+        frames = overlapped_frames(z, stride, 1024, nw).reshape(-1, 1024).contiguous()
         variants = {
+            "library_fft": lambda: torch.fft.fft(frames),
             "norms": lambda: wf.waterfall_norms(planes, tables, spec, nw, stride),
             "plain_norms": lambda: wf.fused_waterfall_reference(planes, spec, nw, stride=stride),
             "search": lambda: wf.waterfall_search(planes, tables, spec, nw, stride),
@@ -863,7 +932,66 @@ def phase_waterfall_timing(card: str, at_main: dict[str, tuple[float, float]]) -
             ms[f"{k}@{stride}"] = sum(v) / len(v)
             print(f"    {k:14s} {ms[f'{k}@{stride}']:.4f} ms  (runs {', '.join(f'{x:.4f}' for x in v)})  "
                   f"{samples / ms[f'{k}@{stride}'] / 1e3:.1f} Msps of input")
+        del frames, z
+        # the bounds: the samples the windows cover read once (2 bytes each)
+        # and the outputs written once; 5 N log2 N f32 operations per window
+        span = (nw - 1) * stride + 1024 if stride < 1024 else nw * 1024
+        flops = BANK_STREAMS * nw * 5 * 1024 * 10
+        for k, out_bytes in (("norms", 4 * nw * 1024), ("search", 8 * nw), ("scan", 12 * 1024)):
+            ms[f"bound {k}@{stride}"] = bound(BANK_STREAMS * (2 * span + out_bytes), flops)
     return ms
+
+
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel, ptxas's registers / shared memory / spills) from the build
+    log: every frontend kernel, and the waterfall body's cs8
+    instantiations (the other formats differ in the decode only)."""
+    import re
+
+    out: dict[str, list[str]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            wf = re.search(r"waterfall_kernelI(\w)Li(\d)ELi(\d+)E", m.group(1))
+            other = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)E)?E", m.group(1))
+            if wf:
+                t, mode, ln = wf.groups()
+                name = None if t != "a" else (f"waterfall_kernel<int8, {('norms', 'search', 'scan')[int(mode)]}, "
+                                              f"{'width 2^' + ln if ln != '0' else 'any width'}>")
+            else:
+                name = f"{other.group(1)}<{other.group(2) or ''}>" if other else m.group(1)[-48:]
+        elif name and ("Used" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip() if "Used" in line else line.strip())
+    return [(k, "; ".join(v)) for k, v in out.items()]
+
+
+def sass_mix(lib_path) -> list[str]:
+    """The instruction mix of the cs8 waterfall body at 1024 points, one
+    line per mode, from ``cuobjdump -sass`` of the built library: static
+    instructions in all, FP (FADD, FMUL, FFMA, MUFU), shared-memory
+    (LDS, STS), global (LDG, STG) and barriers.  Empty without cuobjdump."""
+    import collections
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return []
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, timeout=300).stdout
+    lines = []
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"waterfall_kernelIaLi(\d)ELi10E", body.split("\n", 1)[0])
+        if not m:
+            continue
+        ops = collections.Counter(o.split(".")[0] for o in re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", body))
+        group = {k: sum(ops[o] for o in v) for k, v in (
+            ("FP", ("FADD", "FMUL", "FFMA", "MUFU")), ("shared", ("LDS", "STS")), ("global", ("LDG", "STG")),
+            ("barriers", ("BAR",)))}
+        lines.append(f"waterfall_kernel<int8, {('norms', 'search', 'scan')[int(m.group(1))]}, width 2^10>: "
+                     f"{sum(ops.values())} instructions, " + ", ".join(f"{k} {v}" for k, v in group.items()))
+    return lines
 
 
 def main() -> int:
@@ -878,9 +1006,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _cuda.library()
     print(f"phase 2: built {lib.path.name} in {time.perf_counter() - t0:.1f}s (nvcc {lib.build_seconds:.1f}s)")
-    for line in lib.build_log.splitlines():
-        if "Used" in line:
-            print("    " + line.strip())
+    for name, used in ptxas_usage(lib.build_log):
+        print(f"    {name}: {used}")
+    for line in sass_mix(lib.path):
+        print(f"    {line} (cuobjdump -sass)")
     print("phase 3: kernels against their plain versions")
     at_main = phase_kernels()
     at_main["frontend_banded"] = phase_banded_kernel()
@@ -911,26 +1040,36 @@ def main() -> int:
     # errors at the main paths' shapes: max_abs_err, and err_over_max
     # (that over the max of the plain output; for scan, the sum error
     # per window or the max error, whichever is larger)
+    # library_ms: one PyTorch call that does part of each kernel's work
+    # (no single call computes these functions): conv1d over the mixed
+    # planes for the frontend kernels, torch.fft.fft over the decoded
+    # frames for the waterfall kernels.  The v1 kernel's bound and
+    # yardstick are kernel 1's: the same chunk and FIR (its trig not counted)
     src = "quadrs_tpu_torch/csrc/frontend.cu"
+    conv = {"library_ms": ms["library_conv1d"], "library": "conv1d over the mixed planes (covers part of the work)"}
     kernels = [
         {"name": "frontend_fir", "route": "cuda", "source": src,
          "replaces": "quadrs_tpu/ops/frontend_pallas.py:409", "launches": launches["frontend_fir"],
-         "ms": ms["kernel1"], "plain_ms": ms["plain"]},
+         "ms": ms["kernel1"], "plain_ms": ms["plain"], "bound": ms["bound kernel1"], **conv},
         {"name": "frontend_fir_stft", "route": "cuda", "source": src,
          "replaces": "quadrs_tpu/ops/frontend_pallas.py:513", "launches": launches["frontend_fir_stft"],
-         "ms": ms["kernel2"], "plain_ms": ms["plain_stft_epilogue"]},
+         "ms": ms["kernel2"], "plain_ms": ms["plain_stft_epilogue"], "bound": ms["bound kernel2"], **conv},
         {"name": "frontend_banded", "route": "cuda", "source": src,
          "replaces": "quadrs_tpu/ops/frontend_pallas.py:146", "launches": launches["frontend_banded"], "path": None,
-         "ms": ms["banded"], "plain_ms": ms["plain_banded"]},
+         "ms": ms["banded"], "plain_ms": ms["plain_banded"], "bound": ms["bound kernel1"], **conv},
     ]
     # each waterfall kernel at the stride of its main-path run
-    for name, line, key in (("waterfall_norms", 149, "norms@1024"), ("waterfall_search", 219, "search@256"),
-                            ("waterfall_scan", 787, "scan@256")):
+    for name, line, key, stride in (("waterfall_norms", 149, "norms", 1024), ("waterfall_search", 219, "search", 256),
+                                    ("waterfall_scan", 787, "scan", 256)):
         kernels.append({"name": name, "route": "cuda", "source": "quadrs_tpu_torch/csrc/waterfall.cu",
                         "replaces": f"quadrs_tpu/ops/waterfall_pallas.py:{line}", "launches": launches[name],
-                        "ms": wf_ms[key], "plain_ms": wf_ms["plain_" + key]})
+                        "ms": wf_ms[f"{key}@{stride}"], "plain_ms": wf_ms[f"plain_{key}@{stride}"],
+                        "bound": wf_ms[f"bound {key}@{stride}"], "library_ms": wf_ms[f"library_fft@{stride}"],
+                        "library": "torch.fft.fft over the decoded frames (covers part of the work)"})
     for k in kernels:
         k["max_abs_err"], k["err_over_max"] = at_main[k["name"]]
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        k["roofline_share"] = k["bound_ms"] / k["ms"]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

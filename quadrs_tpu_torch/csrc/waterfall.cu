@@ -17,57 +17,77 @@
 // The TPU kernels exist in several layouts because of its 128 lanes and
 // VMEM (pre-arranged windows, class rows at 128-multiple strides,
 // sub-aligned class interleaves).  Here the window assembly is index
-// arithmetic: sample i of window w of stream s is read at
-// s*stride_s + w*hop + i, neighbouring threads on neighbouring addresses;
-// overlapping windows re-read their samples through L2.  The Python
-// wrappers and the plain PyTorch versions are in
-// quadrs_tpu_torch/ops/waterfall.py.
+// arithmetic over a span staged in shared memory.  The Python wrappers and
+// the plain PyTorch versions are in quadrs_tpu_torch/ops/waterfall.py.
 //
-// The DFT splits n = b*p + q (as the TPU kernels do): b 128-point FFTs over
-// p (radix-2, decimation in time, in shared memory), the twiddle
-// W_N^{q*r}, then a direct b-point DFT over q per r, which gives bin
-// k = r + 128*s.  All tables are planned in f64 on the host and stored as
-// f32 (ops/waterfall.plan_twiddles).
+// What bounds it on the H100.  At the bank's shape (64 streams x 2000
+// windows x 1024 points of cs8) the bytes bound the norms at stride 1024
+// (262 MB in, 524 MB out: 0.235 ms at 3.35 TB/s), and the f32 arithmetic
+// bounds search and scan at stride 256 (5 N log2 N per window, 6.55 GFLOP:
+// 0.098 ms at 67 TFLOP/s).  The first version of this file ran radix-2
+// butterflies in shared memory, ten passes per 1024-point window with a
+// barrier each, ~75,000 shared-memory words per window, and took
+// 2.47-3.06 ms there.  This version takes 0.53-0.62 ms (chip_smoke.py
+// phase 5 on an H100 80GB HBM3 at 700 W; PERF.md), 2.5-6.3x its bound,
+// and 0.78-0.87x a cuFFT call over the same frames.  No one part holds
+// it: builds with one part taken out, timed beside this one on one card,
+// put the largest share in the three later passes, then the staging loads
+// (most at stride 1024) and the barriers, a few percent in the decode
+// table's bank conflicts, none in the norms' stores.  The compiled cs8
+// norms body at 1024 points holds 1008 instructions, 311 of them FP
+// (chip_smoke.py phase 2); HBM moves 0.1-1.4 TB/s of its 3.35.  16 points
+// a thread (two exchanges at 1024) was faster at stride 256 and slower at
+// 1024; a second staging buffer filled by cp.async while a tile computes
+// gained little; neither was kept.
 //
-// What bounds it on the H100, estimated from the code (not profiled).  Per
-// N-point window the FFTs issue ~10 shared-memory accesses for each of
-// their 448*b butterflies, and the q-DFT 4 for each of its N*b complex
-// multiply-adds: at N = 1024 some 75,000 shared-memory words per window,
-// against 2 KB of cs8 read and 4 KB of norms written.  The H100's shared
-// memory moves ~7e12 words/s over its 132 SMs, its HBM 3.35 TB/s: at
-// 64 streams x 2000 windows of 1024 points that is ~1.3 ms of shared-memory
-// traffic against ~0.25 ms of HBM traffic.  So the shared-memory
-// butterflies bound this version, not HBM, and the search and scan
-// epilogues, which write almost nothing, save little time.  The levers for
-// later work: radix-8/16 butterflies in registers (fewer shared-memory
-// passes), the q-DFT as a complex matrix product on the tensor cores
-// (wgmma; b x b against 128 columns per window), and TMA loads of the
-// window tiles.  Neither wgmma nor TMA is used here.
-//
-// Design:
-//  * A block owns one stream and a tile of wt windows (wt = 2048/N, at
-//    least 1); the scan blocks walk a contiguous run of tiles.  256
-//    threads.  Shared memory holds the tile as wt*b rows of 128 complex
-//    samples (re and im planes), row pitch 129 so that consecutive rows
-//    fall in different banks.  At N = 8192 the tile is 66 KB, and the scan
-//    accumulators another 96 KB: dynamic shared memory beyond 48 KB,
-//    raised with cudaFuncSetAttribute.
-//  * Staging decodes with IEEE division (qt::decode), multiplies by the f32
-//    window and stores each sample bit-reversed within its row, so the
-//    in-place DIT butterflies leave the FFT output in natural order.
-//    Windows past n_windows in the last tile are zeros and never read
-//    the planes.
-//  * Each thread owns the same bins k = tid + 256*j of every window, so the
-//    scan accumulates its per-bin sum, max (NaN-propagating) and count in
-//    shared memory that only it touches, in window order: no atomics.  A
-//    second kernel sums the blocks' partials in block order.  Both orders
-//    are fixed by the shapes, so results repeat run to run.
-//  * The search packs (magnitude bits, ~bin) into 64 bits: magnitudes are
-//    >= +0, so their bits order as the floats do, and an integer max picks
-//    the largest magnitude and, among equals, the lowest bin; any NaN
-//    outranks every number and is mapped to bin N-1.  Warp shuffles, then
-//    one shared-memory atomicMax per warp and window (integer: the result
-//    does not depend on the order).
+// Design (what it does about the first version's bounds):
+//  * The FFT in registers.  A window takes N/8 threads, each holding 8
+//    complex points.  The power-of-two part runs as Stockham passes
+//    (natural order in and out, no bit reversal) of radix 8 and then the
+//    rest (1024 = 8*8*8*2: four passes, three exchanges); each pass is
+//    radix-R butterflies in registers with constant twiddles, the pass
+//    twiddles W_{ns*R}^{j*r} read from a shared table, and one exchange
+//    through shared memory padded one word in 32 (8 in 64 for the pass
+//    with ns = 8, whose stores would otherwise meet 4-way bank conflicts).
+//    For b = 2^e * m with m odd (384, 640, ...) the power-of-two passes run
+//    over N/m points each and a direct m-point DFT is the last pass, its
+//    twiddle W_N^{j*r} folded into the store before it.  All tables are
+//    planned in f64 on the host and stored as f32
+//    (ops/waterfall.plan_twiddles); no fast-math trig.
+//  * Shapes at compile time.  The power-of-two widths (256 ... 8192) each
+//    have their own instantiation (LN = log2 N), so every shared-memory
+//    address is a base register plus a constant and the pass loop unrolls;
+//    with the width at run time the addresses' integer work dominated the
+//    compiled loop.  The other widths share one instantiation.
+//  * Decode by table.  cs8 and cu8 decode through a 256-entry f32 table
+//    planned on the host with the reference formula (bit-equal to the
+//    IEEE division); cs16 keeps qt::decode's division; cf32 needs none.
+//    The optional f32 window is applied as __fmul_rn before the DFT.
+//  * Staged spans with wide loads.  A block owns one stream and walks a
+//    run of tiles of wt windows (wt*N/8 ~ 256 threads).  It stages the
+//    span its tile covers, (nw-1)*hop + N samples per plane when windows
+//    overlap (hop < N) and one N-sample segment per window otherwise, with
+//    16-byte loads into shared memory at the global address's offset
+//    mod 16: any base pointer, stream stride and hop.  A 16-byte load may
+//    read up to 15 bytes past either end of a segment, never outside the
+//    aligned 16-byte chunks that hold its samples (so never outside the
+//    allocation).  The tables load once per block.  The grid has ~64
+//    blocks per SM (ops/waterfall.kernel_grid), so the last wave is short.
+//  * Epilogues from registers.  The last pass leaves each thread its 8
+//    bins, the same ones for every window.  Norms: sqrt.approx of
+//    re^2 + im^2 (one MUFU op), stored at the fftshifted column,
+//    neighbouring threads on neighbouring columns (full 128-byte lines per
+//    warp).  Search: the packed (magnitude bits, ~bin) key reduced in
+//    registers, then warp shuffles within the window's threads, then one
+//    shared atomicMax per group: magnitudes are >= +0, so their bits order
+//    as the floats do, an integer max picks the largest and, among equals,
+//    the lowest bin, and any NaN outranks every number and is mapped to bin
+//    N-1.  Scan: each thread keeps its bins' sum, max (NaN-propagating) and
+//    count in registers over its window slot's windows in order; the block
+//    folds its slots in slot order and writes its partial; a second kernel
+//    sums the blocks' partials in block order.  No float atomics: the
+//    orders are fixed by the shapes, so results repeat run to run.
+//  * No tensor cores: TF32 would break the bank's rtol 2e-5.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,14 +97,22 @@
 
 namespace {
 
-using qt::decode;
-
-constexpr int kThreads = 256;
-constexpr int kPitch = 129;  // floats per shared row of 128 samples
+constexpr int kPoints = 8;  // complex points a thread holds (ops/waterfall._POINTS)
+constexpr int kLogPoints = 3;
+constexpr int kBlockThreads = 256;  // a block's threads to aim for (ops/waterfall._BLOCK_THREADS)
+constexpr int kMaxThreads = 8192 / kPoints;
 constexpr int kNorms = 0, kSearch = 1, kScan = 2;
 
-__device__ __forceinline__ int brev7(int p) {
-  return static_cast<int>(__brev(static_cast<unsigned>(p)) >> 25);
+// sqrt.approx.f32: one MUFU op, relative error ~2^-23 (the kernel's norms
+// are held to rtol 2e-5); 0, +inf and NaN map to themselves
+__device__ __forceinline__ float sqrt_approx(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return sqrtf(x);
+#endif
 }
 
 // max that keeps a NaN once one is seen (fmaxf would drop it)
@@ -92,53 +120,273 @@ __device__ __forceinline__ float max_nan(float acc, float v) {
   return (v > acc || v != v) ? v : acc;
 }
 
-// Shared memory: [search keys (wt u64)] [re rows] [im rows] [W_128 re, im]
-// [W_b re, im] [scan accumulators: sum, max, count (3 * width)]
-size_t smem_bytes(int mode, int width, int wt) {
-  const size_t b = width / 128;
-  size_t floats = 2 * wt * b * kPitch + 128 + 2 * b;
-  if (mode == kScan) floats += 3 * static_cast<size_t>(width);
-  return (mode == kSearch ? 8 * static_cast<size_t>(wt) : 0) + floats * sizeof(float);
+// Shared word of complex point x of a window: m pad words after every 2^s.
+// Every exchange pads one word per 32, but for the store of the radix-8
+// pass with ns = 8 (s = 6, m = 8): its lanes write groups of 8 words 64
+// apart, which the padding puts in distinct banks.
+__host__ __device__ constexpr int pad(int x, int s = 5, int m = 1) { return x + (x >> s) * m; }
+
+__host__ __device__ constexpr int ilog2(int x) {
+  int l = 0;
+  while ((1 << l) < x) ++l;
+  return l;
 }
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads) waterfall_kernel(
-    const T* __restrict__ planes, long long stride_s, long long stride_c,
-    long long n_windows, long long hop, int width, int wt, int tiles_per_block,
-    const float* __restrict__ tables, const float* __restrict__ window,
-    float threshold, float* __restrict__ out_f, int* __restrict__ out_i) {
-  extern __shared__ unsigned long long smem_u64[];
-  const int tid = threadIdx.x;
-  const int b = width >> 7;
-  const int rows = wt * b;
-  unsigned long long* keys = smem_u64;
-  float* xr = reinterpret_cast<float*>(smem_u64 + (MODE == kSearch ? wt : 0));
-  float* xi = xr + rows * kPitch;
-  float* w128r = xi + rows * kPitch;
-  float* w128i = w128r + 64;
-  float* wbr = w128i + 64;
-  float* wbi = wbr + b;
-  float* acc_sum = wbi + b;
-  float* acc_max = acc_sum + width;
-  float* acc_cnt = acc_max + width;
-  const float* twr = tables + 128 + 2 * b;  // W_N^{q*r} at q*128 + r
-  const float* twi = twr + 128 * b;
+// windows per block: a window takes width/kPoints threads
+__host__ __device__ constexpr int tile_of(int width) {
+  return kBlockThreads / (width / kPoints) > 1 ? kBlockThreads / (width / kPoints) : 1;
+}
 
-  for (int j = tid; j < 64; j += kThreads) {
-    w128r[j] = tables[j];
-    w128i[j] = tables[64 + j];
+// W_16^q = cos(2 pi q / 16) - i sin(2 pi q / 16), f64 values rounded to f32
+__device__ __forceinline__ float cos16(int q) {
+  switch (q) {
+    case 1: return 0.92387953251128674f;
+    case 2: return 0.70710678118654752f;
+    case 3: return 0.38268343236508978f;
+    case 5: return -0.38268343236508978f;
+    case 6: return -0.70710678118654752f;
+    case 7: return -0.92387953251128674f;
+    default: return 0.0f;
   }
-  for (int j = tid; j < b; j += kThreads) {
-    wbr[j] = tables[128 + j];
-    wbi[j] = tables[128 + b + j];
+}
+__device__ __forceinline__ float sin16(int q) {
+  switch (q) {
+    case 1: case 7: return 0.38268343236508978f;
+    case 2: case 6: return 0.70710678118654752f;
+    case 3: case 5: return 0.92387953251128674f;
+    default: return 0.0f;
   }
-  if (MODE == kScan) {
-    for (int k = tid; k < width; k += kThreads) {
-      acc_sum[k] = 0.0f;
-      acc_max[k] = -INFINITY;
-      acc_cnt[k] = 0.0f;
+}
+
+// In-register R-point DFT (R <= 16), natural order in and out: radix-2
+// decimation in time, unrolled at compile time.
+template <int R>
+__device__ __forceinline__ void dft(float* xr, float* xi) {
+  if constexpr (R > 1) {
+    constexpr int H = R / 2;
+    float er[H], ei[H], orr[H], oi[H];
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      er[k] = xr[2 * k];
+      ei[k] = xi[2 * k];
+      orr[k] = xr[2 * k + 1];
+      oi[k] = xi[2 * k + 1];
+    }
+    dft<H>(er, ei);
+    dft<H>(orr, oi);
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const int q = k * (16 / R);  // W_R^k = W_16^q
+      float tr, ti;
+      if (q == 0) {
+        tr = orr[k];
+        ti = oi[k];
+      } else if (q == 4) {  // times -i
+        tr = oi[k];
+        ti = -orr[k];
+      } else {
+        const float c = cos16(q), s = sin16(q);
+        tr = orr[k] * c + oi[k] * s;
+        ti = oi[k] * c - orr[k] * s;
+      }
+      xr[k] = er[k] + tr;
+      xi[k] = ei[k] + ti;
+      xr[k + H] = er[k] - tr;
+      xi[k + H] = ei[k] - ti;
     }
   }
+}
+
+__device__ __forceinline__ void cmul(float& a, float& b, float2 w) {
+  const float r = a * w.x - b * w.y;
+  b = a * w.y + b * w.x;
+  a = r;
+}
+
+
+// One Stockham pass of radix R over a window of n points in shared memory
+// (xr, xi, padded): the thread's items are j = t + g*u (u < kPoints/R),
+// item j's point r at j + r*n/R.  load -> twiddle + butterflies -> store at
+// (j / ns)*ns*R + r*ns + j % ns, where ns = 2^lns is the product of the
+// earlier radices.  LINEAR (the power-of-two widths): the offsets fold,
+// a load at pad(t + c, s, m) with c a multiple of 2^s being
+// pad(t, s, m) plus a constant.
+template <int R, bool LINEAR>
+__device__ __forceinline__ void load_pass(float (&vr)[kPoints], float (&vi)[kPoints], const float* xr,
+                                          const float* xi, int t, int g, int n, int s, int m) {
+  const int stride = n / R;
+#pragma unroll
+  for (int u = 0; u < kPoints / R; ++u)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int c = g * u + r * stride;
+      const bool lin = LINEAR && (c & ((1 << s) - 1)) == 0;
+      const int a = lin ? pad(t, s, m) + c + (c >> s) * m : pad(t + c, s, m);
+      vr[u * R + r] = xr[a];
+      vi[u * R + r] = xi[a];
+    }
+}
+
+template <int R>
+__device__ __forceinline__ void butterflies(float (&vr)[kPoints], float (&vi)[kPoints], const float2* tw,
+                                            int t, int g, int lns) {
+  const int ns = 1 << lns;
+#pragma unroll
+  for (int u = 0; u < kPoints / R; ++u) {
+    if (ns > 1) {
+      const int jm = (t + g * u) & (ns - 1);
+#pragma unroll
+      for (int r = 1; r < R; ++r) cmul(vr[u * R + r], vi[u * R + r], tw[(r - 1) * ns + jm]);
+    }
+    dft<R>(vr + u * R, vi + u * R);
+  }
+}
+
+// The store of point r of item j: with hi = (j / ns)*ns*R (a multiple of
+// ns*R, a power of two) and jm = j % ns, pad(hi + jm + r*ns, s, m) is a
+// base per item plus a constant per point: pad(hi, s, m) + jm + r*ns when
+// 2^s = ns*R; with one word per 32, pad(hi) + jm + r*ns + (r*ns >> 5)
+// when ns < 32 and pad(hi + jm) + r*ns + (r*ns >> 5) when ns >= 32.  twf (the last power-of-two pass when m > 1): each
+// point times twf[its index].
+template <int R>
+__device__ __forceinline__ void store_pass(const float (&vr)[kPoints], const float (&vi)[kPoints], float* xr,
+                                           float* xi, int t, int g, int lns, int s, int m,
+                                           const float2* __restrict__ twf) {
+  const int ns = 1 << lns;
+#pragma unroll
+  for (int u = 0; u < kPoints / R; ++u) {
+    const int j = t + g * u;
+    const int hi = (j >> lns) * ns * R;
+    const int jm = j & (ns - 1);
+    const bool whole = ns * R == 1 << s;
+    const int base = whole ? pad(hi, s, m) + jm : ns < 32 ? pad(hi) + jm : pad(hi + jm);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = base + r * ns + (whole ? 0 : (r * ns) >> 5);
+      float x = vr[u * R + r], y = vi[u * R + r];
+      if (twf != nullptr) cmul(x, y, __ldg(twf + hi + jm + r * ns));
+      xr[a] = x;
+      xi[a] = y;
+    }
+  }
+}
+
+// the pass plan of width n = 128*b (ops/waterfall.fft_plan): npass radix
+// passes over the power-of-two part 2^lp2 (radix kPoints each, the last
+// one 2^llr), the odd part m of b, and the float2 pairs of the shared table
+struct Plan {
+  int npass, m, lp2, llr, shared_pairs;
+};
+
+__host__ __device__ constexpr Plan make_plan(int n) {
+  Plan p{};
+  p.m = n >> 7;
+  while ((p.m & 1) == 0) p.m >>= 1;
+  p.lp2 = ilog2(n / p.m);
+  p.npass = (p.lp2 + kLogPoints - 1) / kLogPoints;
+  p.llr = p.lp2 - kLogPoints * (p.npass - 1);
+  int pairs = 0;
+  for (int q = 1; q < p.npass; ++q)
+    pairs += ((1 << (q < p.npass - 1 ? kLogPoints : p.llr)) - 1) << (kLogPoints * q);
+  p.shared_pairs = pairs + (p.m > 1 ? p.m : 0);
+  return p;
+}
+
+// Shared memory: [search keys (wt u64, 16-byte rounded)] [raw re][raw im]
+// [decode table (256 f32)] [pass twiddles + W_m (float2)] [X: per window
+// re then im, N + N/8 floats each].  raw: per plane one span of
+// (wt-1)*hop + N samples when hop < N, else wt segments of N samples, each
+// with 16 bytes of slack for its address's offset mod 16.
+__host__ __device__ inline long long seg_bytes(int width, long long hop, int wt, int elem) {
+  const long long samples = hop < width ? (wt - 1) * hop + width : width;
+  return (samples * elem + 15) / 16 * 16 + 16;
+}
+
+__host__ __device__ inline long long raw_bytes(int width, long long hop, int wt, int elem) {
+  return seg_bytes(width, hop, wt, elem) * (hop < width ? 1 : wt);
+}
+
+inline size_t smem_bytes(int width, long long hop, int elem) {
+  const Plan p = make_plan(width);
+  const size_t wt = tile_of(width);
+  return (8 * wt + 15) / 16 * 16 + 2 * static_cast<size_t>(raw_bytes(width, hop, wt, elem)) + 256 * sizeof(float) +
+         8 * static_cast<size_t>(p.shared_pairs) + 2 * static_cast<size_t>(width + width / 8) * wt * sizeof(float);
+}
+
+template <typename T>
+__device__ __forceinline__ float load_sample(const unsigned char* p, const float* dtab) {
+  if constexpr (sizeof(T) == 1) {
+    return dtab[*p];
+  } else {
+    return qt::decode(*reinterpret_cast<const T*>(p));
+  }
+}
+
+// copy the tile's raw segments of one plane into shared memory: 16-byte
+// chunks, each landing at the same offset mod 16 as in device memory
+template <typename T>
+__device__ __forceinline__ void stage_plane(const T* plane, long long w0, long long hop, int nw, int width,
+                                            long long seg, unsigned char* dst, int tid, int nthreads) {
+  const bool over = hop < width;
+  const int nseg = over ? 1 : nw;
+  const long long len = (over ? (nw - 1) * hop + width : width) * static_cast<long long>(sizeof(T));
+  for (int k = 0; k < nseg; ++k) {
+    const uintptr_t g = reinterpret_cast<uintptr_t>(plane + (w0 + k) * hop);
+    const uintptr_t a = g & 15;
+    const uint4* src = reinterpret_cast<const uint4*>(g - a);
+    uint4* to = reinterpret_cast<uint4*>(dst + k * seg);
+    const int chunks = static_cast<int>((a + len + 15) >> 4);
+    for (int q = tid; q < chunks; q += nthreads) to[q] = __ldg(src + q);
+  }
+}
+
+// shared byte offset of sample 0 of window slot w of a tile in one plane
+template <typename T>
+__device__ __forceinline__ int sample0(const T* plane, long long w0, long long hop, int w, int width,
+                                       long long seg) {
+  if (hop < width) {
+    const int a = static_cast<int>(reinterpret_cast<uintptr_t>(plane + w0 * hop) & 15);
+    return a + static_cast<int>(w * hop) * static_cast<int>(sizeof(T));
+  }
+  const int a = static_cast<int>(reinterpret_cast<uintptr_t>(plane + (w0 + w) * hop) & 15);
+  return static_cast<int>(w * seg) + a;
+}
+
+// LN = log2(width) for the power-of-two widths, whose shapes then fold at
+// compile time; 0 for the rest (width_arg at run time)
+template <typename T, int MODE, int LN>
+__global__ void __launch_bounds__(kMaxThreads) waterfall_kernel(
+    const T* __restrict__ planes, long long stride_s, long long stride_c, long long n_windows, long long hop,
+    int width_arg, int tiles_per_block, const float* __restrict__ tables, const float* __restrict__ dtab_g,
+    const float* __restrict__ window, float threshold, float* __restrict__ out_f, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr Plan kPlan = make_plan(LN ? 1 << LN : 256);
+  const int width = LN ? 1 << LN : width_arg;
+  const Plan plan = LN ? kPlan : make_plan(width);
+  const int wt = tile_of(width);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int g = width / kPoints;  // threads per window
+  const int slot = tid / g;
+  const int t = tid - slot * g;
+  const bool active = slot < wt;
+  const int xpitch = width + width / 8;  // room for either padding
+  const long long seg = seg_bytes(width, hop, wt, sizeof(T));
+
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
+  unsigned char* raw_re = smem + (8 * wt + 15) / 16 * 16;
+  unsigned char* raw_im = raw_re + raw_bytes(width, hop, wt, sizeof(T));
+  float* dtab = reinterpret_cast<float*>(raw_im + raw_bytes(width, hop, wt, sizeof(T)));
+  float2* tw = reinterpret_cast<float2*>(dtab + 256);
+  float* xbase = reinterpret_cast<float*>(tw + plan.shared_pairs);
+  float* xr = xbase + 2 * xpitch * (active ? slot : 0);
+  float* xi = xr + xpitch;
+  const float2* twf = reinterpret_cast<const float2*>(tables) + plan.shared_pairs;  // W_N^{j*r}, m > 1
+  const float2* wm = tw + plan.shared_pairs - plan.m;                                 // W_m^k, m > 1
+
+  for (int i = tid; i < 2 * plan.shared_pairs; i += nthreads) reinterpret_cast<float*>(tw)[i] = tables[i];
+  if (sizeof(T) == 1)
+    for (int i = tid; i < 256; i += nthreads) dtab[i] = dtab_g[i];
 
   const int s = blockIdx.y;
   const T* re = planes + s * stride_s;
@@ -147,115 +395,154 @@ __global__ void __launch_bounds__(kThreads) waterfall_kernel(
   const long long t0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long t1 = t0 + tiles_per_block < n_tiles ? t0 + tiles_per_block : n_tiles;
   const int half = width >> 1;
+  const int pstride = width / kPoints;  // the first pass's point stride
 
-  for (long long t = t0; t < t1; ++t) {
-    const long long w0 = t * wt;
-    const int nw = static_cast<int>(n_windows - w0 < wt ? n_windows - w0 : wt);
-    __syncthreads();  // the previous tile is no longer read
-
-    // stage: decode, window, bit-reversed store into row (w, q)
-    for (int e = tid; e < wt * width; e += kThreads) {
-      const int w = e / width;
-      const int i = e - w * width;
-      float a = 0.0f, c = 0.0f;
-      if (w < nw) {
-        const long long at = (w0 + w) * hop + i;
-        a = decode(re[at]);
-        c = decode(im[at]);
-        if (window != nullptr) {
-          const float g = window[i];
-          a = __fmul_rn(a, g);
-          c = __fmul_rn(c, g);
-        }
-      }
-      const int p = i / b;
-      const int q = i - p * b;
-      const int slot = (w * b + q) * kPitch + brev7(p);
-      xr[slot] = a;
-      xi[slot] = c;
+  float acc_sum[kPoints], acc_max[kPoints], acc_cnt[kPoints];
+  if (MODE == kScan) {
+#pragma unroll
+    for (int e = 0; e < kPoints; ++e) {
+      acc_sum[e] = 0.0f;
+      acc_max[e] = -INFINITY;
+      acc_cnt[e] = 0.0f;
     }
+  }
+  // bin of point e after the last pass: the last radix pass (radix 2^llr,
+  // ns = 2^(lp2 - llr)) leaves item j = t + g*u's point r at r*ns + j; the
+  // direct m-point pass gives point e bin t + g*e
+  const int llr = plan.llr, llns = plan.lp2 - plan.llr;
+#define QT_BIN(e) (plan.m > 1 ? t + g * (e) : (((e) & ((1 << llr) - 1)) << llns) + t + g * ((e) >> llr))
+  // its fftshifted column: a power-of-two width's bin is t plus a multiple
+  // of g >= t that holds the top bit, so the shift flips that bit alone
+#define QT_COL(e)                                                                       \
+  (LN > 0 ? t + (((((e) & ((1 << llr) - 1)) << llns) + g * ((e) >> llr)) ^ half)        \
+          : (QT_BIN(e) + half < width ? QT_BIN(e) + half : QT_BIN(e) + half - width))
+
+  for (long long tile = t0; tile < t1; ++tile) {
+    const long long w0 = tile * wt;
+    const int nw = static_cast<int>(n_windows - w0 < wt ? n_windows - w0 : wt);
+    stage_plane(re, w0, hop, nw, width, seg, raw_re, tid, nthreads);
+    stage_plane(im, w0, hop, nw, width, seg, raw_im, tid, nthreads);
     if (MODE == kSearch && tid < wt) keys[tid] = 0ull;
     __syncthreads();
 
-    // b*wt 128-point FFTs: radix-2 DIT, natural-order output
-    for (int h = 1; h < 128; h <<= 1) {
-      const int tw_step = 64 / h;
-      for (int u = tid; u < rows * 64; u += kThreads) {
-        const int row = u >> 6;
-        const int t64 = u & 63;
-        const int j = t64 & (h - 1);
-        const int i0 = ((t64 - j) << 1) + j;
-        float* pr = xr + row * kPitch;
-        float* pi = xi + row * kPitch;
-        const float cr = w128r[j * tw_step];
-        const float ci = w128i[j * tw_step];
-        const float br = pr[i0 + h], bi = pi[i0 + h];
-        const float tr = br * cr - bi * ci;
-        const float ti = br * ci + bi * cr;
-        const float ar = pr[i0], ai = pi[i0];
-        pr[i0] = ar + tr;
-        pi[i0] = ai + ti;
-        pr[i0 + h] = ar - tr;
-        pi[i0 + h] = ai - ti;
+    float vr[kPoints], vi[kPoints];
+    // pass 0, radix kPoints, ns 1: decode and window the points t + r*pstride
+    if (active && slot < nw) {
+      const unsigned char* pr = raw_re + sample0(re, w0, hop, slot, width, seg);
+      const unsigned char* pi = raw_im + sample0(im, w0, hop, slot, width, seg);
+#pragma unroll
+      for (int r = 0; r < kPoints; ++r) {
+        const int i = t + r * pstride;
+        vr[r] = load_sample<T>(pr + i * static_cast<int>(sizeof(T)), dtab);
+        vi[r] = load_sample<T>(pi + i * static_cast<int>(sizeof(T)), dtab);
       }
-      __syncthreads();
+      if (window != nullptr) {
+#pragma unroll
+        for (int r = 0; r < kPoints; ++r) {
+          const float wv = __ldg(window + t + r * pstride);
+          vr[r] = __fmul_rn(vr[r], wv);
+          vi[r] = __fmul_rn(vi[r], wv);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kPoints; ++r) vr[r] = vi[r] = 0.0f;
     }
-
-    // twiddle: Z_q[r] *= W_N^{q*r}
-    for (int e = tid; e < rows * 128; e += kThreads) {
-      const int row = e >> 7;
-      const int r = e & 127;
-      const int q = row % b;
-      const float cr = twr[q * 128 + r], ci = twi[q * 128 + r];
-      const int slot = row * kPitch + r;
-      const float zr = xr[slot], zi = xi[slot];
-      xr[slot] = zr * cr - zi * ci;
-      xi[slot] = zr * ci + zi * cr;
-    }
+    dft<kPoints>(vr, vi);
+    if (active) store_pass<kPoints>(vr, vi, xr, xi, t, g, 0, 5, 1, nullptr);
     __syncthreads();
 
-    // b-point DFT over q for bin k = r + 128*sb, then the epilogue
-    for (int w = 0; w < nw; ++w) {
-      unsigned long long best = 0ull;
-      const float* zr = xr + w * b * kPitch;
-      const float* zi = xi + w * b * kPitch;
-      for (int k = tid; k < width; k += kThreads) {
-        const int r = k & 127;
-        const int sb = k >> 7;
-        float yr = 0.0f, yi = 0.0f;
-        int m = 0;  // (q * sb) mod b
-        for (int q = 0; q < b; ++q) {
-          const float cr = wbr[m], ci = wbi[m];
-          const float vr = zr[q * kPitch + r], vi = zi[q * kPitch + r];
-          yr = fmaf(vr, cr, fmaf(-vi, ci, yr));
-          yi = fmaf(vr, ci, fmaf(vi, cr, yi));
-          m += sb;
-          if (m >= b) m -= b;
-        }
-        const float mag = sqrtf(yr * yr + yi * yi);
-        const int col = k < width - half ? k + half : k - (width - half);
-        if (MODE == kNorms) {
-          out_f[(s * n_windows + w0 + w) * width + col] = mag;
-        } else if (MODE == kSearch) {
-          const unsigned long long key =
-              (static_cast<unsigned long long>(__float_as_uint(mag)) << 32) |
-              (0xFFFFFFFFu - static_cast<unsigned>(col));
-          best = key > best ? key : best;
-        } else {
-          acc_sum[col] += mag;
-          acc_max[col] = max_nan(acc_max[col], mag);
-          acc_cnt[col] += mag > threshold ? 1.0f : 0.0f;
+    const float2* ptw = tw;  // this pass's table
+    int ls = 5, lm = 1;      // the padding of the data in X
+#pragma unroll
+    for (int p = 1; p < plan.npass; ++p) {
+      const bool last = p == plan.npass - 1;
+      const int lr = last ? plan.llr : kLogPoints, lns = kLogPoints * p;
+      const bool store = !last || plan.m > 1;
+      const float2* ftw = last ? twf : nullptr;
+      // this pass's store padding: ns words after every ns*R when ns < 32
+      const int ss = LN > 0 && p == 1 && !last ? lns + lr : 5, sm = ss == 5 ? 1 : 1 << lns;
+#define QT_PASS(R)                                                         \
+  if (active) load_pass<R, (LN > 0)>(vr, vi, xr, xi, t, g, width, ls, lm); \
+  butterflies<R>(vr, vi, ptw, t, g, lns);                                  \
+  if (store) {                                                             \
+    __syncthreads();                                                       \
+    if (active) store_pass<R>(vr, vi, xr, xi, t, g, lns, ss, sm, ftw);     \
+    __syncthreads();                                                       \
+  }
+      switch (lr) {
+        case 3: { QT_PASS(8) } break;
+        case 2: { QT_PASS(4) } break;
+        default: { QT_PASS(2) } break;
+      }
+#undef QT_PASS
+      ptw += ((1 << lr) - 1) << lns;
+      ls = ss;
+      lm = sm;
+    }
+
+    if (LN == 0 && plan.m > 1 && active) {
+      // direct m-point DFT over the twiddled power-of-two transforms: point
+      // e is bin o = t + g*e, the sum over r of X[o mod 2^lp2 + r*2^lp2]
+      // times W_m^{r*(o div 2^lp2)}
+      const int p2 = 1 << plan.lp2;
+      int mk[kPoints];  // (r * k) mod m of point e
+#pragma unroll
+      for (int e = 0; e < kPoints; ++e) {
+        vr[e] = vi[e] = 0.0f;
+        mk[e] = 0;
+      }
+      for (int r = 0; r < plan.m; ++r) {
+#pragma unroll
+        for (int e = 0; e < kPoints; ++e) {
+          const int o = t + g * e;
+          const int a = pad((o & (p2 - 1)) + r * p2);
+          const float ar = xr[a], ai = xi[a];
+          const float2 w = wm[mk[e]];
+          vr[e] = fmaf(ar, w.x, fmaf(-ai, w.y, vr[e]));
+          vi[e] = fmaf(ar, w.y, fmaf(ai, w.x, vi[e]));
+          mk[e] += o >> plan.lp2;
+          if (mk[e] >= plan.m) mk[e] -= plan.m;
         }
       }
-      if (MODE == kSearch) {
-        for (int off = 16; off > 0; off >>= 1) {
-          const unsigned long long o = __shfl_xor_sync(0xFFFFFFFFu, best, off);
-          best = o > best ? o : best;
+    }
+
+    // epilogue: the thread's kPoints bins of its window
+    const bool mine = active && slot < nw;
+    unsigned long long best = 0ull;
+    if (mine) {
+      float mag[kPoints];
+#pragma unroll
+      for (int e = 0; e < kPoints; ++e) mag[e] = sqrt_approx(vr[e] * vr[e] + vi[e] * vi[e]);
+      if (MODE == kScan) {
+#pragma unroll
+        for (int e = 0; e < kPoints; ++e) {
+          acc_sum[e] += mag[e];
+          acc_max[e] = max_nan(acc_max[e], mag[e]);
+          acc_cnt[e] += mag[e] > threshold ? 1.0f : 0.0f;
         }
-        if ((tid & 31) == 0) atomicMax(&keys[w], best);
+      } else if (MODE == kNorms) {
+        float* row = out_f + (s * n_windows + w0 + slot) * width;
+#pragma unroll
+        for (int e = 0; e < kPoints; ++e) row[QT_COL(e)] = mag[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < kPoints; ++e) {
+          const unsigned long long key = (static_cast<unsigned long long>(__float_as_uint(mag[e])) << 32) |
+                                         (0xFFFFFFFFu - static_cast<unsigned>(QT_COL(e)));
+          best = key > best ? key : best;
+        }
       }
     }
     if (MODE == kSearch) {
+      // shuffle within aligned groups of a window's threads, then one
+      // shared atomicMax per group (integer: order-independent)
+      const int gs = (g & -g) < 32 ? (g & -g) : 32;
+      for (int off = gs >> 1; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(0xFFFFFFFFu, best, off);
+        best = o > best ? o : best;
+      }
+      if (mine && (t & (gs - 1)) == 0) atomicMax(&keys[slot], best);
       __syncthreads();
       if (tid < nw) {
         const unsigned long long key = keys[tid];
@@ -268,24 +555,56 @@ __global__ void __launch_bounds__(kThreads) waterfall_kernel(
   }
 
   if (MODE == kScan) {
-    // partials of this block: (3, S, groups, width), groups = gridDim.x
+    // partials of this block: (3, S, groups, width), groups = gridDim.x;
+    // the window slots fold in slot order through shared memory (X)
     const long long plane = static_cast<long long>(gridDim.y) * gridDim.x * width;
     const long long base = (static_cast<long long>(s) * gridDim.x + blockIdx.x) * width;
-    for (int k = tid; k < width; k += kThreads) {
-      const int col = k < width - half ? k + half : k - (width - half);
-      out_f[base + col] = acc_sum[col];
-      out_f[plane + base + col] = acc_max[col];
-      out_f[2 * plane + base + col] = acc_cnt[col];
+    if (wt == 1) {
+      if (active) {
+#pragma unroll
+        for (int e = 0; e < kPoints; ++e) {
+          const int col = QT_COL(e);
+          out_f[base + col] = acc_sum[e];
+          out_f[plane + base + col] = acc_max[e];
+          out_f[2 * plane + base + col] = acc_cnt[e];
+        }
+      }
+    } else {
+      float* fs = xbase;  // 3 * width floats <= 2 * wt * xpitch
+      __syncthreads();
+      for (int sl = 0; sl < wt; ++sl) {
+        if (slot == sl) {
+#pragma unroll
+          for (int e = 0; e < kPoints; ++e) {
+            const int k = QT_BIN(e);
+            if (sl == 0) {
+              fs[k] = acc_sum[e];
+              fs[width + k] = acc_max[e];
+              fs[2 * width + k] = acc_cnt[e];
+            } else {
+              fs[k] += acc_sum[e];
+              fs[width + k] = max_nan(fs[width + k], acc_max[e]);
+              fs[2 * width + k] += acc_cnt[e];
+            }
+          }
+        }
+        __syncthreads();
+      }
+      for (int k = tid; k < width; k += nthreads) {
+        const int col = k < width - half ? k + half : k - (width - half);
+        out_f[base + col] = fs[k];
+        out_f[plane + base + col] = fs[width + k];
+        out_f[2 * plane + base + col] = fs[2 * width + k];
+      }
     }
   }
 }
 
 // Second pass of the scan: out[x][s][col] over the groups' partials, in
 // group order (partial[x][s][g][col], x = sum, max, count).
-__global__ void __launch_bounds__(kThreads) scan_reduce_kernel(
-    const float* __restrict__ partial, int n_streams, int groups, int width,
-    float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(256) scan_reduce_kernel(const float* __restrict__ partial, int n_streams,
+                                                          int groups, int width, float* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
   const long long n = static_cast<long long>(n_streams) * width;
   if (i >= n) return;
   const long long s = i / width;
@@ -303,54 +622,71 @@ __global__ void __launch_bounds__(kThreads) scan_reduce_kernel(
   out[2 * n + i] = cnt;
 }
 
-template <typename T, int MODE>
-int launch(int device, const void* planes, long long stride_s,
-           long long stride_c, int n_streams, long long n_windows,
-           long long hop, int width, int wt, int tiles_per_block, int groups,
-           const float* tables, const float* window, float threshold,
-           float* out_f, int* out_i, float* scan_out, void* stream) {
+
+template <typename T, int MODE, int LN>
+int launch(int device, const void* planes, long long stride_s, long long stride_c, int n_streams,
+           long long n_windows, long long hop, int width, int tiles_per_block, int groups, const float* tables,
+           const float* dtab, const float* window, float threshold, float* out_f, int* out_i, float* scan_out,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (width % 128 != 0 || width < 256 || width > 8192 || wt < 1 ||
-      wt * (width / 128) > 64 || n_streams < 1 || n_streams > 65535 ||
-      n_windows < 1 || hop < 1 || tiles_per_block < 1 || groups < 1)
+  const int wt = tile_of(width);
+  const int threads = (wt * (width / kPoints) + 31) / 32 * 32;
+  if (width % 128 != 0 || width < 256 || width > 8192 || threads > kMaxThreads || n_streams < 1 ||
+      n_streams > 65535 || n_windows < 1 || hop < 1 || tiles_per_block < 1 || groups < 1 ||
+      (sizeof(T) == 1 && dtab == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // every block owns at least one tile, and the blocks cover them all
   const long long n_tiles = (n_windows + wt - 1) / wt;
   if (static_cast<long long>(groups) * tiles_per_block < n_tiles ||
       static_cast<long long>(groups - 1) * tiles_per_block >= n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(MODE, width, wt);
-  auto kern = waterfall_kernel<T, MODE>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const size_t smem = smem_bytes(width, hop, sizeof(T));
+  auto kern = waterfall_kernel<T, MODE, LN>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kern<<<dim3(static_cast<unsigned>(groups), static_cast<unsigned>(n_streams)),
-         kThreads, smem, st>>>(static_cast<const T*>(planes), stride_s,
-                               stride_c, n_windows, hop, width, wt,
-                               tiles_per_block, tables, window, threshold,
-                               out_f, out_i);
+  kern<<<dim3(static_cast<unsigned>(groups), static_cast<unsigned>(n_streams)), threads, smem, st>>>(
+      static_cast<const T*>(planes), stride_s, stride_c, n_windows, hop, width, tiles_per_block, tables, dtab,
+      window, threshold, out_f, out_i);
   err = cudaGetLastError();
   if (err != cudaSuccess || MODE != kScan) return static_cast<int>(err);
   const long long n = static_cast<long long>(n_streams) * width;
-  scan_reduce_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                       kThreads, 0, st>>>(out_f, n_streams, groups, width,
-                                          scan_out);
+  scan_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(out_f, n_streams, groups, width,
+                                                                               scan_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// fmt codes: 0 cf32 (float), 1 cs8 (int8), 2 cu8 (uint8), 3 cs16 (int16)
+// fmt codes: 0 cf32 (float), 1 cs8 (int8), 2 cu8 (uint8), 3 cs16 (int16);
+// the power-of-two widths take their own instantiation
+template <typename T, int MODE>
+int by_width(int device, const void* planes, long long stride_s, long long stride_c, int n_streams,
+             long long n_windows, long long hop, int width, int tiles_per_block, int groups, const float* tables,
+             const float* dtab, const float* window, float threshold, float* out_f, int* out_i,
+             float* scan_out, void* stream) {
+#define QT_LAUNCH(LN)                                                                                          \
+  launch<T, MODE, LN>(device, planes, stride_s, stride_c, n_streams, n_windows, hop, width, tiles_per_block, \
+                      groups, tables, dtab, window, threshold, out_f, out_i, scan_out, stream)
+  switch (width) {
+    case 256: return QT_LAUNCH(8);
+    case 512: return QT_LAUNCH(9);
+    case 1024: return QT_LAUNCH(10);
+    case 2048: return QT_LAUNCH(11);
+    case 4096: return QT_LAUNCH(12);
+    case 8192: return QT_LAUNCH(13);
+    default: return QT_LAUNCH(0);
+  }
+#undef QT_LAUNCH
+}
+
 template <int MODE>
-int dispatch(int fmt, int device, const void* planes, long long stride_s,
-             long long stride_c, int n_streams, long long n_windows,
-             long long hop, int width, int wt, int tiles_per_block, int groups,
-             const float* tables, const float* window, float threshold,
-             float* out_f, int* out_i, float* scan_out, void* stream) {
-#define QT_LAUNCH(T)                                                        \
-  launch<T, MODE>(device, planes, stride_s, stride_c, n_streams, n_windows, \
-                  hop, width, wt, tiles_per_block, groups, tables, window,  \
-                  threshold, out_f, out_i, scan_out, stream)
+int dispatch(int fmt, int device, const void* planes, long long stride_s, long long stride_c, int n_streams,
+             long long n_windows, long long hop, int width, int tiles_per_block, int groups, const float* tables,
+             const float* dtab, const float* window, float threshold, float* out_f, int* out_i,
+             float* scan_out, void* stream) {
+#define QT_LAUNCH(T)                                                                                       \
+  by_width<T, MODE>(device, planes, stride_s, stride_c, n_streams, n_windows, hop, width, tiles_per_block, \
+                    groups, tables, dtab, window, threshold, out_f, out_i, scan_out, stream)
   switch (fmt) {
     case 0: return QT_LAUNCH(float);
     case 1: return QT_LAUNCH(int8_t);
@@ -365,49 +701,41 @@ int dispatch(int fmt, int device, const void* planes, long long stride_s,
 
 // Every entry point takes the same leading arguments: the format code, the
 // device, the (S, 2, n) planes (element strides stride_s between streams
-// and stride_c between re and im, unit stride along n), n_windows windows
-// of width samples at stride hop, wt windows per tile, and the grid: groups
-// blocks per stream, each owning tiles_per_block consecutive tiles (the
-// last block the rest).  tables: ops/waterfall.plan_twiddles(width);
-// window: width f32 weights, or null for rectangular windows.
+// and stride_c between re and im, unit stride along n, any alignment),
+// n_windows windows of width samples at stride hop, and the grid: groups
+// blocks per stream, each owning tiles_per_block consecutive tiles of
+// ops/waterfall.window_tile(width) windows (the last block the rest).
+// tables: ops/waterfall.plan_twiddles(width); dtab:
+// ops/waterfall.decode_table (256 f32, required for cs8 and cu8, else
+// ignored); window: width f32 weights, or null for rectangular windows.
 extern "C" {
 
 // (S, n_windows, width) f32 fftshifted norms into norms.
-int qt_waterfall_norms(int fmt, int device, const void* planes,
-                       long long stride_s, long long stride_c, int n_streams,
-                       long long n_windows, long long hop, int width, int wt,
-                       int tiles_per_block, int groups, const float* tables,
-                       const float* window, float* norms, void* stream) {
-  return dispatch<kNorms>(fmt, device, planes, stride_s, stride_c, n_streams,
-                          n_windows, hop, width, wt, tiles_per_block, groups,
-                          tables, window, 0.0f, norms, nullptr, nullptr,
-                          stream);
+int qt_waterfall_norms(int fmt, int device, const void* planes, long long stride_s, long long stride_c,
+                       int n_streams, long long n_windows, long long hop, int width, int tiles_per_block,
+                       int groups, const float* tables, const float* dtab, const float* window, float* norms,
+                       void* stream) {
+  return dispatch<kNorms>(fmt, device, planes, stride_s, stride_c, n_streams, n_windows, hop, width,
+                          tiles_per_block, groups, tables, dtab, window, 0.0f, norms, nullptr, nullptr, stream);
 }
 
 // (S, n_windows) f32 peak magnitudes into val, int32 fftshifted bins into idx.
-int qt_waterfall_search(int fmt, int device, const void* planes,
-                        long long stride_s, long long stride_c, int n_streams,
-                        long long n_windows, long long hop, int width, int wt,
-                        int tiles_per_block, int groups, const float* tables,
-                        const float* window, float* val, int* idx,
-                        void* stream) {
-  return dispatch<kSearch>(fmt, device, planes, stride_s, stride_c, n_streams,
-                           n_windows, hop, width, wt, tiles_per_block, groups,
-                           tables, window, 0.0f, val, idx, nullptr, stream);
+int qt_waterfall_search(int fmt, int device, const void* planes, long long stride_s, long long stride_c,
+                        int n_streams, long long n_windows, long long hop, int width, int tiles_per_block,
+                        int groups, const float* tables, const float* dtab, const float* window, float* val,
+                        int* idx, void* stream) {
+  return dispatch<kSearch>(fmt, device, planes, stride_s, stride_c, n_streams, n_windows, hop, width,
+                           tiles_per_block, groups, tables, dtab, window, 0.0f, val, idx, nullptr, stream);
 }
 
 // (3, S, width) f32 into out: sum, max and count of norms above threshold
 // over the windows; partial is (3, S, groups, width) f32 scratch.
-int qt_waterfall_scan(int fmt, int device, const void* planes,
-                      long long stride_s, long long stride_c, int n_streams,
-                      long long n_windows, long long hop, int width, int wt,
-                      int tiles_per_block, int groups, const float* tables,
-                      const float* window, float threshold, float* partial,
-                      float* out, void* stream) {
-  return dispatch<kScan>(fmt, device, planes, stride_s, stride_c, n_streams,
-                         n_windows, hop, width, wt, tiles_per_block, groups,
-                         tables, window, threshold, partial, nullptr, out,
-                         stream);
+int qt_waterfall_scan(int fmt, int device, const void* planes, long long stride_s, long long stride_c,
+                      int n_streams, long long n_windows, long long hop, int width, int tiles_per_block,
+                      int groups, const float* tables, const float* dtab, const float* window, float threshold,
+                      float* partial, float* out, void* stream) {
+  return dispatch<kScan>(fmt, device, planes, stride_s, stride_c, n_streams, n_windows, hop, width,
+                         tiles_per_block, groups, tables, dtab, window, threshold, partial, nullptr, out, stream);
 }
 
 }  // extern "C"

@@ -54,7 +54,7 @@ class WaterfallModel(nn.Module):
                 raise ValueError(f"window must be f32 ({self.cfg.fft_width},), got {window.dtype} {window.shape}")
             window = torch.tensor(window, device=device)
         self.register_buffer("window", window)
-        self._twiddles = None  # planned on first use, on the planes' device
+        self._planned = None  # the planned tables, on first use on the planes' device
 
     def kernel_supported(self) -> bool:
         """The kernels take 128*b-bin windows (2 <= b <= 64) at any stride."""
@@ -67,9 +67,9 @@ class WaterfallModel(nn.Module):
         return raw.is_cuda and self.kernel_supported()
 
     def _tables(self, device) -> wf.WaterfallTables:
-        if self._twiddles is None or self._twiddles.device != device:
-            self._twiddles = torch.tensor(wf.plan_twiddles(self.cfg.fft_width), device=device)
-        return wf.WaterfallTables(self._twiddles, self.window)
+        if self._planned is None or self._planned.twiddles.device != device:
+            self._planned = wf.waterfall_tables(self.spec, device=device)
+        return wf.WaterfallTables(self._planned.twiddles, self.window, self._planned.decode)
 
     def n_windows(self, n: int) -> int:
         cfg = self.cfg

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # the waterfall entry points' shared leading arguments (csrc/waterfall.cu)
-_WATERFALL = (_I, _I, _P, _LL, _LL, _I, _LL, _LL, _I, _I, _I, _I, _P, _P)
+_WATERFALL = (_I, _I, _P, _LL, _LL, _I, _LL, _LL, _I, _I, _I, _P, _P, _P)
 # argtypes of each entry point of csrc/*.cu; pointers and the stream must be
 # c_void_p, or ctypes passes them as 32-bit ints
 _SIGNATURES = {

@@ -15,8 +15,14 @@ no failure falls back to one.
 The TPU package routes each stride and width through one of several
 layouts (pre-arranged windows, in-kernel class rows, sub-aligned class
 interleaves, tiles sized for VMEM).  Here one kernel body takes every
-width ``128·b`` (2 <= b <= 64) at every integer stride >= 1, by index
-arithmetic alone.
+width ``128·b`` (2 <= b <= 64) at every integer stride >= 1, any base
+pointer and any stream stride.  Its host side lives here: the pass plan
+(:func:`fft_plan`: radix-8 Stockham passes over the power-of-two part of
+the width, a direct m-point DFT for its odd part m), the f64-planned f32
+tables (:func:`plan_twiddles`, :func:`decode_table`), the window tile
+(:func:`window_tile`, ~256 threads a block, 8 points a thread) and the
+grid (:func:`kernel_grid`); ``csrc/waterfall.cu`` derives the same plan
+from the width and refuses a grid that does not cover the tiles.
 
 Peak contract (both the kernel and its plain version): the maximum
 magnitude and the lowest fftshifted bin that holds it; a window whose
@@ -37,8 +43,13 @@ from quadrs_tpu_torch.ops.fir import overlapped_frames
 from quadrs_tpu_torch.ops.frontend import _FMT_CODE
 from quadrs_tpu_torch.ops.stft import blackman_harris_window, stft_norms
 
-_TILE_SAMPLES = 2048  # samples of a kernel block's window tile (one window past it)
-_SCAN_BLOCKS = 1056  # scan blocks to aim for: 8 per SM of an H100 (132 SMs)
+_POINTS = 8  # complex points a kernel thread holds (csrc/waterfall.cu kPoints)
+_BLOCK_THREADS = 256  # threads of a kernel block to aim for (csrc/waterfall.cu kBlockThreads)
+# kernel blocks to aim for on an H100 (132 SMs): norms and search 64 per SM,
+# so the last wave of blocks is short; the scan 16 per SM, each writing a
+# partial sum of every bin
+_GRID_BLOCKS = 8448
+_SCAN_GRID_BLOCKS = 2112
 
 
 @dataclass(frozen=True)
@@ -62,60 +73,106 @@ def plan_window(spec: WaterfallSpec) -> np.ndarray | None:
     return blackman_harris_window(spec.width) if windowed(spec.windowing) else None
 
 
+def fft_plan(width: int) -> tuple[tuple[int, ...], int]:
+    """The kernel's factorization of ``width = 128·b``: (the radices of its
+    Stockham passes over the power-of-two part ``P = width / m``, 16 while
+    16 divides what is left and then the rest, m) where m is the odd part
+    of b.  With ``m > 1`` a direct m-point DFT is the last pass."""
+    m = width // 128
+    while m % 2 == 0:
+        m //= 2
+    radices, rest = [], width // m
+    while rest > 1:
+        radices.append(min(_POINTS, rest))
+        rest //= radices[-1]
+    return tuple(radices), m
+
+
+def _pass_strides(radices) -> list[int]:
+    """``Ns`` of each pass: the product of the radices before it."""
+    ns = [1]
+    for r in radices[:-1]:
+        ns.append(ns[-1] * r)
+    return ns
+
+
 @functools.lru_cache(maxsize=8)
 def plan_twiddles(width: int) -> np.ndarray:
-    """The kernel's DFT tables, evaluated in f64 and stored as f32, packed
-    into one array: ``W_128^j`` (j < 64) re then im, ``W_b^j`` (j < b) re
-    then im, and ``W_N^{q·r}`` (q < b, r < 128, row-major) re then im,
-    where ``N = width = 128·b``.  The kernel splits the sample index
-    ``n = b·p + q``: b 128-point FFTs over p, the twiddle ``W_N^{q·r}``,
-    then a b-point DFT over q gives bin ``k = r + 128·s``."""
-    b = width // 128
-    j = np.arange(64, dtype=np.float64)
-    tw128 = np.exp(-2j * np.pi * j / 128.0)
-    wb = np.exp(-2j * np.pi * np.arange(b, dtype=np.float64) / b)
-    qr = np.outer(np.arange(b, dtype=np.float64), np.arange(128, dtype=np.float64))
-    twq = np.exp(-2j * np.pi * qr / width).reshape(-1)
-    parts = [tw128.real, tw128.imag, wb.real, wb.imag, twq.real, twq.imag]
-    return np.concatenate(parts).astype(np.float32)
+    """The kernel's DFT tables, evaluated in f64 and stored as f32, as
+    interleaved (re, im) pairs: for each radix-R pass after the first, in
+    order, ``W_{Ns·R}^{j·r}`` at ``(r - 1)·Ns + j`` (1 <= r < R, j < Ns);
+    then, where m > 1 (:func:`fft_plan`), ``W_m^k`` (k < m) and the last
+    pass's twiddle ``W_N^{(i mod P)·(i div P)}`` at i < N.  The kernel
+    keeps all but that last part in shared memory."""
+    radices, m = fft_plan(width)
+    parts = []
+    for ns, r in zip(_pass_strides(radices), radices):
+        if ns > 1:
+            parts.append(np.exp(-2j * np.pi * np.outer(np.arange(1, r), np.arange(ns)) / (ns * r)).reshape(-1))
+    if m > 1:
+        p = width // m
+        i = np.arange(width)
+        parts.append(np.exp(-2j * np.pi * np.arange(m) / m))
+        parts.append(np.exp(-2j * np.pi * (i % p) * (i // p) / width))
+    z = np.concatenate(parts)
+    return np.stack([z.real, z.imag], axis=-1).reshape(-1).astype(np.float32)
 
 
 def twiddles_len(width: int) -> int:
-    return 128 + 258 * (width // 128)
+    radices, m = fft_plan(width)
+    pairs = sum((r - 1) * ns for ns, r in zip(_pass_strides(radices), radices) if ns > 1)
+    return 2 * (pairs + (m + width if m > 1 else 0))
+
+
+def decode_table(fmt: FileFormat) -> np.ndarray | None:
+    """The kernel's 256-entry f32 decode table of a byte format (cs8,
+    cu8), indexed by the byte's unsigned value: the format's decode of
+    every code, bit-equal to the IEEE division it replaces.  None for
+    cs16 (decoded by division) and cf32."""
+    if fmt.torch_dtype not in (torch.int8, torch.uint8):
+        return None
+    codes = np.arange(256, dtype=np.uint8)
+    if fmt.torch_dtype == torch.int8:
+        codes = codes.view(np.int8)
+    return np.asarray(decode_plane(codes, fmt), dtype=np.float32)
 
 
 @dataclass(frozen=True)
 class WaterfallTables:
     """The kernel's tables on the device of the planes they serve:
-    ``twiddles`` (:func:`plan_twiddles`) and ``window`` ((width,) f32,
-    or None for rectangular windows)."""
+    ``twiddles`` (:func:`plan_twiddles`), ``window`` ((width,) f32, or
+    None for rectangular windows) and ``decode`` (:func:`decode_table`,
+    or None for cs16 and cf32)."""
 
     twiddles: torch.Tensor
     window: torch.Tensor | None
+    decode: torch.Tensor | None = None
 
 
 def waterfall_tables(spec: WaterfallSpec, device=None) -> WaterfallTables:
     """The planned tables of ``spec`` on ``device``."""
-    window = plan_window(spec)
+    window, decode = plan_window(spec), decode_table(spec.fmt)
     return WaterfallTables(
         torch.tensor(plan_twiddles(spec.width), device=device),  # a copy: the plan is cached
         None if window is None else torch.tensor(window, device=device),
+        None if decode is None else torch.tensor(decode, device=device),
     )
 
 
 def window_tile(width: int) -> int:
-    """Windows per kernel block: several at small widths, one from 2048."""
-    return max(1, _TILE_SAMPLES // width)
+    """Windows per kernel block: a window takes width/16 threads, 16
+    points each, and a block about :data:`_BLOCK_THREADS` of them."""
+    return max(1, _BLOCK_THREADS // (width // _POINTS))
 
 
-def scan_grid(n_streams: int, n_windows: int, width: int) -> tuple[int, int]:
-    """(tiles per block, blocks per stream) of the scan kernel: enough
-    blocks to fill the card (:data:`_SCAN_BLOCKS`), each folding a
-    contiguous run of window tiles into its partial sums.  A function of
-    the shapes only, so the reduction order, and the result, repeat run
-    to run."""
+def kernel_grid(n_streams: int, n_windows: int, width: int, blocks: int = _GRID_BLOCKS) -> tuple[int, int]:
+    """(tiles per block, blocks per stream) of the kernels: about
+    ``blocks`` blocks, each walking a contiguous run of window tiles (so
+    its tables load once per run, and the scan folds the run into one
+    partial).  A function of the shapes only, so the scan's reduction
+    order, and its result, repeat run to run."""
     n_tiles = -(-n_windows // window_tile(width))
-    per_block = -(-n_tiles // min(n_tiles, max(1, -(-_SCAN_BLOCKS // n_streams))))
+    per_block = -(-n_tiles // min(n_tiles, max(1, -(-blocks // n_streams))))
     return per_block, -(-n_tiles // per_block)
 
 
@@ -202,6 +259,8 @@ def _check_launch(planes, tables: WaterfallTables, spec: WaterfallSpec, n_window
     want = {"twiddles": (tables.twiddles, (twiddles_len(spec.width),))}
     if windowed(spec.windowing) or tables.window is not None:
         want["window"] = (tables.window, (spec.width,))
+    if spec.fmt.torch_dtype in (torch.int8, torch.uint8):
+        want["decode"] = (tables.decode, (256,))
     for name, (x, shape) in want.items():
         if x is None or x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(
@@ -210,9 +269,11 @@ def _check_launch(planes, tables: WaterfallTables, spec: WaterfallSpec, n_window
             )
 
 
-def _kernel_args(planes, tables: WaterfallTables, spec: WaterfallSpec, n_windows: int, stride: int, grid):
-    """The entry points' shared leading arguments; ``grid`` is (tiles per
-    block, blocks per stream)."""
+def _kernel_args(planes, tables: WaterfallTables, spec: WaterfallSpec, n_windows: int, stride: int, grid=None):
+    """The entry points' shared leading arguments; ``grid`` defaults to
+    :func:`kernel_grid`'s."""
+    if grid is None:
+        grid = kernel_grid(planes.shape[0], n_windows, spec.width)
     return (
         _FMT_CODE[spec.fmt],
         planes.device.index,
@@ -223,15 +284,11 @@ def _kernel_args(planes, tables: WaterfallTables, spec: WaterfallSpec, n_windows
         n_windows,
         stride,
         spec.width,
-        window_tile(spec.width),
         *grid,
         tables.twiddles.data_ptr(),
+        None if tables.decode is None else tables.decode.data_ptr(),
         None if tables.window is None else tables.window.data_ptr(),
     )
-
-
-def _one_tile_each(n_windows: int, width: int) -> tuple[int, int]:
-    return 1, -(-n_windows // window_tile(width))
 
 
 def _stream(planes) -> int:
@@ -242,14 +299,16 @@ def waterfall_norms(
     planes: torch.Tensor, tables: WaterfallTables, spec: WaterfallSpec, n_windows: int, stride: int
 ) -> torch.Tensor:
     """Kernel ``qt_waterfall_norms``: (S, n_windows, width) f32
-    fftshifted norms.  :attr:`launches` counts the launches."""
+    fftshifted norms, each the approximate f32 square root of re² + im²
+    (one MUFU op, relative error ~2^-23; the bank's tolerance is rtol
+    2e-5).  :attr:`launches` counts the launches."""
     from quadrs_tpu_torch.ops._cuda import library
 
     _check_launch(planes, tables, spec, n_windows, stride)
     out = torch.empty((planes.shape[0], n_windows, spec.width), dtype=torch.float32, device=planes.device)
     library().call(
         "qt_waterfall_norms",
-        *_kernel_args(planes, tables, spec, n_windows, stride, _one_tile_each(n_windows, spec.width)),
+        *_kernel_args(planes, tables, spec, n_windows, stride),
         out.data_ptr(), _stream(planes),
     )
     waterfall_norms.launches += 1
@@ -273,7 +332,7 @@ def waterfall_search(
     idx = torch.empty(shape, dtype=torch.int32, device=planes.device)
     library().call(
         "qt_waterfall_search",
-        *_kernel_args(planes, tables, spec, n_windows, stride, _one_tile_each(n_windows, spec.width)),
+        *_kernel_args(planes, tables, spec, n_windows, stride),
         val.data_ptr(), idx.data_ptr(), _stream(planes),
     )
     waterfall_search.launches += 1
@@ -301,7 +360,7 @@ def waterfall_scan(
 
     _check_launch(planes, tables, spec, n_windows, stride)
     s, w = planes.shape[0], spec.width
-    grid = scan_grid(s, n_windows, w)
+    grid = kernel_grid(s, n_windows, w, _SCAN_GRID_BLOCKS)
     partial = torch.empty((3, s, grid[1], w), dtype=torch.float32, device=planes.device)
     out = torch.empty((3, s, w), dtype=torch.float32, device=planes.device)
     library().call(

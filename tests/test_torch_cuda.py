@@ -105,20 +105,38 @@ def test_wrapper_checks_inputs(cuda):
     assert (fe.frontend_fir.launches, fe.frontend_fir_stft.launches) == launches
 
 
+def staged_view(fmt, n, streams, seed, view, device):
+    """(S, 2, n) planes on ``device``: contiguous; ``sliced``, a view
+    starting 3 samples into its rows (a base pointer off every 16-byte
+    boundary); or ``padded``, a view of rows of odd length (stream and
+    plane strides no multiple of 16 bytes)."""
+    extra = {"contiguous": 0, "sliced": 3, "padded": 5 + (n + 5) % 2 + 1}[view]
+    raw = torch.from_numpy(synth_planes(fmt, n + extra, seed=seed, n_streams=streams)).to(device)
+    return raw[:, :, 3:] if view == "sliced" else raw[:, :, :n]
+
+
 @pytest.mark.parametrize("fmt", list(FileFormat))
 @pytest.mark.parametrize(
-    "width,stride,windowing,streams,nw",
+    "width,stride,windowing,streams,nw,view",
     [
-        (256, 256, "rectangular", 5, 301),
-        (384, 96, "blackman-harris", 3, 203),
-        (1024, 256, "rectangular", 8, 77),
-        (2048, 2348, "blackman-harris", 2, 19),
-        (8192, 2048, "rectangular", 2, 7),
+        (256, 256, "rectangular", 5, 301, "contiguous"),
+        (384, 96, "blackman-harris", 3, 203, "contiguous"),
+        (1024, 256, "rectangular", 8, 77, "contiguous"),
+        (2048, 2348, "blackman-harris", 2, 19, "contiguous"),
+        (8192, 2048, "rectangular", 2, 7, "contiguous"),
+        # hop 1; hop 1023 from a sliced view; width 640 (b = 5) over rows of
+        # odd length; 8192 at stride 1; window counts no multiple of the
+        # block's tile (16, 4, 6, 1 and 10 windows)
+        (256, 1, "rectangular", 3, 517, "contiguous"),
+        (1024, 1023, "blackman-harris", 3, 41, "sliced"),
+        (640, 200, "rectangular", 3, 83, "padded"),
+        (8192, 1, "rectangular", 2, 33, "sliced"),
+        (384, 384, "blackman-harris", 5, 97, "padded"),
     ],
 )
-def test_waterfall_kernels_match_plain(cuda, fmt, width, stride, windowing, streams, nw):
+def test_waterfall_kernels_match_plain(cuda, fmt, width, stride, windowing, streams, nw, view):
     spec = wf.WaterfallSpec(fmt, width, windowing)
-    planes = torch.from_numpy(synth_planes(fmt, (nw - 1) * stride + width + 5, seed=width, n_streams=streams)).to(cuda)
+    planes = staged_view(fmt, (nw - 1) * stride + width + 5, streams, width, view, cuda)
     tables = wf.waterfall_tables(spec, device=cuda)
     want = wf.fused_waterfall_reference(planes, spec, nw, stride=stride)
     peak = float(want.max())
@@ -170,8 +188,10 @@ def test_waterfall_wrappers_check_inputs(cuda):
         ((planes, tables, spec, 5, 256), "need 1280 samples"),
         ((planes, tables, spec, 0, 256), "n_windows"),
         ((planes, tables, spec, 2, 0), "stride"),
-        ((planes, wf.WaterfallTables(tables.twiddles, None), spec, 4, 256), "window"),
-        ((planes, wf.WaterfallTables(tables.twiddles.cpu(), tables.window), spec, 4, 256), "twiddles"),
+        ((planes, wf.WaterfallTables(tables.twiddles, None, tables.decode), spec, 4, 256), "window"),
+        ((planes, wf.WaterfallTables(tables.twiddles.cpu(), tables.window, tables.decode), spec, 4, 256), "twiddles"),
+        ((planes, wf.WaterfallTables(tables.twiddles, tables.window, None), spec, 4, 256), "decode"),
+        ((planes, wf.WaterfallTables(tables.twiddles, tables.window, tables.decode[:128]), spec, 4, 256), "decode"),
         ((planes, tables, wf.WaterfallSpec(FileFormat.COMPLEX_INT8, 384, "blackman-harris"), 1, 256), "twiddles"),
         ((planes, tables, wf.WaterfallSpec(FileFormat.COMPLEX_INT8, 128), 1, 128), "128\\*b"),
     ]

@@ -217,19 +217,95 @@ def test_tables_and_grid():
     """The packed DFT tables against their definitions (f64, then f32),
     and the kernel grid covering every window tile."""
     for width in (256, 384, 8192):
-        b = width // 128
+        radices, m = wf.fft_plan(width)
         t = wf.plan_twiddles(width)
         assert t.dtype == np.float32 and t.shape == (wf.twiddles_len(width),)
-        np.testing.assert_array_equal(t[:64], np.cos(-2 * np.pi * np.arange(64) / 128).astype(np.float32))
-        twq = t[128 + 2 * b :].reshape(2, b, 128)
-        q, r = np.meshgrid(np.arange(b), np.arange(128), indexing="ij")
-        np.testing.assert_array_equal(twq[1], np.sin(-2 * np.pi * q * r / width).astype(np.float32))
+        z = t.reshape(-1, 2)
+        # the second pass (ns 8, radix 8): W_64^{j*r} at (r-1)*8 + j
+        r, j = np.meshgrid(np.arange(1, 8), np.arange(8), indexing="ij")
+        np.testing.assert_array_equal(z[:56, 0], np.cos(-2 * np.pi * r * j / 64).astype(np.float32).ravel())
+        np.testing.assert_array_equal(z[:56, 1], np.sin(-2 * np.pi * r * j / 64).astype(np.float32).ravel())
+        if m > 1:  # W_m^k, then the last pass's W_N^{(i mod P) (i div P)}
+            i, p = np.arange(width), width // m
+            np.testing.assert_array_equal(z[-width - m : -width, 1], np.sin(-2 * np.pi * np.arange(m) / m).astype(np.float32))
+            np.testing.assert_array_equal(z[-width:, 0], np.cos(-2 * np.pi * (i % p) * (i // p) / width).astype(np.float32))
     assert [wf.window_tile(w) for w in (256, 384, 1024, 2048, 8192)] == [8, 5, 2, 1, 1]
+    # a block's threads (its windows' width/8 each) stay within 1024
+    assert [wf.window_tile(w) * w // wf._POINTS for w in (256, 384, 1024, 2048, 8192)] == [256, 240, 256, 256, 1024]
     for s, nw, w in ((64, 2000, 1024), (1, 7, 256), (3, 301, 384), (64, 1, 8192)):
-        per, groups = wf.scan_grid(s, nw, w)
-        tiles = -(-nw // wf.window_tile(w))
-        assert groups * per >= tiles > (groups - 1) * per
-        assert s * groups < 1056 + s
+        for blocks in (wf._GRID_BLOCKS, wf._SCAN_GRID_BLOCKS):
+            per, groups = wf.kernel_grid(s, nw, w, blocks)
+            tiles = -(-nw // wf.window_tile(w))
+            assert groups * per >= tiles > (groups - 1) * per
+            assert s * groups < blocks + s
+
+
+def kernel_passes(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The kernel's factorization in plain torch, with its host tables:
+    radix-R Stockham passes over the power-of-two part (item j's points
+    j + r*N/R, twiddled by the pass table, an R-point DFT, stored at
+    (j / ns)*ns*R + r*ns + j % ns), then for an odd part m of b the last
+    pass's twiddle and a direct m-point DFT.  (rows, N) complex64."""
+    radices, m = wf.fft_plan(width)
+    pairs = torch.from_numpy(wf.plan_twiddles(width)).view(-1, 2)
+    tw = torch.complex(pairs[:, 0], pairs[:, 1])
+    data, ns, at = x, 1, 0
+    for r in radices:
+        j = torch.arange(width // r)
+        v = data[:, j[None, :] + (torch.arange(r) * (width // r))[:, None]]  # (rows, r, items)
+        if ns > 1:
+            w = tw[at : at + (r - 1) * ns].view(r - 1, ns)[:, j % ns]
+            v = torch.cat([v[:, :1], v[:, 1:] * w], 1)
+            at += (r - 1) * ns
+        k = torch.arange(r, dtype=torch.float64)
+        v = torch.einsum("kr,brj->bkj", torch.exp(-2j * np.pi * torch.outer(k, k) / r).to(torch.complex64), v)
+        dst = ((j // ns) * ns * r + j % ns)[None, :] + (torch.arange(r) * ns)[:, None]
+        data = torch.empty_like(data).index_copy_(1, dst.reshape(-1), v.reshape(v.shape[0], -1))
+        ns *= r
+    if m > 1:
+        wm, p, o = tw[at : at + m], width // m, torch.arange(width)
+        data = data * tw[at + m : at + m + width]
+        idx = (o % p)[:, None] + (torch.arange(m) * p)[None, :]
+        data = (data[:, idx] * wm[(torch.arange(m)[None, :] * (o // p)[:, None]) % m]).sum(-1)
+    return data
+
+
+@pytest.mark.parametrize("width", [256, 384, 640, 1024, 2048, 8192])
+def test_kernel_factorization_matches_fft(width):
+    """The kernel's passes with its f32 tables, in f32, against
+    ``torch.fft.fft`` within 1e-5 of the largest bin (f32 rounding over
+    log2 N passes; b = 2, 3, 5, 8, 16, 64)."""
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy((rng.normal(size=(4, width)) + 1j * rng.normal(size=(4, width))).astype(np.complex64))
+    want = torch.fft.fft(x)
+    got = kernel_passes(x, width)
+    assert got.dtype == torch.complex64
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("fmt", ["cs8", "cu8", "cs16", "cf32"])
+def test_decode_tables(fmt):
+    """The kernel's 256-entry decode tables, indexed by the byte's unsigned
+    value, are bitwise the port's decode of every code, and that decode is
+    the reference formula in IEEE f32; cs16 and cf32 take no table."""
+    from quadrs_tpu_torch.formats import decode_plane
+
+    fmt = FileFormat(fmt)
+    table = wf.decode_table(fmt)
+    if fmt in (FileFormat.COMPLEX_INT16, FileFormat.COMPLEX_FLOAT32):
+        assert table is None and wf.waterfall_tables(wf.WaterfallSpec(fmt, 256)).decode is None
+        return
+    codes = np.arange(256, dtype=np.uint8).view(np.int8 if fmt is FileFormat.COMPLEX_INT8 else np.uint8)
+    assert table.dtype == np.float32 and table.shape == (256,)
+    np.testing.assert_array_equal(table.view(np.uint32), decode_plane(codes, fmt).view(np.uint32))
+    np.testing.assert_array_equal(
+        table.view(np.uint32), decode_plane(torch.from_numpy(codes), fmt).numpy().view(np.uint32))
+    if fmt is FileFormat.COMPLEX_INT8:
+        want = codes.astype(np.float32) / np.float32(127.0)
+    else:
+        want = codes.astype(np.float32) / np.float32(255.0) - np.float32(127.5)
+    np.testing.assert_array_equal(table.view(np.uint32), want.view(np.uint32))
+    assert torch.equal(wf.waterfall_tables(wf.WaterfallSpec(fmt, 256)).decode, torch.from_numpy(table))
 
 
 def test_overlapped_frames_match_jax():
