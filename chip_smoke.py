@@ -757,7 +757,7 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
     return launches, at_main
 
 
-HBM_BYTES_PER_S = 3.35e12  # one H100 SXM (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM: peak HBM3 rate
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 
 
