@@ -10,7 +10,12 @@ the run.  Phases:
 3. each kernel against its plain PyTorch version on the same CUDA
    tensors: the frontend kernels for every format and the envelope's
    corner cases, held to ``5e-5 * scale`` (the JAX package's
-   kernel-versus-chain bound); the v1 frontend kernel for every format,
+   kernel-versus-chain bound), then their edges: plane views at every
+   offset mod 16, odd filter lengths, ``n_ok`` inside the first block, on
+   a block boundary and one below the end, ``n_out`` no multiple of the
+   block or of a thread's 8 outputs, D 1, 3, 5, 33 and 64, one subfilter,
+   W 2 and 128, and a single unit tap at D 1 (error exactly 0: decode and
+   mix are bit-equal to the plain version); the v1 frontend kernel for every format,
    D 1 to 64, 40 and 400 taps, partial tiles, short planes, an offset
    near 1e9 and one 4M-sample cs8 chunk, to the same bound; the three
    waterfall kernels for every format, widths 256 to 8192, strides tiled,
@@ -40,14 +45,20 @@ the run.  Phases:
    and 256 (yardstick: ``torch.fft.fft`` over the decoded frames), each
    waterfall kernel first held against its plain version on those inputs.
    A yardstick does part of its kernel's work; its inputs are made outside
-   the timed region, and the port never calls it.
+   the timed region, and the port never calls it.  The frontend kernels and
+   their yardstick take tens of microseconds, less than a call of their
+   Python wrapper costs the host, so each has two times: ``ms``, the
+   device's own (:func:`device_ms`: replays of a CUDA graph that captured
+   20 calls of the wrapper), and ``call_ms``, 20 calls back to back through
+   the wrapper (:func:`time_ms`: the larger of the device's and the host's
+   time per call).
 
 The line before the last but one holds the kernels' JSON record: their
 errors taken at the main paths' shapes (the v1 kernel, which no path
 runs, at the stream chain's chunk), launches over the main paths, times,
 ``bound_ms`` (the larger of the bytes in and out once over 3.35 TB/s and
-the f32 operations over 67 TFLOP/s) with ``bound_by``, and
-``library_ms``.  Then the card's name and power limit; the last line is
+the f32 operations over 67 TFLOP/s) with ``bound_by``, ``library_ms``, and
+for the frontend rows ``call_ms`` and ``library_call_ms``.  Then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -182,7 +193,7 @@ def phase_kernels() -> dict[str, tuple[float, float]]:
             err = compare(f"frontend_fir {fmt.value} {label}", got, want, failures)
             if fmt is FileFormat.COMPLEX_INT8 and label.startswith("bench"):
                 at_main["frontend_fir"] = err
-    stft_cases = [(FileFormat.COMPLEX_INT8, w, None) for w in (8, 32, 64, 128)]
+    stft_cases = [(FileFormat.COMPLEX_INT8, w, None) for w in (2, 8, 32, 64, 128)]
     stft_cases.append((FileFormat.COMPLEX_UINT8, 64, n_bench - n_bench // 31))
     for fmt, w, nv in stft_cases:
         model = PipelineModel(bench_cfg(fmt, width=w)).to(DEVICE)
@@ -197,6 +208,53 @@ def phase_kernels() -> dict[str, tuple[float, float]]:
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return at_main
+
+
+def phase_frontend_edges() -> None:
+    """Phase 3, the frontend kernels' edges, each against the plain version
+    on the same tensors: staged loads at every alignment, the mask, ragged
+    output counts, decimations that are no multiple of 4, one subfilter,
+    the narrowest and widest STFT, and exact decode and mix."""
+    from quadrs_tpu_torch.formats import FileFormat, synth_planes
+    from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops.fir import lowpass_taps
+
+    failures: list[str] = []
+
+    def check(label, fmt, d, taps, n_out, *, w=None, offset=0, n_ok=None, h=None, exact=False):
+        h = lowpass_taps(200_000 / SAMPLE_RATE, taps) if h is None else h
+        spec = fe.FrontendSpec(fmt, SAMPLE_RATE, 280_000, d, h.tobytes())
+        n = (n_out + spec.m_sub) * d + 16
+        raw = torch.from_numpy(synth_planes(fmt, n, seed=d + taps + offset)).to(DEVICE)
+        planes = raw[:, offset:]  # a view: its base pointer sits `offset` samples into the rows
+        bases = torch.from_numpy(fe.tile_bases_t(spec, 999_999_937, n_out)).to(DEVICE)
+        tables = fe.frontend_tables(spec, w, device=DEVICE)
+        n_ok = planes.shape[1] + (0 if n_ok is None else n_ok) if (n_ok or -1) < 0 else n_ok
+        got = fe.fused_frontend_t(planes, bases, spec, n_out, n_valid=n_ok, stft_width=w, tables=tables)
+        want = fe.fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables, stft_width=w)
+        err, _ = compare(f"{'frontend_fir_stft' if w else 'frontend_fir'} {fmt.value} {label}", got, want, failures)
+        if exact and err != 0.0:
+            failures.append(f"{fmt.value} {label}: error {err} is not 0")
+
+    for fmt in FileFormat:
+        block = fe.launch_plan(fe.FrontendSpec(fmt, SAMPLE_RATE, 280_000, 32, lowpass_taps(0.01, 400).tobytes())).bout
+        for offset in range(16):
+            check(f"D32 400 taps, view {offset} samples into its rows", fmt, 32, 400, 4096, offset=offset)
+        for taps in (399, 401):
+            check(f"D32 {taps} taps (odd filter), view {taps - taps // 2} in", fmt, 32, taps, 4096, offset=taps - taps // 2)
+        for label, n_ok in (("inside the first block", 1000), ("on a block boundary", 3 * block * 32),
+                            ("1 below the end", -1)):
+            check(f"D32 400 taps, n_ok {n_ok} {label}", fmt, 32, 400, 4096, n_ok=n_ok)
+        check("D32 400 taps, n_out 5003 (no multiple of 8)", fmt, 32, 400, 5003)
+        check("D32 400 taps, n_out 8192 + 100", fmt, 32, 400, 8292)
+        for d in (1, 3, 5, 33, 64):
+            check(f"D{d} {12 * d + 1} taps", fmt, d, 12 * d + 1, 9001)
+        check("D32 20 taps (one subfilter)", fmt, 32, 20, 4099)
+        for w in (2, 128):
+            check(f"D32 400 taps W{w}, view 5 in", fmt, 32, 400, 4096, w=w, offset=5)
+        check("D1, a single unit tap", fmt, 1, 1, 70_001, h=np.float32([1.0]), exact=True)
+    if failures:
+        raise AssertionError(f"frontend kernels disagree with their plain versions: {failures}")
 
 
 def banded_inputs(fmt, d: int, taps: int, n_in: int, start: int, seed: int, n_out: int | None = None):
@@ -768,7 +826,39 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms(fn, launches: int = 20, replays: int = 7) -> float:
+    """The device's own time of ``fn``'s work, in ms: ``launches`` calls of
+    ``fn`` are captured in one ``torch.cuda.CUDAGraph`` (the wrappers launch
+    on the current stream and allocate with ``torch.empty``, which capture
+    takes from the graph's pool), the graph is replayed between two events,
+    and the median replay is divided by ``launches``.  No Python runs
+    between the kernels of a replay, so a kernel shorter than its wrapper's
+    host time is still read at its own length."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[len(times) // 2]
+
+
 def time_ms(fn, iters: int = 20) -> float:
+    """``iters`` calls of ``fn`` back to back between two events: the larger
+    of the device's and the host's time per call."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -783,7 +873,9 @@ def time_ms(fn, iters: int = 20) -> float:
 
 def phase_timing(card: str) -> dict[str, float]:
     """Phase 5: CUDA-event times at the stream chain's shape, each variant
-    timed twice in mirrored order."""
+    timed twice in mirrored order with :func:`time_ms`; the kernels and the
+    yardstick, shorter than a call of their wrappers, also with
+    :func:`device_ms`, which the kernels line reports as ``ms``."""
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.models.receiver import PipelineModel
     from quadrs_tpu_torch.ops import frontend as fe
@@ -822,13 +914,20 @@ def phase_timing(card: str) -> dict[str, float]:
     }
     order = list(variants) + list(reversed(variants))
     runs: dict[str, list[float]] = {k: [] for k in variants}
+    dev_runs: dict[str, list[float]] = {k: [] for k in ("kernel1", "kernel2", "library_conv1d")}
     for k in order:
         runs[k].append(time_ms(variants[k]))
+        if k in dev_runs:
+            dev_runs[k].append(device_ms(variants[k]))
     ms = {k: sum(v) / len(v) for k, v in runs.items()}
     samples = n - (cfg.taps + cfg.taps - cfg.taps // 2)
     print(f"  timing: one cs8 chunk of {samples} samples, D 32, 400 taps, W 64 ({card})")
     for k, v in runs.items():
-        print(f"    {k:22s} {ms[k]:.4f} ms  (runs {', '.join(f'{x:.4f}' for x in v)})  "
+        print(f"    {k:22s} {ms[k]:.4f} ms back to back (runs {', '.join(f'{x:.4f}' for x in v)})  "
+              f"{samples / ms[k] / 1e3:.1f} Msps")
+    for k, v in dev_runs.items():
+        ms[f"call {k}"], ms[k] = ms[k], sum(v) / len(v)
+        print(f"    {k:22s} {ms[k]:.4f} ms on the device, graph replays (runs {', '.join(f'{x:.4f}' for x in v)})  "
               f"{samples / ms[k] / 1e3:.1f} Msps")
     # the bounds: bytes in (planes, bases) and out once; f32 operations
     # of the FIR (4 per tap and output) and the mix (6 per sample), plus
@@ -858,12 +957,18 @@ def phase_chain_timing(card: str) -> dict[str, float]:
         "plain_banded": lambda: fe.fused_frontend_reference(planes, bases, spec, n_out),
     }
     runs: dict[str, list[float]] = {k: [] for k in variants}
+    dev_runs = []
     for k in list(variants) + list(reversed(variants)):
         runs[k].append(time_ms(variants[k]))
+        if k == "banded":
+            dev_runs.append(device_ms(variants[k]))
     ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    ms["call banded"], ms["banded"] = ms["banded"], sum(dev_runs) / len(dev_runs)
     print(f"  timing: the v1 kernel at one cs8 chunk of {n} samples, D 32, 400 taps ({card})")
     for k, v in runs.items():
-        print(f"    {k:14s} {ms[k]:.4f} ms  (runs {', '.join(f'{x:.4f}' for x in v)})  {n / ms[k] / 1e3:.1f} Msps")
+        print(f"    {k:14s} {sum(v) / len(v):.4f} ms back to back (runs {', '.join(f'{x:.4f}' for x in v)})")
+    print(f"    {'banded':14s} {ms['banded']:.4f} ms on the device, graph replays "
+          f"(runs {', '.join(f'{x:.4f}' for x in dev_runs)})  {n / ms['banded'] / 1e3:.1f} Msps")
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for label, b, d, taps, n_out in FIR_SHAPES:
@@ -955,7 +1060,12 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
         if m:
             wf = re.search(r"waterfall_kernelI(\w)Li(\d)ELi(\d+)E", m.group(1))
             other = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)E)?E", m.group(1))
-            if wf:
+            front = re.search(r"frontend_kernelI(\w)Li(\d)ELi(\d+)E", m.group(1))
+            if front:
+                t, mode, dc = front.groups()
+                name = (f"frontend_kernel<{ {'f': 'f32', 'a': 'int8', 'h': 'uint8', 's': 'int16'}[t]}, "
+                        f"{('fir', 'stft', 'banded')[int(mode)]}, {'D ' + dc if dc != '0' else 'any D'}>")
+            elif wf:
                 t, mode, ln = wf.groups()
                 name = None if t != "a" else (f"waterfall_kernel<int8, {('norms', 'search', 'scan')[int(mode)]}, "
                                               f"{'width 2^' + ln if ln != '0' else 'any width'}>")
@@ -967,10 +1077,11 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
 
 
 def sass_mix(lib_path) -> list[str]:
-    """The instruction mix of the cs8 waterfall body at 1024 points, one
-    line per mode, from ``cuobjdump -sass`` of the built library: static
-    instructions in all, FP (FADD, FMUL, FFMA, MUFU), shared-memory
-    (LDS, STS), global (LDG, STG) and barriers.  Empty without cuobjdump."""
+    """The instruction mix of the cs8 waterfall body at 1024 points and of
+    the cs8 frontend body at D 32, one line per mode, from ``cuobjdump
+    -sass`` of the built library: static instructions in all, FP (FADD,
+    FMUL, FFMA, MUFU; FFMA alone for the frontend), shared-memory (LDS,
+    STS), global (LDG, STG) and barriers.  Empty without cuobjdump."""
     import collections
     import re
     from torch.utils.cpp_extension import CUDA_HOME
@@ -981,16 +1092,21 @@ def sass_mix(lib_path) -> list[str]:
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, timeout=300).stdout
     lines = []
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"waterfall_kernelIaLi(\d)ELi10E", body.split("\n", 1)[0])
-        if not m:
+        head = body.split("\n", 1)[0]
+        m = re.search(r"waterfall_kernelIaLi(\d)ELi10E", head)
+        f = re.search(r"frontend_kernelIaLi(\d)ELi32E", head)
+        if not (m or f):
             continue
         ops = collections.Counter(o.split(".")[0] for o in re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", body))
         group = {k: sum(ops[o] for o in v) for k, v in (
             ("FP", ("FADD", "FMUL", "FFMA", "MUFU")), ("shared", ("LDS", "STS")), ("global", ("LDG", "STG")),
             ("barriers", ("BAR",)))}
-        lines.append(f"waterfall_kernel<int8, {('norms', 'search', 'scan')[int(m.group(1))]}, width 2^10>: "
-                     f"{sum(ops.values())} instructions, " + ", ".join(f"{k} {v}" for k, v in group.items()))
+        name = (f"waterfall_kernel<int8, {('norms', 'search', 'scan')[int(m.group(1))]}, width 2^10>" if m else
+                f"frontend_kernel<int8, {('fir', 'stft', 'banded')[int(f.group(1))]}, D 32>")
+        if f:
+            group["FFMA"] = ops["FFMA"]
+        lines.append(f"{name}: {sum(ops.values())} instructions, " + ", ".join(f"{k} {v}" for k, v in group.items()))
     return lines
 
 
@@ -1012,6 +1128,7 @@ def main() -> int:
         print(f"    {line} (cuobjdump -sass)")
     print("phase 3: kernels against their plain versions")
     at_main = phase_kernels()
+    phase_frontend_edges()
     at_main["frontend_banded"] = phase_banded_kernel()
     phase_waterfall_kernels()
     print("phase 4: the main paths")
@@ -1046,17 +1163,20 @@ def main() -> int:
     # frames for the waterfall kernels.  The v1 kernel's bound and
     # yardstick are kernel 1's: the same chunk and FIR (its trig not counted)
     src = "quadrs_tpu_torch/csrc/frontend.cu"
-    conv = {"library_ms": ms["library_conv1d"], "library": "conv1d over the mixed planes (covers part of the work)"}
+    # ms and library_ms: the device's own times (device_ms); call_ms and
+    # library_call_ms: back to back through the Python call (time_ms)
+    conv = {"library_ms": ms["library_conv1d"], "library_call_ms": ms["call library_conv1d"],
+            "library": "conv1d over the mixed planes (covers part of the work)"}
     kernels = [
         {"name": "frontend_fir", "route": "cuda", "source": src,
          "replaces": "quadrs_tpu/ops/frontend_pallas.py:409", "launches": launches["frontend_fir"],
-         "ms": ms["kernel1"], "plain_ms": ms["plain"], "bound": ms["bound kernel1"], **conv},
+         "ms": ms["kernel1"], "call_ms": ms["call kernel1"], "plain_ms": ms["plain"], "bound": ms["bound kernel1"], **conv},
         {"name": "frontend_fir_stft", "route": "cuda", "source": src,
          "replaces": "quadrs_tpu/ops/frontend_pallas.py:513", "launches": launches["frontend_fir_stft"],
-         "ms": ms["kernel2"], "plain_ms": ms["plain_stft_epilogue"], "bound": ms["bound kernel2"], **conv},
+         "ms": ms["kernel2"], "call_ms": ms["call kernel2"], "plain_ms": ms["plain_stft_epilogue"], "bound": ms["bound kernel2"], **conv},
         {"name": "frontend_banded", "route": "cuda", "source": src,
          "replaces": "quadrs_tpu/ops/frontend_pallas.py:146", "launches": launches["frontend_banded"], "path": None,
-         "ms": ms["banded"], "plain_ms": ms["plain_banded"], "bound": ms["bound kernel1"], **conv},
+         "ms": ms["banded"], "call_ms": ms["call banded"], "plain_ms": ms["plain_banded"], "bound": ms["bound kernel1"], **conv},
     ]
     # each waterfall kernel at the stride of its main-path run
     for name, line, key, stride in (("waterfall_norms", 149, "norms", 1024), ("waterfall_search", 219, "search", 256),

@@ -243,10 +243,14 @@ class PipelineModel(nn.Module):
         return fe.supported_t(self.cfg.decimate) and m_sub <= 128
 
     def frontend_tables(self) -> fe.FrontendTables:
-        """The model's buffers as the frontend's tables."""
+        """The model's buffers as the frontend's tables, with the byte
+        formats' decode table on the buffers' device."""
+        decode = getattr(self, "_decode_table", None)
+        if decode is None or decode.device != self.hp.device:
+            decode = self._decode_table = fe.decode_tensor(self.cfg.fmt, self.hp.device)
         return fe.FrontendTables(
             self.hp, self.tab_cos, self.tab_sin,
-            getattr(self, "stft_cos", None), getattr(self, "stft_sin", None),
+            getattr(self, "stft_cos", None), getattr(self, "stft_sin", None), decode,
         )
 
     def stream_bases(self, global_start: int, n_chunk: int) -> np.ndarray:

@@ -27,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SOURCES = (_PKG / "csrc" / "frontend.cu", _PKG / "csrc" / "waterfall.cu")
-_HEADERS = (_PKG / "csrc" / "decode.cuh",)
+_HEADERS = (_PKG / "csrc" / "decode.cuh", _PKG / "csrc" / "fft.cuh")
 BUILD_DIR = _PKG.parent / "build" / "quadrs_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,16 +38,16 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # the waterfall entry points' shared leading arguments (csrc/waterfall.cu)
 _WATERFALL = (_I, _I, _P, _LL, _LL, _I, _LL, _LL, _I, _I, _I, _P, _P, _P)
+# the frontend entry points' shared leading arguments (csrc/frontend.cu):
+# format, device, re, im, n_ok, bases, cos, sin, taps, decode table, D, m_sub,
+# tout, outputs a block, chunk groups, threads, n_out
+_FRONTEND = (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL)
 # argtypes of each entry point of csrc/*.cu; pointers and the stream must be
 # c_void_p, or ctypes passes them as 32-bit ints
 _SIGNATURES = {
-    "qt_frontend_fir": (
-        _I, _I, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _P,
-    ),
-    "qt_frontend_fir_stft": (
-        _I, _I, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _I, _P, _P,
-    ),
-    "qt_frontend_banded": (_I, _I, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _LL, _P, _P, _P),
+    "qt_frontend_fir": (*_FRONTEND, _P, _P, _P),
+    "qt_frontend_fir_stft": (*_FRONTEND, _P, _P, _I, _P, _P),
+    "qt_frontend_banded": (_I, _I, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P),
     "qt_waterfall_norms": (*_WATERFALL, _P, _P),
     "qt_waterfall_search": (*_WATERFALL, _P, _P, _P),
     "qt_waterfall_scan": (*_WATERFALL, _F, _P, _P, _P),

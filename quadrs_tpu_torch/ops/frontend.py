@@ -16,7 +16,7 @@ outputs form one phase tile with its own host-exact base angle
 (:func:`tile_bases_t`), and the host cos/sin(delta) tables cover the
 tile plus a 128-column halo (:func:`_plan_t`).  ``tout`` was sized for
 the TPU's VMEM; here it is only the planning unit, and a CUDA block
-(256 or 128 outputs) always sits inside one tile.
+(32 to 256 outputs, :func:`launch_plan`) always sits inside one tile.
 
 Past ``n_valid`` samples are zeroed in the decoded domain for every
 format.  The TPU kernel masks only cu8/cs16 and relies on zero bytes
@@ -157,13 +157,16 @@ class FrontendTables:
     ``hp``: (m_pad, D) polyphase taps; ``cos``/``sin``: ((tout+128)*D,)
     cos/sin(delta) in in-tile sample order (the JAX tables transposed to
     the planes' own order); ``stft_cos``/``stft_sin``: (W,) twiddles
-    ``e^{-2 pi i j / W}`` for the STFT epilogue, or None."""
+    ``e^{-2 pi i j / W}`` for the STFT epilogue, or None; ``decode``:
+    the 256-entry f32 decode table of a byte format
+    (``ops.waterfall.decode_table``), None for cs16 and cf32."""
 
     hp: torch.Tensor
     cos: torch.Tensor
     sin: torch.Tensor
     stft_cos: torch.Tensor | None = None
     stft_sin: torch.Tensor | None = None
+    decode: torch.Tensor | None = None
 
 
 def sample_order(main: np.ndarray, halo: np.ndarray) -> np.ndarray:
@@ -186,22 +189,101 @@ def frontend_tables(
     t = functools.partial(torch.tensor, device=device)  # copies: _plan_t is cached
     tw = (None, None) if stft_width is None else map(t, stft_twiddles(stft_width))
     return FrontendTables(
-        t(hp), t(sample_order(cdm, cdh)), t(sample_order(sdm, sdh)), *tw
+        t(hp), t(sample_order(cdm, cdh)), t(sample_order(sdm, sdh)), *tw,
+        decode=decode_tensor(spec.fmt, device),
     )
 
 
-def _block_outputs(decimate: int) -> int:
-    """Outputs per CUDA block: 256, or 128 past D 32, which keeps the
-    staged span (~(bout + 127)·D samples) inside 227 KB of shared memory.
-    Both divide every tout, so a block never straddles a phase tile."""
-    return 256 if decimate <= 32 else 128
+def decode_tensor(fmt: FileFormat, device=None) -> torch.Tensor | None:
+    """The kernels' decode table of a byte format on ``device``; None for
+    cs16 and cf32."""
+    from quadrs_tpu_torch.ops.waterfall import decode_table  # imports this module
+
+    table = decode_table(fmt)
+    return None if table is None else torch.tensor(table, device=device)
+
+
+_R = 8  # consecutive outputs a kernel thread owns (csrc/frontend.cu kR)
+_CHUNK = 8  # polyphase subfilters whose partial sums a thread holds at once (kMC)
+_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
+_SM_BYTES = 233_472  # shared memory of one SM; every resident block reserves 1 KiB more
+_BLOCKS = (256, 128, 64, 32)  # outputs a block may own; each divides every tout
+_STAGE_THREADS = 256  # threads of a block of 128 outputs or more: the staging is latency-bound on few
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernels of ``csrc/frontend.cu`` launch for one spec.
+
+    ``bout`` outputs a block; ``outputs`` (8) consecutive outputs a thread;
+    ``chunk`` (8) subfilters a chunk; ``groups``: 1, or 2 when the filter
+    is exactly two chunks and each takes half of the workers; ``threads``
+    a block; ``inst``: the instantiation, ``"d32"`` or ``"any"``; ``row``:
+    floats per row of the staged span (16-byte aligned, 4 mod 8);
+    ``cols``: the columns a block stages, ``bout + m_sub - 1``;
+    ``smem_bytes``; ``blocks_per_sm`` resident blocks."""
+
+    bout: int
+    outputs: int
+    chunk: int
+    groups: int
+    threads: int
+    inst: str
+    row: int
+    cols: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def _layout(d: int, m_sub: int, bout: int, elem: int, ex: bool, width: int) -> tuple[int, int]:
+    """(row floats, shared-memory bytes) of a block: csrc/frontend.cu's
+    ``make_layout``."""
+    m_pad = -(-m_sub // _CHUNK) * _CHUNK
+    row = -(-(bout + m_pad) // 16) * 16 + 4
+    floats = 2 * d * row + d * m_pad + (256 if elem == 1 else 0) + (2 * bout if ex else 0) + 2 * width
+    return row, 4 * floats
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(spec: FrontendSpec, stft_width: int | None = None) -> LaunchPlan:
+    """The launch plan of kernel 1 and the v1 kernel (``stft_width`` None)
+    or of kernel 2.  Among the block sizes that hold whole STFT
+    windows and fit shared memory it takes the one that keeps the most
+    outputs resident on an SM, counted with the share of a block's staging
+    that its halo of ``m_sub - 1`` columns wastes, preferring sizes that
+    leave two blocks on an SM (one stages while the other sums).  Raises
+    when no block fits."""
+    d, m_sub = spec.decimate, spec.m_sub
+    elem = spec.fmt.torch_dtype.itemsize
+    chunks = -(-m_sub // _CHUNK)
+    groups = 2 if chunks == 2 else 1  # at exactly two chunks, a group of workers per chunk
+    width = stft_width or 0
+    best = None
+    for bout in _BLOCKS:
+        if width and bout % width:
+            continue
+        row, nbytes = _layout(d, m_sub, bout, elem, groups == 2 or bool(width), width)
+        if nbytes > _SMEM_BYTES:
+            continue
+        threads = -(-(2 * (bout // _R) * groups) // 32) * 32
+        if bout >= 128:
+            threads = max(threads, _STAGE_THREADS)
+        # the kernel is built for 128 registers a thread: 512 threads an SM
+        per_sm = min(_SM_BYTES // (nbytes + 1024), 512 // threads, 32)
+        score = (per_sm >= 2, per_sm * bout * bout / (bout + m_sub - 1))
+        if best is None or score > best[0]:
+            best = (score, LaunchPlan(bout, _R, _CHUNK, groups, threads, "d32" if d == 32 else "any",
+                                      row, bout + m_sub - 1, nbytes, per_sm))
+    if best is None:
+        raise ValueError(f"{len(spec.taps)} taps at decimate {d}: the staged span exceeds shared memory")
+    return best[1]
 
 
 def _check_inputs(planes, spec: FrontendSpec, n_ok: int, want: dict) -> None:
     """Raise unless ``planes`` are (2, n) native planes on a CUDA device
     with unit stride, ``0 <= n_ok <= n``, and each of ``want``'s
     ``name: (tensor, shape)`` is a contiguous f32 tensor of that shape on
-    the same device."""
+    the same device, 16-byte aligned (the kernel reads tables as vectors)."""
     dev = planes.device
     if dev.type != "cuda":
         raise ValueError(f"the frontend kernel takes CUDA tensors, got {dev}")
@@ -224,43 +306,62 @@ def _check_inputs(planes, spec: FrontendSpec, n_ok: int, want: dict) -> None:
             or x.dtype != torch.float32
             or tuple(x.shape) != shape
             or not x.is_contiguous()
+            or x.data_ptr() % 16
         ):
             raise ValueError(
-                f"{name} must be a contiguous f32 {shape} tensor on {dev}, got "
+                f"{name} must be a contiguous, 16-byte aligned f32 {shape} tensor on {dev}, got "
                 f"{None if x is None else (tuple(x.shape), x.dtype, x.device)}"
             )
 
 
-def _check_launch(planes, bases, tables, spec, n_out, n_ok, stft_width):
-    """Raise unless every input is what kernel 1 or 2 takes."""
+@dataclass(frozen=True)
+class _Launch:
+    """What a launch of kernel 1 or 2 needs that depends only on
+    ``(spec, stft_width)``: the leading scalar arguments after the
+    pointers, the plan's, and the shapes the tables must have."""
+
+    fmt: int
+    d: int
+    m_sub: int
+    tout: int
+    plan: LaunchPlan
+    shapes: tuple  # (name, attribute of FrontendTables, shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_t(spec: FrontendSpec, stft_width: int | None) -> _Launch:
     d, tout = spec.decimate, _tout_t(spec)
-    want = {
-        "bases": (bases, (-(-n_out // tout),)),
-        "hp": (tables.hp, (max(8, -(-spec.m_sub // 8) * 8), d)),
-        "cos": (tables.cos, ((tout + _HALO) * d,)),
-        "sin": (tables.sin, ((tout + _HALO) * d,)),
-    }
+    if spec.m_sub > 128:
+        raise ValueError("filter too long for the transposed frontend")
+    shapes = [
+        ("hp", (max(8, -(-spec.m_sub // 8) * 8), d)),
+        ("cos", ((tout + _HALO) * d,)),
+        ("sin", ((tout + _HALO) * d,)),
+    ]
     if stft_width is not None:
-        want["stft_cos"] = (tables.stft_cos, (stft_width,))
-        want["stft_sin"] = (tables.stft_sin, (stft_width,))
+        shapes += [("stft_cos", (stft_width,)), ("stft_sin", (stft_width,))]
+    if spec.fmt.torch_dtype.itemsize == 1:
+        shapes.append(("decode", (256,)))
+    return _Launch(_FMT_CODE[spec.fmt], d, spec.m_sub, tout, launch_plan(spec, stft_width), tuple(shapes))
+
+
+def _launch(name: str, planes, bases, tables, spec, n_out: int, n_ok: int, stft_width, out) -> None:
+    """Check the inputs of kernel 1 or 2 and launch it on the current
+    stream; ``out``: the pointers and scalars after ``n_out``."""
+    from quadrs_tpu_torch.ops._cuda import library
+
+    la = _launch_t(spec, stft_width)
+    want = {attr: (getattr(tables, attr), shape) for attr, shape in la.shapes}
+    want["bases"] = (bases, (-(-n_out // la.tout),))
     _check_inputs(planes, spec, n_ok, want)
-
-
-def _kernel_args(planes, bases, tables, spec, n_ok):
-    return (
-        _FMT_CODE[spec.fmt],
-        planes.device.index,
-        planes[0].data_ptr(),
-        planes[1].data_ptr(),
-        n_ok,
-        bases.data_ptr(),
-        tables.cos.data_ptr(),
-        tables.sin.data_ptr(),
-        tables.hp.data_ptr(),
-        spec.decimate,
-        spec.m_sub,
-        _tout_t(spec),
-        _block_outputs(spec.decimate),
+    re = planes.data_ptr()
+    plan = la.plan
+    library().call(
+        name, la.fmt, planes.device.index, re, re + planes.stride(0) * planes.element_size(), n_ok,
+        bases.data_ptr(), tables.cos.data_ptr(), tables.sin.data_ptr(), tables.hp.data_ptr(),
+        0 if tables.decode is None else tables.decode.data_ptr(),
+        la.d, la.m_sub, la.tout, plan.bout, plan.groups, plan.threads, n_out, *out,
+        torch.cuda.current_stream(planes.device).cuda_stream,
     )
 
 
@@ -270,17 +371,9 @@ def frontend_fir(
     """Kernel 1 (``qt_frontend_fir``): (2, n_out) f32 decimated planes.
     ``n_ok``: samples of ``planes`` to use; later ones count as zero.
     :attr:`launches` counts the launches."""
-    from quadrs_tpu_torch.ops._cuda import library
-
-    _check_launch(planes, bases, tables, spec, n_out, n_ok, None)
     out = torch.empty((2, n_out), dtype=torch.float32, device=planes.device)
-    lib = library()
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    lib.call(
-        "qt_frontend_fir",
-        *_kernel_args(planes, bases, tables, spec, n_ok),
-        n_out, out[0].data_ptr(), out[1].data_ptr(), stream,
-    )
+    at = out.data_ptr()
+    _launch("qt_frontend_fir", planes, bases, tables, spec, n_out, n_ok, None, (at, at + 4 * n_out))
     frontend_fir.launches += 1
     return out
 
@@ -300,20 +393,13 @@ def frontend_fir_stft(
     """Kernel 2 (``qt_frontend_fir_stft``): (n_out/W, W) f32 fftshifted
     STFT norms of the decimated stream, which never leaves the kernel.
     :attr:`launches` counts the launches."""
-    from quadrs_tpu_torch.ops._cuda import library
-
-    _check_launch(planes, bases, tables, spec, n_out, n_ok, stft_width)
     norms = torch.empty(
         (n_out // stft_width, stft_width), dtype=torch.float32, device=planes.device
     )
-    lib = library()
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    lib.call(
-        "qt_frontend_fir_stft",
-        *_kernel_args(planes, bases, tables, spec, n_ok),
-        n_out, tables.stft_cos.data_ptr(), tables.stft_sin.data_ptr(),
-        stft_width, norms.data_ptr(), stream,
-    )
+    # _launch has checked the twiddles before it reads these pointers
+    tw = tables.stft_cos, tables.stft_sin
+    out = (*(0 if t is None else t.data_ptr() for t in tw), stft_width, norms.data_ptr())
+    _launch("qt_frontend_fir_stft", planes, bases, tables, spec, n_out, n_ok, stft_width, out)
     frontend_fir_stft.launches += 1
     return norms
 
@@ -342,6 +428,28 @@ def _polyphase_fir(x: torch.Tensor, hp: torch.Tensor, m_sub: int, tout: int, n_o
     return y.reshape(-1)[:n_out]
 
 
+def _mixed_t(planes, bases, spec: FrontendSpec, n_out: int, n_ok: int, tables: FrontendTables):
+    """The plain versions' decode, mask and per-tile table mix: (mre, mim),
+    each (tiles, tout + 128, D) f32, the mixed samples of every phase tile
+    and its halo in polyphase order."""
+    d, tout = spec.decimate, _tout_t(spec)
+    tiles = -(-n_out // tout)
+    l_in, cols = tout * d, tout + _HALO
+    need = tiles * l_in + _HALO * d
+    n_ok = max(0, min(n_ok, need, planes.shape[1]))
+
+    def decoded(plane):
+        x = torch.zeros(need, dtype=torch.float32, device=planes.device)
+        x[:n_ok] = decode_plane(plane[:n_ok], spec.fmt)
+        return x.unfold(0, cols * d, l_in)  # (tiles, cols*D): each tile + halo
+
+    xr, xi = decoded(planes[0]), decoded(planes[1])
+    cb, sb = torch.cos(bases)[:, None], torch.sin(bases)[:, None]
+    c = tables.cos * cb - tables.sin * sb
+    s = tables.sin * cb + tables.cos * sb
+    return (xr * c - xi * s).reshape(tiles, cols, d), (xr * s + xi * c).reshape(tiles, cols, d)
+
+
 def fused_frontend_t_reference(
     planes: torch.Tensor,
     bases: torch.Tensor,
@@ -357,24 +465,8 @@ def fused_frontend_t_reference(
     (``y[i] = sum_m C2[i + m, m]``), then the block DFT epilogue."""
     if planes.is_cuda:
         no_tf32()
-    d, m_sub, tout = spec.decimate, spec.m_sub, _tout_t(spec)
-    tiles = -(-n_out // tout)
-    l_in, cols = tout * d, tout + _HALO
-    need = tiles * l_in + _HALO * d
-    n_ok = max(0, min(n_ok, need, planes.shape[1]))
-
-    def decoded(plane):
-        x = torch.zeros(need, dtype=torch.float32, device=planes.device)
-        x[:n_ok] = decode_plane(plane[:n_ok], spec.fmt)
-        return x.unfold(0, cols * d, l_in)  # (tiles, cols*D): each tile + halo
-
-    xr, xi = decoded(planes[0]), decoded(planes[1])
-    cb, sb = torch.cos(bases)[:, None], torch.sin(bases)[:, None]
-    c = tables.cos * cb - tables.sin * sb
-    s = tables.sin * cb + tables.cos * sb
-    mre = (xr * c - xi * s).reshape(tiles, cols, d)
-    mim = (xr * s + xi * c).reshape(tiles, cols, d)
-
+    m_sub, tout = spec.m_sub, _tout_t(spec)
+    mre, mim = _mixed_t(planes, bases, spec, n_out, n_ok, tables)
     yr = _polyphase_fir(mre, tables.hp, m_sub, tout, n_out)
     yi = _polyphase_fir(mim, tables.hp, m_sub, tout, n_out)
     if stft_width is None:
@@ -443,7 +535,6 @@ def fused_frontend_t(
 # ---------------------------------------------------------------------------
 
 _TOUT_V1 = 2048  # outputs per v1 phase tile (the TPU's 16 x 128 output block)
-_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 
 
 def supported(decimate: int) -> bool:
@@ -481,30 +572,25 @@ def tile_bases(spec: FrontendSpec, global_start: int, tiles: int) -> np.ndarray:
 @dataclass(frozen=True)
 class BandedTables:
     """The v1 frontend's tensors: ``taps`` (m_sub * D,) zero-padded f32
-    taps, ``delta`` the :func:`_plan` angle table."""
+    taps, ``delta`` the :func:`_plan` angle table, ``decode`` the decode
+    table of a byte format (None for cs16 and cf32)."""
 
     taps: torch.Tensor
     delta: torch.Tensor
+    decode: torch.Tensor | None = None
 
 
 def banded_tables(spec: FrontendSpec, device=None) -> BandedTables:
     h = np.zeros(spec.m_sub * spec.decimate, dtype=np.float32)
     h[: len(spec.taps)] = spec.taps
-    return BandedTables(torch.tensor(h, device=device), torch.tensor(_plan(spec)[2], device=device))
+    return BandedTables(torch.tensor(h, device=device), torch.tensor(_plan(spec)[2], device=device),
+                        decode_tensor(spec.fmt, device))
 
 
 def _banded_block_outputs(spec: FrontendSpec) -> int:
-    """Outputs per CUDA block of the v1 kernel: the largest of 256 (128
-    past D 32), 128, 64, 32 whose staged span and taps fit in shared
-    memory; raises when none does."""
-    d, m_sub = spec.decimate, spec.m_sub
-    for bout in (256, 128, 64, 32):
-        if bout == 256 and d > 32:
-            continue
-        row = (bout + m_sub - 1) | 1
-        if (2 * d * row + m_sub * d) * 4 <= _SMEM_BYTES:
-            return bout
-    raise ValueError(f"{len(spec.taps)} taps at decimate {d}: the staged span exceeds shared memory")
+    """Outputs per CUDA block of the v1 kernel (:func:`launch_plan`);
+    raises when no block's staged span and taps fit in shared memory."""
+    return launch_plan(spec).bout
 
 
 def frontend_banded(
@@ -516,19 +602,23 @@ def frontend_banded(
     from quadrs_tpu_torch.ops._cuda import library
 
     dev = planes.device
-    _check_inputs(planes, spec, planes.shape[1], {
+    want = {
         "bases": (bases, (-(-n_out // _TOUT_V1),)),
         "taps": (tables.taps, (spec.m_sub * spec.decimate,)),
         "delta": (tables.delta, (len(_plan(spec)[2]),)),
-    })
-    bout = _banded_block_outputs(spec)
+    }
+    if spec.fmt.torch_dtype.itemsize == 1:
+        want["decode"] = (tables.decode, (256,))
+    _check_inputs(planes, spec, planes.shape[1], want)
+    plan = launch_plan(spec)
     out = torch.empty((2, n_out), dtype=torch.float32, device=dev)
-    lib = library()
-    lib.call(
+    re, at = planes.data_ptr(), out.data_ptr()
+    library().call(
         "qt_frontend_banded",
-        _FMT_CODE[spec.fmt], dev.index, planes[0].data_ptr(), planes[1].data_ptr(), planes.shape[1],
-        bases.data_ptr(), tables.delta.data_ptr(), tables.taps.data_ptr(), spec.decimate, spec.m_sub,
-        _TOUT_V1, bout, n_out, out[0].data_ptr(), out[1].data_ptr(),
+        _FMT_CODE[spec.fmt], dev.index, re, re + planes.stride(0) * planes.element_size(), planes.shape[1],
+        bases.data_ptr(), tables.delta.data_ptr(), tables.taps.data_ptr(),
+        0 if tables.decode is None else tables.decode.data_ptr(), spec.decimate, spec.m_sub,
+        _TOUT_V1, plan.bout, plan.groups, plan.threads, n_out, at, at + 4 * n_out,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     frontend_banded.launches += 1

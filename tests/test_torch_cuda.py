@@ -75,7 +75,7 @@ def test_frontend_fir_matches_plain(cuda, fmt, d, taps, n, n_valid, offset):
     assert_close(got, fe.fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables))
 
 
-@pytest.mark.parametrize("width", [8, 32, 64, 128])
+@pytest.mark.parametrize("width", [2, 8, 32, 64, 128])
 def test_frontend_fir_stft_matches_plain(cuda, width):
     model, planes, bases, n_out, n_ok = inputs(FileFormat.COMPLEX_UINT8, 32, 400, width, 1 << 20, cuda, (1 << 20) - 999)
     spec, tables = model.frontend_spec, model.frontend_tables()
@@ -83,6 +83,67 @@ def test_frontend_fir_stft_matches_plain(cuda, width):
     got = fe.fused_frontend_t(planes, bases, spec, n_out, n_valid=n_ok, stft_width=width, tables=tables)
     assert fe.frontend_fir_stft.launches == before + 1
     assert_close(got, fe.fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables, width))
+
+
+def edge_case(fmt, d, taps, n_out, device, *, offset=0, h=None):
+    """(spec, planes, bases, tables factory) with the planes a view
+    ``offset`` samples into their rows."""
+    from quadrs_tpu_torch.ops.fir import lowpass_taps
+
+    h = lowpass_taps(200e3 / 21e6, taps) if h is None else h
+    spec = fe.FrontendSpec(fmt, 21_000_000, 280_000, d, h.tobytes())
+    n = (n_out + spec.m_sub) * d + 16
+    raw = torch.from_numpy(synth_planes(fmt, n, seed=d + taps + offset)).to(device)
+    bases = torch.from_numpy(fe.tile_bases_t(spec, 999_999_937, n_out)).to(device)
+    return spec, raw[:, offset:], bases
+
+
+def run_edge(spec, planes, bases, n_out, n_ok=None, width=None):
+    tables = fe.frontend_tables(spec, width, device=planes.device)
+    n_ok = planes.shape[1] if n_ok is None else n_ok
+    got = fe.fused_frontend_t(planes, bases, spec, n_out, n_valid=n_ok, stft_width=width, tables=tables)
+    want = fe.fused_frontend_t_reference(planes, bases, spec, n_out, n_ok, tables, stft_width=width)
+    assert_close(got, want)
+    return got, want
+
+
+@pytest.mark.parametrize("fmt", list(FileFormat))
+@pytest.mark.parametrize("taps", [399, 400, 401])
+def test_frontend_views_at_every_alignment(cuda, fmt, taps):
+    """Planes whose base pointer sits at every offset mod 16 samples."""
+    for offset in range(16):
+        run_edge(*edge_case(fmt, 32, taps, 2048 + 24, cuda, offset=offset), 2048 + 24)
+    run_edge(*edge_case(fmt, 32, taps, 4096, cuda, offset=taps - taps // 2), 4096, width=64)
+
+
+@pytest.mark.parametrize("fmt", list(FileFormat))
+def test_frontend_mask_edges(cuda, fmt):
+    """``n_ok`` inside the first block, on a block boundary, 1 below the end."""
+    spec, planes, bases = edge_case(fmt, 32, 400, 4096, cuda, offset=3)
+    block = fe.launch_plan(spec).bout
+    for n_ok in (0, 1, 1000, 3 * block * 32, 3 * block * 32 + 2, planes.shape[1] - 1):
+        run_edge(spec, planes, bases, 4096, n_ok)
+        run_edge(spec, planes, bases, 4096, n_ok, width=128)
+
+
+@pytest.mark.parametrize("fmt", list(FileFormat))
+@pytest.mark.parametrize("d,taps,n_out", [
+    (1, 13, 9001), (3, 37, 9001), (5, 61, 9001), (33, 397, 9001), (64, 769, 9001),  # D no multiple of 4; D 64
+    (32, 20, 4099), (2, 2, 777),  # one subfilter
+    (32, 400, 5003), (32, 400, 8292), (32, 400, 7),  # n_out no multiple of the block or of 8
+    (16, 130, 4100), (8, 64, 12_000),  # one chunk, exactly full
+])
+def test_frontend_envelope_edges(cuda, fmt, d, taps, n_out):
+    run_edge(*edge_case(fmt, d, taps, n_out, cuda), n_out)
+
+
+@pytest.mark.parametrize("fmt", list(FileFormat))
+def test_decode_and_mix_are_exact(cuda, fmt):
+    """A single unit tap at D 1: the output is the mixed sample itself, so
+    kernel and plain version agree bit for bit."""
+    spec, planes, bases = edge_case(fmt, 1, 1, 70_001, cuda, offset=1, h=np.float32([1.0]))
+    got, want = run_edge(spec, planes, bases, 70_001, n_ok=65_000)
+    assert torch.equal(got, want)
 
 
 def test_wrapper_checks_inputs(cuda):
