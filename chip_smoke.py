@@ -6,8 +6,12 @@ unavailable or the package is missing; any failed phase raises and ends
 the run.  Phases:
 
 1. the card: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. the build of the CUDA kernels from ``quadrs_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the same CUDA
+2. the build of the CUDA kernels from ``quadrs_tpu_torch/csrc`` (nvcc) and of
+   the capture loader from ``quadrs_tpu_torch/native/loader.cc`` (g++);
+3. the loader: ``read_planes`` and the prefetched chunks, bit for bit against
+   ``SampleSource.stage`` of the same bytes in memory, over the 2^26-sample
+   cs8 capture and a cu8 and a cs16 one, at offsets straddling EOF; then each
+   kernel against its plain PyTorch version on the same CUDA
    tensors: the frontend kernels for every format and the envelope's
    corner cases, held to ``5e-5 * scale`` (the JAX package's
    kernel-versus-chain bound), then their edges: plane views at every
@@ -35,12 +39,16 @@ the run.  Phases:
    -stride 256 -search``, ``scan -stride 256``; then each waterfall kernel
    against its plain version on every chunk the runner stages at strides
    1024 and 256 (the ragged last chunks included), and the CLI's peaks and
-   survey against the plain version's stride-256 norms;
+   survey against the plain version's stride-256 norms, with the count of
+   peak bins and threshold counts that differ from the plain version (each
+   inside a near-tie or the threshold's noise band, or the phase fails);
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
    v1 kernel (yardstick: cuDNN's ``conv1d`` over the mixed planes, TF32
-   off), each ``fir_decimate`` impl at the chain's batch shapes, and one
+   off), each ``fir_decimate`` impl over a sweep of shapes (what the ``auto``
+   rule of the card rests on), ``step_stream`` at cs16 op by op against an
+   f64 sum, and one
    bank chunk (64 streams x 2000 windows x 1024 points) at strides 1024
    and 256 (yardstick: ``torch.fft.fft`` over the decoded frames), each
    waterfall kernel first held against its plain version on those inputs.
@@ -104,7 +112,13 @@ BANDED_OUT = 125_000 - 77  # phase 3: v1 outputs per case, the last 2048-output 
 # per window): sparkfft -width 64 over the stream chain (the executor's
 # 2^20-output budget), write's 0x1000-sample pulls, the same at 4000 taps
 FIR_SHAPES = [("sparkfft batch", 16384, 32, 400, 64), ("write batch", 256, 32, 400, 0x1000),
-              ("write batch, 4000 taps", 256, 32, 4000, 0x1000)]
+              ("write batch, 4000 taps", 256, 32, 4000, 0x1000),
+              # the sweep behind the card's auto rule: a stream chunk outside the fused
+              # envelope, narrow decimations, the spectral class at batch and chunk shapes
+              ("stream chunk, D 100", 1, 100, 400, 40_000), ("stream chunk, D 4", 1, 4, 40, 1_000_000),
+              ("batch, D 2", 256, 2, 40, 0x1000), ("batch, D 8 96 taps", 16384, 8, 96, 64),
+              ("sparkfft batch, 4000 taps", 16384, 32, 4000, 64), ("stream chunk, D 8 1100 taps", 1, 8, 1100, 500_000),
+              ("stream chunk, D 100 8192 taps", 1, 100, 8192, 40_000)]
 
 
 def card_line() -> str:
@@ -308,6 +322,47 @@ def phase_banded_kernel() -> tuple[float, float]:
     return at_main
 
 
+def phase_loader(cap: str, tmp: str) -> None:
+    """Phase 3, the loader: ``read_planes`` and the prefetched chunks (the
+    stream chain's 4M-sample chunks with their lookahead) against
+    ``SampleSource.stage`` of the same bytes in memory, bit for bit, over
+    the 2^26-sample cs8 capture and a 2^22-sample cu8 and cs16 one, whose
+    files end on a partial pair; reads straddle and lie past EOF."""
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.sources import SampleSource, open_capture
+
+    rng = np.random.default_rng(SEED)
+    files = [(cap, FileFormat.COMPLEX_INT8)]
+    for fmt in (FileFormat.COMPLEX_UINT8, FileFormat.COMPLEX_INT16):
+        path = os.path.join(tmp, f"loader.sr21M.{fmt.value}")
+        with open(path, "wb") as f:
+            f.write(rng.integers(0, 256, PREFIX_SAMPLES * fmt.pair_bytes + 1, dtype=np.uint8).tobytes())
+        files.append((path, fmt))
+    la = 600  # the stream chain's lookahead at 400 taps
+    for path, fmt in files:
+        src = open_capture(path)
+        mem = SampleSource(np.fromfile(path, dtype=np.uint8), fmt, SAMPLE_RATE)
+        n = src.length
+        if src.native is None or n != mem.length:
+            raise AssertionError(f"{path}: not read through the loader, or {n} != {mem.length} samples")
+        t0 = time.perf_counter()
+        reads = [(0, n), (12_345, CHUNK), (n - 1000, 5000), (n - 1, 1), (n, 100), (n + 17, 3)]
+        for off, m in reads:
+            got, want = src.native.read_planes(off, m), mem.stage(off, off + m)
+            real = want.shape[1]
+            if got.shape != (2, m) or got[:, :real].tobytes() != want.tobytes() or got[:, real:].any():
+                raise AssertionError(f"{path}: read_planes({off}, {m}) differs from stage")
+        chunks = 0
+        for start in (0, 999_983):
+            for off, planes in src.native.prefetch(CHUNK, start_off=start, overlap=la):
+                want = mem.stage(off, off + CHUNK + la)
+                if planes.shape != want.shape or planes.tobytes() != want.tobytes():
+                    raise AssertionError(f"{path}: prefetched chunk at {off} differs from stage")
+                chunks += 1
+        print(f"  loader {fmt.value}: {n} samples, {len(reads)} reads (2 straddling EOF, 2 past it) and {chunks} "
+              f"prefetched chunks of {CHUNK}+{la} equal stage bit for bit, {time.perf_counter() - t0:.2f}s")
+
+
 def write_capture(path: str, n: int) -> None:
     """A cs8 capture at 21 Msps: uniform noise from ``default_rng(SEED)``
     plus a tone at -230 kHz, which ``-shift 280k`` brings to +50 kHz."""
@@ -356,9 +411,10 @@ def run_cli(argv: list[str], expect_rc: int = 0, err_has: str = "") -> str:
     return out
 
 
-def phase_main_path(card: str, path: str, tmp: str) -> dict[str, int]:
+def phase_main_path(card: str, path: str, tmp: str) -> tuple[dict[str, int], np.ndarray]:
     """Phase 4, the stream: the CLI's stream path over the 2^26-sample
-    capture at ``path``; returns each kernel's launches over the phase."""
+    capture at ``path``, read through the loader's ring; returns each
+    kernel's launches over the phase, and the ``-out`` norms."""
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.models.receiver import PipelineModel
     from quadrs_tpu_torch.ops import frontend as fe
@@ -443,7 +499,166 @@ def phase_main_path(card: str, path: str, tmp: str) -> dict[str, int]:
     if (k1.launches - before, k2.launches) != (0, chunks):
         raise AssertionError(f"fused route launched frontend_fir_stft {k2.launches}x for {chunks} chunks")
     compare("fused-STFT route vs stream -out norms", torch.cat(rows), torch.from_numpy(norms).to(DEVICE))
-    return {"frontend_fir": k1.launches, "frontend_fir_stft": k2.launches}
+    return {"frontend_fir": k1.launches, "frontend_fir_stft": k2.launches}, norms
+
+
+def phase_live_path(card: str, cap: str, tmp: str, norms: np.ndarray) -> dict[str, int]:
+    """Phase 4, the ring and the live paths, on the card: ``stream``'s
+    ``-out`` norms (``norms``, read through the loader's ring) against the
+    same bytes staged from memory; ``replay -speed 0 | stream -stdin yes
+    [-search yes]`` against the file runs; ``stream -trigger`` from the file
+    and from the pipe; ``waterfall|scan -stdin yes`` against a one-file bank;
+    ``info`` against its CPU run.  Every comparison is bit for bit except
+    ``info``'s f32 sums.  Returns each kernel's launches over the phase."""
+    import glob
+    import types
+
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops import waterfall as wf
+    from quadrs_tpu_torch.sources import SampleSource
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+
+    os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
+    cfg = bench_cfg(FileFormat.COMPLEX_INT8)
+    chunks = n_chunks(CAPTURE_SAMPLES, cfg)
+    kernels = {"frontend_fir": fe.frontend_fir, "frontend_fir_stft": fe.frontend_fir_stft,
+               "waterfall_norms": wf.waterfall_norms, "waterfall_search": wf.waterfall_search,
+               "waterfall_scan": wf.waterfall_scan}
+    total = dict.fromkeys(kernels, 0)
+
+    def counted(what: str, want: dict[str, int], fn):
+        """Run ``fn`` with every count at 0 before it; hold the counts after it to ``want``."""
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        got = {name: k.launches for name, k in kernels.items() if k.launches}
+        print(f"    {what}: launches {got} ({card})")
+        if got != want:
+            raise AssertionError(f"{what} launched {got}, expected {want}")
+        for name, v in got.items():
+            total[name] += v
+        return out
+
+    def piped(argv: list[str], source: str) -> str:
+        """The CLI in this process, its stdin the stdout of ``replay -speed 0 SOURCE`` in another."""
+        env = dict(os.environ, QUADRS_PLATFORM="cpu")  # replay moves bytes: no device work
+        producer = subprocess.Popen([sys.executable, "-m", "quadrs_tpu_torch", "replay", "-speed", "0", source],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+        stdin = sys.stdin
+        sys.stdin = types.SimpleNamespace(buffer=producer.stdout)
+        try:
+            producer.stdout.peek(1)  # the producer is up: its start is not the consumer's time
+            out = run_cli(argv)
+        finally:
+            sys.stdin = stdin
+            producer.stdout.close()
+            err = producer.stderr.read().decode().strip()
+            rc = producer.wait(timeout=120)
+        print(f"    producer: {err}")
+        if rc != 0 or not err.startswith("replay: "):
+            raise AssertionError(f"replay exited {rc}: {err}")
+        return out
+
+    def same_file(a: str, b: str, what: str) -> None:
+        with open(a, "rb") as f, open(b, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{what}: {a} and {b} differ")
+
+    def untimed(out: str) -> list[str]:
+        return [ln.rsplit(" windows, ", 1)[0] if " Msps" in ln else ln for ln in out.splitlines()]
+
+    # the ring against the route it replaces: the same bytes as an in-memory source, staged with numpy
+    rows = []
+    mem = SampleSource(np.fromfile(cap, dtype=np.uint8), cfg.fmt, SAMPLE_RATE)
+    st = counted("stream over the same bytes in memory", {"frontend_fir": chunks},
+                 lambda: StreamRunner(mem, PipelineModel(cfg), DEVICE, chunk_samples=CHUNK).run(lambda w0, r: rows.append(r)))
+    same = np.array_equal(np.concatenate(rows), norms)
+    print(f"  stream -out norms through the ring vs the in-memory route ({st.msps:.1f} Msps): "
+          f"{norms.shape[0]} windows, bit-equal: {same}")
+    if not same:
+        raise AssertionError("the ring's norms differ from the in-memory route's")
+
+    stream = ["stream", "-shift", "280k", "-chunk", str(CHUNK)]
+    sdin = ["-stdin", "yes", "-sr", str(SAMPLE_RATE), "-format", "cs8"]
+    f_out, p_out = os.path.join(tmp, "out"), os.path.join(tmp, "pipe")
+    counted("replay | stream -stdin yes", {"frontend_fir": chunks}, lambda: piped([*stream, *sdin, "-out", p_out], cap))
+    same_file(f"{f_out}.norms.f32", f"{p_out}.norms.f32", "stream -stdin")
+    counted("replay | stream -stdin yes -search yes", {"frontend_fir": chunks},
+            lambda: piped([*stream, *sdin, "-search", "yes", "-out", p_out], cap))
+    same_file(f"{f_out}.peaks.csv", f"{p_out}.peaks.csv", "stream -stdin -search")
+    print("  replay | stream -stdin: norms and peaks files equal the file runs' byte for byte")
+
+    # the burst recorder: a level that a few dozen windows of noise cross
+    peaks = np.loadtxt(f"{f_out}.peaks.csv", delimiter=",", skiprows=1, ndmin=2)[:, 2]
+    level = float(np.sort(peaks)[-40])
+    trig = [*stream, "-trigger", repr(level), "-pre", "2", "-post", "1"]
+    os.makedirs(os.path.join(tmp, "tf"))
+    os.makedirs(os.path.join(tmp, "tp"))
+    out_f = counted("stream -trigger (file)", {"frontend_fir": chunks},
+                    lambda: run_cli([*trig, "-out", os.path.join(tmp, "tf", "rec"), cap]))
+    out_p = counted("replay | stream -stdin yes -trigger", {"frontend_fir": chunks},
+                    lambda: piped([*trig, *sdin, "-out", os.path.join(tmp, "tp", "rec")], cap))
+    names = sorted(os.path.basename(f) for f in glob.glob(os.path.join(tmp, "tf", "rec.b*")))
+    if not names or names != sorted(os.path.basename(f) for f in glob.glob(os.path.join(tmp, "tp", "rec.b*"))):
+        raise AssertionError(f"burst files differ in name: {len(names)} from the file run")
+    with open(cap, "rb") as f:
+        for name in names:
+            same_file(os.path.join(tmp, "tf", name), os.path.join(tmp, "tp", name), "stream -trigger")
+            s0 = int(name.split(".s")[1].split(".")[0])
+            with open(os.path.join(tmp, "tf", name), "rb") as g:
+                burst = g.read()
+            f.seek(2 * s0)
+            if f.read(len(burst)) != burst:
+                raise AssertionError(f"{name} is no slice of the capture")
+    if untimed(out_f.replace(os.path.join(tmp, "tf"), "")) != untimed(out_p.replace(os.path.join(tmp, "tp"), "")):
+        raise AssertionError("stream -trigger prints different lines from the pipe")
+    print(f"  stream -trigger {level:.6g}: {len(names)} burst files, from the pipe and from the file equal byte for byte, "
+          "each a slice of the capture")
+
+    # a one-file bank against the same bytes from the pipe
+    bank = os.path.join(tmp, "one.sr21M.cs8")
+    with open(cap, "rb") as f, open(bank, "wb") as g:
+        g.write(f.read(2 * BANK_SAMPLES))
+    nw = (BANK_SAMPLES - 1024) // 1024 + 1
+    wfall = ["waterfall", "-width", "1024", "-chunk", str(BANK_CHUNK)]
+    scan = ["scan", "-width", "1024", "-stride", "256", "-chunk", str(BANK_CHUNK), "-threshold", "20", "-top", "3", "-overwrite", "yes"]
+    n_scan = -(-((BANK_SAMPLES - 1024) // 256 + 1) // BANK_CHUNK)
+    w_f = counted("waterfall (one file)", {"waterfall_norms": -(-nw // BANK_CHUNK)}, lambda: run_cli([*wfall, "-out", f_out, bank]))
+    w_p = counted("replay | waterfall -stdin yes", {"waterfall_norms": -(-nw // BANK_CHUNK)},
+                  lambda: piped([*wfall, *sdin, "-out", p_out], bank))
+    same_file(f"{f_out}.s0.norms.f32", f"{p_out}.s0.norms.f32", "waterfall -stdin")
+    s_f = counted("scan (one file)", {"waterfall_scan": n_scan}, lambda: run_cli([*scan, "-out", f_out, bank]))
+    s_p = counted("replay | scan -stdin yes", {"waterfall_scan": n_scan}, lambda: piped([*scan, *sdin, "-out", p_out], bank))
+    same_file(f"{f_out}.s0.scan.csv", f"{p_out}.s0.scan.csv", "scan -stdin")
+    for a, b in ((w_f, w_p), (s_f, s_p)):
+        if untimed(a.replace(f_out, "")) != untimed(b.replace(p_out, "")):
+            raise AssertionError("a bank command prints different lines from the pipe")
+    print("  waterfall|scan -stdin yes: norms file, survey table and printed lines equal the one-file bank's")
+
+    # info: the f32 chunk sums on the card against the CPU's
+    on_card = counted("info", {}, lambda: run_cli(["info", cap]))
+    os.environ["QUADRS_PLATFORM"] = "cpu"
+    try:
+        on_cpu = run_cli(["info", cap])
+    finally:
+        os.environ.pop("QUADRS_PLATFORM", None)
+    import re
+
+    number = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
+    for a, b in zip(on_card.splitlines()[:-1], on_cpu.splitlines()[:-1], strict=True):
+        if number.sub("#", a) != number.sub("#", b):
+            raise AssertionError(f"info prints {a!r} on the card and {b!r} on the CPU")
+        for ma, mb in zip(number.finditer(a), number.finditer(b)):
+            x, y = float(ma.group()), float(mb.group())
+            # equal as printed, or within 1e-4 of the value (a dc offset: of the rms, which is under 1
+            # here), or one step of the single decimal of a dB figure
+            step = 0.11 if a[ma.end() : ma.end() + 3] == " dB" else 0.0
+            if ma.group() != mb.group() and abs(x - y) > max(1e-4 * abs(y) + 2e-7, step):
+                raise AssertionError(f"info: {ma.group()} on the card, {mb.group()} on the CPU")
+    print("  info: the card's lines equal the CPU's (numbers within 1e-4)")
+    return total
 
 
 SPARK_BOUNDS = np.concatenate([[0.08, 1.0], np.float32(0.08) + (np.float32(1.0) - np.float32(0.08)) / np.float32(7.0)
@@ -511,16 +726,32 @@ def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
     bad = [r for r in range(len(cpu_rows)) if rows[r] != cpu_rows[r]]
     near = 0
     if bad:
+        # each differing glyph's distance to the nearest level, relative to its value
+        # (tests/test_sparkfft.py::test_ook_quantization_margins) and in f32 spacings there
         norms = Executor(chain_stream(pre), 64, "cpu", post=stft_norms).run(np.asarray(bad, dtype=np.int64) * 16)[0]
         for i, r in enumerate(bad):
             for k, (a, b) in enumerate(zip(rows[r][1:-1], cpu_rows[r][1:-1])):
                 if a != b:
-                    margin = float(np.abs(SPARK_BOUNDS - norms[i, k]).min() / max(float(norms[i, k]), 1e-12))
+                    level = SPARK_BOUNDS[np.abs(SPARK_BOUNDS - norms[i, k]).argmin()]
+                    margin = float(abs(level - norms[i, k]) / max(float(norms[i, k]), 1e-12))
+                    print(f"    row {r} bin {k}: {a!r} on the card, {b!r} on the CPU; norm {norms[i, k]:.9g} lies "
+                          f"{margin:.2e} of its value ({abs(level - norms[i, k]) / np.spacing(level):.1f} f32 spacings) "
+                          f"from the level {level:.9g}")
                     if margin > TOL:
                         raise AssertionError(f"sparkfft row {r} bin {k}: {a!r} vs {b!r}, {margin:.2e} from a level")
                     near += 1
     print(f"  sparkfft: {len(cpu_rows)} rows of the prefix compared, {len(bad)} differ, {near} glyphs within "
-          f"{TOL} of a level")
+          f"{TOL} of a level (the chain's f32 tolerance: the documented exception)")
+    # the rows are built as one byte buffer a batch: byte-equal to one string a row over the card's own norms
+    from quadrs_tpu_torch import sinks
+
+    offs = np.arange(0, 16 * min(16384, len(rows)), 16, dtype=np.int64)
+    card_norms = Executor(chain_stream(cap), 64, DEVICE, post=stft_norms).run(offs)[0]
+    levels = sinks.glyph_levels(card_norms, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX)
+    per_row = ["│" + "".join(row) + "│" for row in sinks.SPARK_GLYPHS[levels]]
+    if rows[: len(offs)] != per_row:
+        raise AssertionError("the vectorized glyph rows differ from one string a row")
+    print(f"  sparkfft: the first {len(offs)} rows equal one string a row over the card's norms, byte for byte")
 
     # bucket: digits equal except near-ties of the plain half sums
     out, cpu_out = both("bucket", lambda path, tag: ["from", path, *lp200, "bucket", "-by", "freq", "2"])
@@ -586,7 +817,7 @@ def wf_close(got: torch.Tensor, want: torch.Tensor) -> bool:
     return not bool(((got - want).abs() > WF_RTOL * want.abs() + WF_RTOL * float(want.max())).any())
 
 
-def check_waterfall(label, spec, planes, nw, stride, tables, failures, thr=None) -> dict[str, tuple[float, float]]:
+def check_waterfall(label, spec, planes, nw, stride, tables, failures, thr=None, tally=None) -> dict[str, tuple[float, float]]:
     """The three waterfall kernels against their plain versions on one
     input, at the JAX package's waterfall tolerances: norms
     ``rtol=2e-5, atol=2e-5·max``; peak bins exact except near-ties,
@@ -594,7 +825,10 @@ def check_waterfall(label, spec, planes, nw, stride, tables, failures, thr=None)
     ``2e-5·max``, counts exact except for norms within ``2e-5·max`` of
     the threshold (by default the median norm).  Returns each kernel's
     (absolute error, that over the max norm; for scan the larger of the
-    sum error per window and the max error)."""
+    sum error per window and the max error).  ``tally`` gathers, over the
+    calls that share it, how many peak bins and how many per-bin threshold
+    counts differ from the plain version's, and how many were compared
+    (each difference has passed the near-tie or noise-band test above)."""
     from quadrs_tpu_torch.ops import waterfall as wf
 
     want = wf.fused_waterfall_reference(planes, spec, nw, stride=stride)
@@ -619,6 +853,10 @@ def check_waterfall(label, spec, planes, nw, stride, tables, failures, thr=None)
     if sum_err > nw * WF_RTOL * peak or max_err > WF_RTOL * peak or not bool(((cnt >= lo) & (cnt <= hi)).all()):
         bad.append("scan")
     norms_err, peak_err = float(d.max()), float((val - top).abs().max())
+    if tally is not None and not bad:
+        for key, n in (("peak bins differ", int((~exact).sum())), ("peak bins", exact.numel()),
+                       ("threshold counts differ", int((cnt != (want > thr).sum(1)).sum())), ("threshold counts", cnt.numel())):
+            tally[key] = tally.get(key, 0) + n
     errs = {"waterfall_norms": (norms_err, norms_err / peak), "waterfall_search": (peak_err, peak_err / peak),
             "waterfall_scan": (max(sum_err, max_err), max(sum_err / nw, max_err) / peak)}
     print(f"  {label}: norms {norms_err / peak:.2e}, peaks {peak_err / peak:.2e} "
@@ -758,6 +996,7 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
         tables = wf.waterfall_tables(spec, device=DEVICE)
         failures: list[str] = []
         at_main: dict[str, tuple[float, float]] = {}
+        tally: dict[str, int] = {}
         arg, top, tie = [], [], []
         nsum = torch.zeros((BANK_STREAMS, width), dtype=torch.float64, device=DEVICE)
         nmax = torch.zeros((BANK_STREAMS, width), device=DEVICE)
@@ -771,7 +1010,7 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
             for w0, n_w, _, staged in runner._staged_chunks(0):
                 planes = torch.from_numpy(staged).to(DEVICE)
                 label = f"staged chunk stride {stride} windows {w0}+{n_w} ({BANK_STREAMS}x{n_w}x{width})"
-                fold(at_main, check_waterfall(label, spec, planes, n_w, stride, tables, failures, thr=thr))
+                fold(at_main, check_waterfall(label, spec, planes, n_w, stride, tables, failures, thr=thr, tally=tally))
                 if stride != 256:
                     continue
                 norms = wf.fused_waterfall_reference(planes, spec, n_w, stride=stride)
@@ -787,6 +1026,10 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
                 hi += (norms > thr - band).sum(1)
         if failures:
             raise AssertionError(f"waterfall kernels disagree with their plain versions: {failures}")
+        # the epilogues take sqrt.approx: what it flips against the plain version's IEEE sqrt
+        print(f"  kernels vs plain over the staged chunks of both strides: {tally['peak bins differ']} of {tally['peak bins']} "
+              f"search peak bins differ (each a near-tie within {WF_RTOL}), {tally['threshold counts differ']} of "
+              f"{tally['threshold counts']} scan threshold counts differ (each by norms within {WF_RTOL}·max of the threshold)")
         arg, top, tie = torch.cat(arg, 1).cpu().numpy(), torch.cat(top, 1).cpu().numpy(), torch.cat(tie, 1).cpu().numpy()
         csv = np.loadtxt(f"{prefix}.peaks.csv", delimiter=",", skiprows=1, dtype=np.float64)
         if csv.shape != (BANK_STREAMS * over, 4):
@@ -943,8 +1186,9 @@ def phase_chain_timing(card: str) -> dict[str, float]:
     """Phase 5, the v1 kernel and the chain's FIR: CUDA-event times of
     ``frontend_banded`` and its plain version at one 4M-sample cs8 chunk
     (D 32, 400 taps), in mirrored order; then of each ``fir_decimate``
-    impl at the chain's batch shapes (the ``auto`` thresholds and frame
-    sizes are the JAX package's, measured on a TPU v5e)."""
+    impl over :data:`FIR_SHAPES`, the chain's batch shapes and the sweep
+    that the card's ``auto`` rule rests on (``ops.fir.auto_impl``; the frame
+    sizes inside the spectral impls are still the JAX package's)."""
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.ops import frontend as fe
     from quadrs_tpu_torch.ops.fir import IMPLS, auto_impl, fir_decimate, lowpass_taps
@@ -979,19 +1223,74 @@ def phase_chain_timing(card: str) -> dict[str, float]:
         ref = fir_decimate(x, h, d, n_out, impl="polyphase")
         line = []
         for impl in IMPLS:
-            if impl == "direct" and taps > 1000:
+            if impl == "direct" and b * n_out * taps * 8 > 8 << 30:
                 line.append(f"{impl} not measured (its frames would take {b * n_out * taps * 8 / 2**30:.0f} GiB)")
+                continue
+            if impl == "banded" and b * -(-n_out // 128) * (127 * d + taps) * 8 > 8 << 30:
+                line.append(f"{impl} not measured (its spans would take "
+                            f"{b * -(-n_out // 128) * (127 * d + taps) * 8 / 2**30:.0f} GiB)")
                 continue
             err = float((fir_decimate(x, h, d, n_out, impl=impl) - ref).abs().max())
             t = time_ms(lambda: fir_decimate(x, h, d, n_out, impl=impl), iters=5)
             ms[f"fir {impl} @ {label}"] = t
             line.append(f"{impl} {t:.3f} ms ({b * n_in / t / 1e3:.0f} Msps in, |diff| vs polyphase {err:.1e})")
-        print(f"  fir_decimate at the {label}: {b} x {n_in} -> {n_out}, D {d}, {taps} taps, auto takes "
-              f"{auto_impl(taps, d, b * n_out)} ({card})")
+        best = min((k for k in ms if k.endswith(f"@ {label}")), key=ms.get).split()[1]
+        took = auto_impl(taps, d, b * n_out, "cuda", n_out)
+        print(f"  fir_decimate at the {label}: {b} x {n_in} -> {n_out}, D {d}, {taps} taps; fastest {best}, auto takes "
+              f"{took} on CUDA ({ms[f'fir {took} @ {label}'] / ms[f'fir {best} @ {label}']:.2f}x the fastest), "
+              f"{auto_impl(taps, d, b * n_out)} on the CPU ({card})")
         for item in line:
             print(f"    {item}")
         del x, ref
     return ms
+
+
+def phase_cs16_readings(card: str) -> None:
+    """Phase 5, ``step_stream`` at cs16 (D 8, 1100 taps, W 128: premixed
+    taps, a spectral FIR), op by op against an f64 sum of the same function,
+    on the card and on the CPU: the FIR output of each impl, then the norms.
+    cs16 decodes to a DC of -32767.5 that the shift puts in the stopband; the
+    output is mostly what the filter leaves of it, so an error of 1e-7 of
+    the input is 1e-4 of the output."""
+    from quadrs_tpu_torch.formats import FileFormat, decode_plane, synth_planes
+    from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
+    from quadrs_tpu_torch.ops.fir import fir_decimate, lowpass_taps
+    from quadrs_tpu_torch.ops.nco import ExactNCO
+
+    d, taps, width, offset = 8, 1100, 128, 999_999_937
+    n = d * width * 50 + taps + 777
+    raw = synth_planes(FileFormat.COMPLEX_INT16, n, seed=d)
+    prefix, n_dec = taps - taps // 2, (n - taps) // d
+    x = decode_plane(raw[0], FileFormat.COMPLEX_INT16).astype(np.float64) \
+        + 1j * decode_plane(raw[1], FileFormat.COMPLEX_INT16).astype(np.float64)
+    x = x * np.exp(1j * ExactNCO(280_000, SAMPLE_RATE).angles(offset + np.arange(n), dtype=np.float64))
+    h = lowpass_taps(200_000 / SAMPLE_RATE, taps).astype(np.float64)
+    xp = np.concatenate([x[prefix:], np.zeros(taps + d)])
+    y64 = np.lib.stride_tricks.sliding_window_view(xp, taps)[: n_dec * d : d] @ h
+    n_w = n_dec // width
+    exact = np.abs(np.fft.fftshift(np.fft.fft(y64[: n_w * width].reshape(n_w, width), axis=-1), axes=-1))
+    scale, y_scale = float(exact.max()), float(np.abs(y64).max())
+    print(f"  step_stream at cs16, D {d}, {taps} taps, W {width}: input magnitude {np.abs(x).max():.6g}, FIR output "
+          f"max {y_scale:.4g}, norms max {scale:.4g}; errors over those maxima against an f64 sum ({card})")
+    for impl in ("os_poly", "overlap_save", "polyphase", "banded"):
+        model = PipelineModel(PipelineConfig(sample_rate=SAMPLE_RATE, shift_freq=280_000, lp_freq=200_000,
+                                             decimate=d, taps=taps, fft_width=width, fmt=FileFormat.COMPLEX_INT16, fir_impl=impl))
+        theta0 = model.theta0(np.asarray([offset]))[0]
+        line = []
+        for dev in (DEVICE, torch.device("cpu")):
+            model.to(dev)
+            planes = torch.from_numpy(raw).to(dev)
+            z = model._decode(planes)
+            t0 = torch.as_tensor(theta0, dtype=torch.float32, device=dev)
+            if model._spectral_fir:
+                y = model._twiddle_decimated(fir_decimate(z[None], model._premixed_taps, d, n_dec, impl=impl)[0], t0, n_dec)
+            else:
+                y = fir_decimate(model._mix_stream(z, t0)[None], model._taps_np, d, n_dec, impl=impl)[0]
+            norms = model.step_stream(planes, theta0)
+            fir_err = float(np.abs(y.cpu().numpy() - y64).max()) / y_scale
+            err = float(np.abs(norms.cpu().numpy() - exact).max()) / scale
+            line.append(f"{dev.type}: FIR {fir_err:.3e}, norms {err:.3e}")
+        print(f"    {impl:13s} {'premixed taps' if model._spectral_fir else 'mixed samples'}; " + "; ".join(line))
 
 
 def phase_waterfall_timing(card: str, at_main: dict[str, tuple[float, float]]) -> dict[str, float]:
@@ -1119,14 +1418,26 @@ def main() -> int:
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from quadrs_tpu_torch import native
+
     t0 = time.perf_counter()
-    lib = _cuda.library()
-    print(f"phase 2: built {lib.path.name} in {time.perf_counter() - t0:.1f}s (nvcc {lib.build_seconds:.1f}s)")
+    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ side by side
+        loader, lib = pool.submit(native.library), _cuda.library()
+        loader = loader.result()
+    print(f"phase 2: built {lib.path.name} in {time.perf_counter() - t0:.1f}s (nvcc {lib.build_seconds:.1f}s) and "
+          f"{loader.path.name} (g++ {loader.build_seconds:.1f}s)")
     for name, used in ptxas_usage(lib.build_log):
         print(f"    {name}: {used}")
     for line in sass_mix(lib.path):
         print(f"    {line} (cuobjdump -sass)")
-    print("phase 3: kernels against their plain versions")
+    print("phase 3: the loader against stage; kernels against their plain versions")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    cap = os.path.join(tmp, "smoke.sr21M.cs8")
+    write_capture(cap, CAPTURE_SAMPLES)
+    phase_loader(cap, tmp)
     at_main = phase_kernels()
     phase_frontend_edges()
     at_main["frontend_banded"] = phase_banded_kernel()
@@ -1135,13 +1446,16 @@ def main() -> int:
     from quadrs_tpu_torch.ops import frontend as fe
 
     fe.frontend_banded.launches = 0  # counts of the main paths only, from here
-    with tempfile.TemporaryDirectory() as tmp:
-        cap = os.path.join(tmp, "smoke.sr21M.cs8")
-        write_capture(cap, CAPTURE_SAMPLES)
-        launches = phase_main_path(card, cap, tmp)
+    with tmp_dir:
+        launches, norms = phase_main_path(card, cap, tmp)
+        live_launches = phase_live_path(card, cap, tmp, norms)
+        del norms
         phase_chain_path(card, cap, tmp)
     bank_launches, bank_err = phase_bank_path(card)
     launches.update(bank_launches)
+    for name, count in live_launches.items():
+        launches[name] += count
+    print(f"  launches over the main paths (the stream runs, the live runs and the bank runs): {launches}")
     # no path of the JAX package runs the v1 function, so no main path of
     # the port may: it is held to its plain version in phases 3 and 5
     launches["frontend_banded"] = fe.frontend_banded.launches
@@ -1152,6 +1466,7 @@ def main() -> int:
     print("phase 5: timing")
     ms = phase_timing(card)
     ms.update(phase_chain_timing(card))
+    phase_cs16_readings(card)
     wf_ms = phase_waterfall_timing(card, at_main)
 
     # errors at the main paths' shapes: max_abs_err, and err_over_max

@@ -7,18 +7,23 @@ the same 2^26-sample cs8 capture as ``chip_smoke.py`` (21 Msps, D 32,
 
 1. times two warm ``StreamRunner.run`` passes with a file sink, the
    CLI's route (kernel 1 + ``stft_norms``), after one pass that builds
-   the kernels, plans cuFFT and fills the page cache;
+   the kernels and the loader, plans cuFFT and fills the page cache;
 2. for each route of ``step_stream_fused`` (``fuse_stft`` False, the
    CLI's, and True, kernel 2) runs the runner's chunks one stage at a time,
    with a device sync between stages, and prints each stage's share:
-   staging (file read + deinterleave), H2D, device, D2H, sink;
+   staging (the loader's ring prefetcher into a page-locked slot), H2D
+   (the slot's copy on the copy stream), device, D2H (into page-locked
+   memory), sink;
 3. profiles one more warm ``StreamRunner.run`` with ``torch.profiler``
    and prints the wall time, the device's busy time (the union of its
-   kernel and copy intervals) and idle share, and the busy time by kind.
+   kernel and copy intervals) and idle share, how long copies and kernels
+   ran at once (the copy stream's overlap), and the busy time by kind;
+4. the same warm runs and profile for the live path: the capture through
+   ``replay -speed 0`` in another process, read by a ``PipeSource``.
 
-Stage 2 runs without the runner's background staging, so its total is
-longer than a run's wall time; it says what each stage costs, not how they
-overlap.  Stage 3 says how they overlap.
+Stage 2 runs the runner's own staging generator and ring one stage at a
+time, so its total is longer than a run's wall time; it says what each
+stage costs, not how they overlap.  Stage 3 says how they overlap.
 
 Then the same three stages for the reference chain's ``from CAP shift
 280k lowpass -power 200 -decimate 32 200k sparkfft -width 64 -stride 16``
@@ -44,58 +49,64 @@ import torch
 import chip_smoke as cs
 
 
-def stage_breakdown(chunks, upload, step, sink, dev) -> dict[str, float]:
-    """Seconds per stage over ``chunks``, one stage at a time: staging
-    (the generator), H2D (``upload(item)`` gives the first window index
-    and the step's device inputs), device (``step``), D2H, sink."""
-    from quadrs_tpu_torch.stream_runner import _to_host
+def stage_breakdown(ring, staged, step, sink, dev) -> dict[str, float]:
+    """Seconds per stage over a runner's chunks, one stage at a time:
+    staging (``staged``, the runner's own generator, fills a slot of
+    ``ring``), H2D (the slot's upload, awaited), device (``step(first
+    window, buffers)``), D2H (into page-locked memory, awaited), sink."""
+    from quadrs_tpu_torch.staging import Download
 
     t = dict(staging=0.0, h2d=0.0, device=0.0, d2h=0.0, sink=0.0)
-    while True:
-        a = time.perf_counter()
-        item = next(chunks, None)
-        b = time.perf_counter()
-        t["staging"] += b - a
-        if item is None:
-            return t
-        w0, args = upload(item)
-        torch.cuda.synchronize(dev)
-        c = time.perf_counter()
-        out = step(*args)
-        torch.cuda.synchronize(dev)
-        d = time.perf_counter()
-        host = _to_host(out)
-        e = time.perf_counter()
-        sink(w0, host)
-        t["h2d"] += c - b
-        t["device"] += d - c
-        t["d2h"] += e - d
-        t["sink"] += time.perf_counter() - e
+    ring.reset()
+    try:
+        while True:
+            a = time.perf_counter()
+            item = next(staged, None)
+            b = time.perf_counter()
+            t["staging"] += b - a
+            if item is None:
+                return t
+            k, w0, shapes, _ = item
+            bufs = ring.upload(k, **shapes)
+            torch.cuda.synchronize(dev)
+            c = time.perf_counter()
+            out = step(w0, bufs)
+            ring.consumed(k)
+            torch.cuda.synchronize(dev)
+            d = time.perf_counter()
+            host = Download(out, dev).wait()
+            e = time.perf_counter()
+            sink(w0, host)
+            ring.recycle(k)
+            t["h2d"] += c - b
+            t["device"] += d - c
+            t["d2h"] += e - d
+            t["sink"] += time.perf_counter() - e
+    finally:
+        staged.close()
 
 
 def sequential_breakdown(runner, sink, fuse_stft: bool) -> dict[str, float]:
     """Stage seconds over the stream runner's chunks."""
-    model, dev = runner.model, runner.device
+    from quadrs_tpu_torch.staging import UploadRing
 
-    def upload(item):
-        off, planes, valid = item
-        raw = torch.from_numpy(planes).to(dev)
-        bases = torch.from_numpy(model.stream_bases(off, planes.shape[1])).to(dev)
-        return 0, (raw, bases, None if valid == planes.shape[1] else valid)
+    model = runner.model
+    ring = UploadRing(runner.device, 3, **runner._slot_buffers())
 
-    def step(raw, bases, nv):
-        return model.step_stream_fused(raw, bases, nv, fuse_stft=fuse_stft)
+    def step(at, bufs):
+        off, cols, valid = at
+        raw = bufs["planes"][:, :cols]
+        return model.step_stream_fused(raw, bufs["bases"], None if valid == cols else valid, fuse_stft=fuse_stft)
 
-    return stage_breakdown(runner._chunks(), upload, step, sink, dev)
+    return stage_breakdown(ring, runner._staged(ring, 0, lambda cols: None), step, lambda at, rows: sink(0, rows), runner.device)
 
 
 def bank_breakdown(runner, step, sink) -> dict[str, float]:
     """Stage seconds over the bank runner's chunks."""
-    def upload(item):
-        w, _, _, planes = item
-        return w, (torch.from_numpy(planes).to(runner.device),)
-
-    return stage_breakdown(runner._staged_chunks(0), upload, step, sink, runner.device)
+    runner.run(max_chunks=1)  # makes the runner's ring
+    ring = runner._ring
+    staged = runner._staged(ring, 0, None, lambda n_w, new: None)
+    return stage_breakdown(ring, staged, lambda w, bufs: step(bufs["planes"]), sink, runner.device)
 
 
 def bank_sinks(tmp: str, n_streams: int):
@@ -112,7 +123,7 @@ def bank_sinks(tmp: str, n_streams: int):
     def on_norms(w0, norms):
         for s in range(norms.shape[0]):
             tracker.update(s, w0, np.argmax(norms[s], axis=-1), np.max(norms[s], axis=-1))
-            files[s].write(np.ascontiguousarray(norms[s]).tobytes())
+            files[s].write(np.ascontiguousarray(norms[s]))
 
     def on_peaks(w0, out):
         idx, val = out
@@ -163,9 +174,9 @@ def profile_bank(card: str) -> None:
                     t0 = time.perf_counter()
                     st = run(sinks[name])
                     wall = (time.perf_counter() - t0) * 1e3
-                busy, kinds = device_busy(prof)
+                busy, kinds, both = device_busy(prof)
                 print(f"  profiled warm run: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
-                      f"idle share {100 * (1 - busy / wall):.1f}% ({card})")
+                      f"idle share {100 * (1 - busy / wall):.1f}%, copies and kernels at once {both:.2f} ms ({card})")
                 for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])[:6]:
                     print(f"    {ms:9.3f} ms  {n:4d}x  {k}")
         finally:
@@ -182,7 +193,7 @@ def profile_chain(card: str, path: str) -> None:
 
     from quadrs_tpu_torch import sinks
     from quadrs_tpu_torch.ops.stft import stft_norms
-    from quadrs_tpu_torch.runtime import _to_device, root_step_of, window_batches
+    from quadrs_tpu_torch.runtime import Executor, _to_device, root_step_of, window_batches
     from quadrs_tpu_torch.sources import open_capture
     from quadrs_tpu_torch.stream import LowPass, Shift
 
@@ -194,7 +205,7 @@ def profile_chain(card: str, path: str) -> None:
         out.seek(0)
         out.truncate()
         t0 = time.perf_counter()
-        sinks.spark_fft(stream, width, stride, out=lambda line: print(line, file=out), device=cs.DEVICE)
+        sinks.spark_fft(stream, width, stride, out=lambda block: print(block, file=out), device=cs.DEVICE, batched=True)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -205,55 +216,120 @@ def profile_chain(card: str, path: str) -> None:
     offsets = np.arange(0, stream.length - width, stride, dtype=np.int64)
     _, batches = window_batches(offsets, width, root_step=root_step_of(stream))
 
-    def staged():
-        for offs in batches:
-            lo = stream.span(int(offs.min()), width)[0]
-            s_off, s_n = stream.span(int(offs.max()), width)
-            yield src.stage(lo, s_off + s_n), stream.plan(offs, width, lo)
+    # the executor's stages, one at a time: the root span through the loader into its
+    # page-locked slot (with the host's planning), the slot's copy, the batch, its
+    # output into page-locked memory, the glyph rows and their one write
+    from quadrs_tpu_torch.staging import Download
 
-    def upload(item):
-        planes, plan = item
-        ctx = {"buf": torch.from_numpy(planes).to(cs.DEVICE), "device": cs.DEVICE}
-        return 0, (ctx, _to_device(plan.prep, cs.DEVICE))
-
-    def step(ctx, prep):
-        return stft_norms(stream.read_batch(ctx, prep, width))
-
-    def sink(_, norms):
-        for line in sinks.glyph_rows(norms, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX):
-            print(f"│{line}│", file=out)
-
-    t = stage_breakdown(staged(), upload, step, sink, cs.DEVICE)
+    ex = Executor(stream, width, cs.DEVICE, post=stft_norms)
+    t = dict(staging=0.0, h2d=0.0, device=0.0, d2h=0.0, sink=0.0)
+    for offs in batches:
+        a = time.perf_counter()
+        lo = stream.span(int(offs.min()), width)[0]
+        s_off, s_n = stream.span(int(offs.max()), width)
+        buf = ex._stage(lo, s_off + s_n)  # fills a slot, enqueues its copy
+        plan = stream.plan(offs, width, lo)
+        b = time.perf_counter()
+        ctx = {"buf": buf, "device": cs.DEVICE}
+        prep = _to_device(plan.prep, cs.DEVICE)
+        torch.cuda.synchronize()
+        c = time.perf_counter()
+        norms = stft_norms(stream.read_batch(ctx, prep, width))
+        torch.cuda.synchronize()
+        d = time.perf_counter()
+        rows = Download(norms, cs.DEVICE).wait()
+        e = time.perf_counter()
+        print(sinks.glyph_lines(rows, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX), file=out)
+        t["staging"] += b - a
+        t["h2d"] += c - b
+        t["device"] += d - c
+        t["d2h"] += e - d
+        t["sink"] += time.perf_counter() - e
     total = sum(t.values())
     print(f"  sequential breakdown, {len(batches)} batches, total {total * 1e3:.2f} ms: "
           + ", ".join(f"{k} {v * 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in t.items()) + f" ({card})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run() * 1e3
-    busy, kinds = device_busy(prof)
+    busy, kinds, both = device_busy(prof)
     print(f"  profiled warm run: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
-          f"{100 * (1 - busy / wall):.1f}% ({card})")
+          f"{100 * (1 - busy / wall):.1f}%, copies and kernels at once {both:.2f} ms ({card})")
     for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"    {ms:9.3f} ms  {n:4d}x  {k}")
 
 
-def device_busy(prof) -> tuple[float, dict[str, list]]:
-    """(union of the device's event intervals in ms, {kind: [ms, count]})."""
+def _union(spans) -> list[tuple[float, float]]:
+    out: list[tuple[float, float]] = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def device_busy(prof) -> tuple[float, dict[str, list], float]:
+    """(union of the device's event intervals in ms, {kind: [ms, count]},
+    ms during which a copy and a kernel ran at once: what the copy stream
+    hides behind the compute stream)."""
     from torch.autograd import DeviceType
 
-    spans, kinds = [], {}
+    copies, kernels, kinds = [], [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.name.startswith("Activity Buffer"):
             continue
-        spans.append((e.time_range.start, e.time_range.end))
+        (copies if e.name.startswith(("Memcpy", "Memset")) else kernels).append((e.time_range.start, e.time_range.end))
         k = kinds.setdefault(e.name[:70], [0.0, 0])
         k[0] += (e.time_range.end - e.time_range.start) / 1e3
         k[1] += 1
-    busy, end = 0.0, float("-inf")
-    for lo, hi in sorted(spans):
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
-    return busy / 1e3, kinds
+    busy = sum(hi - lo for lo, hi in _union(copies + kernels))
+    both, cu, ku = 0.0, _union(copies), _union(kernels)
+    i = j = 0
+    while i < len(cu) and j < len(ku):
+        both += max(0.0, min(cu[i][1], ku[j][1]) - max(cu[i][0], ku[j][0]))
+        if cu[i][1] < ku[j][1]:
+            i += 1
+        else:
+            j += 1
+    return busy / 1e3, kinds, both / 1e3
+
+
+def profile_pipe(card: str, path: str, cfg, sink) -> None:
+    """The live path: two warm runs and a profiled one of ``StreamRunner``
+    over a ``PipeSource`` that reads ``replay -speed 0`` of the capture from
+    another process (each run a new producer, started before the clock)."""
+    import subprocess
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.sources import PipeSource
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+
+    model = PipelineModel(cfg)
+
+    def run():
+        env = dict(os.environ, QUADRS_PLATFORM="cpu")  # replay moves bytes: no device work
+        producer = subprocess.Popen([sys.executable, "-m", "quadrs_tpu_torch", "replay", "-speed", "0", path],
+                                    stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, env=env)
+        try:
+            producer.stdout.peek(1)  # the producer is up
+            return StreamRunner(PipeSource(producer.stdout, cfg.fmt, cs.SAMPLE_RATE), model, cs.DEVICE,
+                                chunk_samples=cs.CHUNK).run(sink)
+        finally:
+            producer.stdout.close()
+            producer.wait(timeout=120)
+
+    run()
+    for rep in range(2):
+        st = run()
+        print(f"pipe (replay | stream -stdin) warm run {rep}: {st.samples_in} samples, {st.seconds * 1e3:.2f} ms, "
+              f"{st.msps:.1f} Msps ({card})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st = run()
+    busy, _, both = device_busy(prof)
+    wall = st.seconds * 1e3
+    print(f"  profiled warm run: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share {100 * (1 - busy / wall):.1f}%, "
+          f"copies and kernels at once {both:.2f} ms ({card})")
 
 
 def main() -> int:
@@ -276,7 +352,7 @@ def main() -> int:
         with open(os.path.join(tmp, "norms.f32"), "wb") as out:
 
             def sink(w0, rows):
-                out.write(np.ascontiguousarray(rows).tobytes())
+                out.write(np.ascontiguousarray(rows))
 
             runner = StreamRunner(open_capture(path), PipelineModel(cfg), cs.DEVICE, chunk_samples=cs.CHUNK)
             chunks = cs.n_chunks(runner.source.length, cfg)
@@ -295,11 +371,12 @@ def main() -> int:
                 t0 = time.perf_counter()
                 st = runner.run(sink)
                 wall = (time.perf_counter() - t0) * 1e3
-            busy, kinds = device_busy(prof)
+            busy, kinds, both = device_busy(prof)
             print(f"profiled warm run: wall {wall:.2f} ms, {st.msps:.1f} Msps, device busy {busy:.2f} ms, "
-                  f"idle share {100 * (1 - busy / wall):.1f}% ({card})")
+                  f"idle share {100 * (1 - busy / wall):.1f}%, copies and kernels at once {both:.2f} ms ({card})")
             for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
                 print(f"  {ms:9.3f} ms  {n:4d}x  {k}")
+            profile_pipe(card, path, cfg, sink)
         profile_chain(card, path)
     profile_bank(card)
     return 0

@@ -17,6 +17,13 @@ many captures decode, window and transform at once into spectrogram
 rows, per-window peaks or per-bin survey statistics, through three
 hand-written CUDA kernels (``csrc/waterfall.cu``).
 
+Capture files are read through the package's own C++ loader
+(``native/loader.cc``, built with g++ at first use), staged into
+page-locked rings and copied on a copy stream (:mod:`.staging`); live
+input comes from a pipe (``-stdin yes``: :class:`.sources.PipeSource`),
+``stream -trigger`` records bursts, ``info`` prints capture statistics
+and ``replay`` turns a recorded capture into a live pipe.
+
 Every kernel has a plain PyTorch version, which CPU tensors take.  The
 package imports ``torch`` and numpy, and never ``jax`` or
 ``quadrs_tpu``; the JAX package is the reference the tests hold it to.
@@ -25,7 +32,7 @@ package imports ``torch`` and numpy, and never ``jax`` or
 from quadrs_tpu_torch.formats import FileDetails, FileFormat
 from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
 from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
-from quadrs_tpu_torch.sources import SampleSource, open_capture
+from quadrs_tpu_torch.sources import PipeSource, SampleSource, open_capture
 from quadrs_tpu_torch.stream_runner import RunStats, ScanResult, StreamRunner, WaterfallRunner
 
 __version__ = "0.1.0"
@@ -35,6 +42,7 @@ __all__ = [
     "FileFormat",
     "PipelineConfig",
     "PipelineModel",
+    "PipeSource",
     "RunStats",
     "SampleSource",
     "ScanResult",

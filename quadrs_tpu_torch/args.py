@@ -7,7 +7,7 @@ arguments.
     [-decimate D] FREQ  sparkfft [-width W] [-stride S] [-range LO:HI]
     bucket [-width W] [-stride S] -by freq COUNT  write [-overwrite B]
     PREFIX  gen [-cos F]* [-len SECS] RATE  stream ...  waterfall ...
-    scan ...
+    scan ...  info FILE...  replay FILE
 
 ``resample``, ``dcblock``, ``agc``, ``iqbal``, ``find``, ``ui`` and ``eui``
 parse as in the JAX package; running them raises "not yet ported".
@@ -158,6 +158,36 @@ class ScanCmd(Command):
     format: str | None = None
     mesh: tuple[int, int] | None = None
     stdin: bool = False  # single live pipe stream instead of files
+
+
+@dataclass
+class InfoCmd(Command):
+    """``info``: per-capture statistics (the ``soxi`` of IQ files):
+    format, rate and length plus device-reduced DC offset, RMS, peak,
+    circularity (the IQ-image indicator) and raw-code clipping fraction.
+    Terminal command: every remaining token is a capture filename."""
+
+    filenames: list[str]
+    chunk: int = 4_000_000
+    limit: int | None = None  # analyze only the first N samples
+    sample_rate: str | None = None
+    format: str | None = None
+
+
+@dataclass
+class ReplayCmd(Command):
+    """``replay``: stream a capture's raw bytes to stdout paced at its
+    sample rate, turning any file into a live pipe for the ``-stdin``
+    consumers (``... replay cap.sr2M.cu8 | ... stream -stdin yes -sr 2M
+    -format cu8``), in place of the radio.  ``-speed X`` scales real time
+    (0 = unthrottled), ``-loop N`` repeats the capture."""
+
+    filename: str
+    speed: float = 1.0
+    loop: int = 1
+    chunk: int = 65_536  # samples per write and pace step
+    sample_rate: str | None = None
+    format: str | None = None
 
 
 def _parse_mesh(spec: str) -> tuple[int, int]:
@@ -387,6 +417,55 @@ def _parse_scan(args: _Args, raw_map) -> Command:
         threshold=threshold, top=top, db=db, plot=plot, out=out,
         overwrite=overwrite, sample_rate=sr, format=fmt,
         mesh=None if mesh is None else _parse_mesh(mesh), stdin=stdin,
+    )
+
+
+def _parse_info(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    chunk = int(parse_si_uint(map_.pop("chunk", "4M")))
+    if chunk < 1:
+        raise ValueError("-chunk must be at least 1")
+    limit = map_.pop("limit", None)
+    limit = None if limit is None else int(parse_si_uint(limit))
+    if limit is not None and limit < 1:
+        raise ValueError("-limit must be at least 1")
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    _ensure_empty(map_, "info")
+    filenames = []
+    while True:  # terminal command: everything left is a capture file
+        tok = args.next()
+        if tok is None:
+            break
+        filenames.append(tok)
+    if not filenames:
+        raise ValueError("'info' requires at least one capture filename")
+    return InfoCmd(
+        filenames=filenames, chunk=chunk, limit=limit, sample_rate=sr,
+        format=fmt,
+    )
+
+
+def _parse_replay(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    speed = parse_si_float(map_.pop("speed", "1"))
+    if speed < 0:
+        raise ValueError("-speed must be >= 0 (0 = unthrottled)")
+    loop = int(parse_si_uint(map_.pop("loop", "1")))
+    if loop < 1:
+        raise ValueError("-loop must be at least 1")
+    chunk = int(parse_si_uint(map_.pop("chunk", "64k")))
+    if chunk < 1:
+        raise ValueError("-chunk must be at least 1")
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    _ensure_empty(map_, "replay")
+    filename = args.next()
+    if filename is None:
+        raise ValueError("'replay' requires a capture filename argument")
+    return ReplayCmd(
+        filename=filename, speed=speed, loop=loop, chunk=chunk,
+        sample_rate=sr, format=fmt,
     )
 
 
@@ -723,4 +802,6 @@ _PARSERS = {
     "stream": _parse_stream,
     "waterfall": _parse_waterfall,
     "scan": _parse_scan,
+    "info": _parse_info,
+    "replay": _parse_replay,
 }

@@ -31,15 +31,19 @@ sparkfft [-width 128] [-stride =width] [-range LOW:HIGH] \\
      gen [-cos FREQUENCY]* [-len 1 (second)] [-noise 0 (sigma/component, seeded)] [-seed 0] SAMPLE_RATE \\
   stream [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] \\
          [-chunk 4M] [-chunks N] [-search no] [-scan no] [-threshold 0] [-top 20] \\
-         [-db no] [-out PREFIX] FILENAME \\
+         [-db no] [-trigger LEVEL (burst recorder; needs -out)] [-pre 1] [-post 1] \\
+         [-out PREFIX] FILENAME | -stdin yes -sr RATE -format FMT \\
 waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
-         [-chunks N] [-search no] [-out PREFIX] FILENAME... \\
+         [-chunks N] [-search no] [-out PREFIX] FILENAME... | -stdin yes -sr RATE -format FMT \\
     scan [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] [-chunks N] \\
          [-threshold 0 (occupancy level)] [-top 20] [-db no] [-out PREFIX (full \\
-         per-bin CSV)] [-overwrite no] FILENAME...
+         per-bin CSV)] [-overwrite no] FILENAME... | -stdin yes -sr RATE -format FMT \\
+    info [-chunk 4M] [-limit N (first N samples)] FILENAME...   (capture statistics) \\
+  replay [-speed 1 (x real time; 0 = unthrottled)] [-loop 1] [-chunk 64k] FILENAME \\
+         (raw bytes to stdout, paced: a recorded capture as a live pipe)
 
-(resample, dcblock, agc, iqbal, find, ui and eui, and -mesh, -stdin, stream
--trigger and scan -plot, parse as in quadjax but are not yet ported.)
+(resample, dcblock, agc, iqbal, find, ui and eui, and -mesh and scan -plot,
+parse as in quadjax but are not yet ported.)
 
 Formats:
 
@@ -54,6 +58,8 @@ _RUNNERS = {
     argmod.StreamCmd: serve.run_stream,
     argmod.WaterfallCmd: serve.run_waterfall,
     argmod.ScanCmd: serve.run_scan,
+    argmod.InfoCmd: serve.run_info,
+    argmod.ReplayCmd: serve.run_replay,
 }
 
 

@@ -111,28 +111,33 @@ _INT_DECODE = {
 }
 
 
-def _decode_components(raw, fmt: FileFormat):
-    """Raw component values -> f32, on a numpy array or a torch tensor."""
+def _decode_components(raw, fmt: FileFormat, about: float = 0.0):
+    """Raw component values -> f32, on a numpy array or a torch tensor,
+    less ``about`` (folded into the decode's own offset: one subtraction)."""
     if fmt not in _INT_DECODE and fmt is not FileFormat.COMPLEX_FLOAT32:
         raise ValueError(f"unknown format: {fmt}")
+    div, off = _INT_DECODE.get(fmt, (None, None))
+    shift = (off or 0.0) + about if about else off
     if isinstance(raw, torch.Tensor):
         x = raw.to(torch.float32)
-        if fmt is FileFormat.COMPLEX_FLOAT32:
-            return x
-        div, off = _INT_DECODE[fmt]
-        x = x / torch.full((), div, dtype=torch.float32, device=x.device)
-        return x if off is None else x - torch.full((), off, dtype=torch.float32, device=x.device)
-    if fmt is FileFormat.COMPLEX_FLOAT32:
-        return raw.astype(np.float32) if raw.dtype != np.float32 else raw
-    div, off = _INT_DECODE[fmt]
-    x = raw.astype(np.float32) / np.float32(div)
-    return x if off is None else x - np.float32(off)
+        if div is not None:
+            x = x / torch.full((), div, dtype=torch.float32, device=x.device)
+        return x if not shift else x - torch.full((), shift, dtype=torch.float32, device=x.device)
+    x = raw.astype(np.float32) if raw.dtype != np.float32 else raw
+    if div is not None:
+        x = x / np.float32(div)
+    return x if not shift else x - np.float32(shift)
 
 
-def decode_plane(raw, fmt: FileFormat):
+def decode_plane(raw, fmt: FileFormat, about: float = 0.0):
     """Decode one deinterleaved component plane (numpy array or torch
-    tensor, any device) to f32 with the reference's bit-exact formulas."""
-    return _decode_components(raw, fmt)
+    tensor, any device) to f32 with the reference's bit-exact formulas.
+
+    ``about``: a value to measure from (``info``'s neutral value of the
+    format).  It is folded into the decode's own offset, so that a cs16
+    sample is not first rounded to f32's 2^-8 grid at -32767.5; with the
+    default 0 the result is the reference's decode, bit for bit."""
+    return _decode_components(raw, fmt, about)
 
 
 def view_raw(buf: np.ndarray, fmt: FileFormat) -> np.ndarray:

@@ -96,14 +96,48 @@ def is_spectral(size: int, d: int) -> bool:
     return -(-size // d) > 64
 
 
-def auto_impl(size: int, d: int, total_out: int) -> str:
+def auto_impl(size: int, d: int, total_out: int, device_type: str = "cpu", n_out: int | None = None) -> str:
     """The impl ``auto`` takes for ``size`` taps at decimation ``d`` and
-    ``total_out`` outputs over the batch (the JAX package's v5e rule)."""
+    ``total_out`` outputs over the batch (``n_out`` a block), on a device
+    of ``device_type``.
+
+    The CPU keeps the JAX package's rule (measured on a TPU v5e; the CPU
+    parity tests are pinned to it).  CUDA has its own.  Which side of
+    :func:`is_spectral` a filter falls on is the same on every device: the
+    receiver's premixed taps hang on it."""
+    if device_type == "cuda":
+        return _auto_impl_cuda(size, d, total_out if n_out is None else n_out)
     if is_spectral(size, d):
         return "os_poly"
     if d >= 4:
         return "banded" if total_out >= (1 << 17) else "polyphase"
     return "direct"
+
+
+def _auto_impl_cuda(size: int, d: int, n_out: int) -> str:
+    """The CUDA rule, from the sweep of ``chip_smoke.py`` phase 5 on an
+    NVIDIA H100 80GB HBM3 at 700.00 W (ms; the fastest of the five first):
+
+    - past 64 subfilters, a block that fills overlap-save's frame takes
+      ``overlap_save`` (256 x 135072 samples, D 32, 4000 taps: 2.008 against
+      os_poly 3.866; one 4M-sample row, D 100, 8192 taps: 1.049 against
+      4.056), a shorter block ``os_poly`` (16384 x 6048, D 32, 4000 taps:
+      4.705 against overlap_save 8.533);
+    - up to 64 subfilters, ``polyphase`` from D 8 on (16384 x 2448, D 32,
+      400 taps: 1.757 against os_poly 2.517 and banded, the v5e's choice,
+      10.520; one 4M-sample row, D 100: 0.189), and ``overlap_save`` below
+      (one 4M-sample row, D 4, 40 taps: 0.384 against polyphase 0.600;
+      256 x 8232, D 2: 0.348 against banded 0.314 and polyphase 0.981).
+    """
+    if is_spectral(size, d):
+        return "overlap_save" if n_out * d + size >= _overlap_save_frame(size) else "os_poly"
+    return "polyphase" if d >= 8 else "overlap_save"
+
+
+def _overlap_save_frame(size: int) -> int:
+    """overlap_save's FFT frame: a power of two past ~4x the filter (the
+    JAX package's)."""
+    return 1 << max(size * 4 - 1, 4096).bit_length()
 
 
 def _planes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -134,7 +168,7 @@ def fir_decimate(
     size = len(taps)
     d = int(decimate)
     if impl == "auto":
-        impl = auto_impl(size, d, int(x.shape[0]) * n_out)
+        impl = auto_impl(size, d, int(x.shape[0]) * n_out, x.device.type, n_out)
     if impl not in IMPLS:
         raise ValueError(f"unknown fir impl: {impl}")
 
@@ -244,8 +278,7 @@ def _overlap_save(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) -> torc
     ``x`` (group-delay prefix already dropped):
     ``y[i] = sum_j x[i*d + j] h[j]``."""
     size = len(taps)
-    # the JAX package's frame: a power of two past ~4x the filter
-    m = 1 << max(size * 4 - 1, 4096).bit_length()
+    m = _overlap_save_frame(size)
     hop = ((m - size + 1) // d) * d
     if hop <= 0:
         raise ValueError("filter too long for overlap-save frame")

@@ -166,7 +166,8 @@ def exec_operation(
         return LowPass(_need(stream, "lowpass"), op.frequency, op.decimate, op.size)
     if isinstance(op, SparkFftOp):
         stream = _need(stream, "sparkfft")
-        sinks.spark_fft(stream, op.width, op.stride, op.min, op.max, out=emit, device=device)
+        # print takes a batch's rows as one string: one write per batch
+        sinks.spark_fft(stream, op.width, op.stride, op.min, op.max, out=emit, device=device, batched=emit is print)
         return stream
     if isinstance(op, BucketOp):
         stream = _need(stream, "bucket -by freq")

@@ -3,8 +3,10 @@
 The counterpart of ``quadrs_tpu.runtime``.  An :class:`Executor` owns one
 window length ``n`` and one device: for a batch of window offsets the
 host stages the root source's whole span for the batch once (native-dtype
-planes, one host-to-device copy), plans every offset exactly, and the
-device computes every window of the batch in one pass of torch ops.
+planes in a page-locked slot, which a file-backed source fills through
+the capture loader; one host-to-device copy), plans every offset exactly,
+and the device computes every window of the batch in one pass of torch
+ops.
 
 Two pieces of the JAX executor are left out, because nothing here needs
 them: the power-of-two buckets of staged lengths and the padding of each
@@ -22,6 +24,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from quadrs_tpu_torch.staging import Download
 from quadrs_tpu_torch.stream import Stream
 
 
@@ -65,12 +68,6 @@ def _to_device(tree, device: torch.device):
     return torch.as_tensor(tree, device=device)
 
 
-def _to_host(out):
-    if isinstance(out, tuple):
-        return tuple(_to_host(a) for a in out)
-    return out.cpu().numpy()
-
-
 class Executor:
     def __init__(
         self,
@@ -90,14 +87,39 @@ class Executor:
         self.batch = batch
         self.post = post
         self.source = stream.root()
+        # two page-locked host buffers for staged spans, used in turn, each
+        # with the event of its last copy: one batch stages while the one
+        # before it is still on its way
+        self._slots: list[torch.Tensor | None] = [None, None]
+        self._copied: list[torch.cuda.Event | None] = [None, None]
+        self._turn = 0
 
-    def run(self, offs: np.ndarray) -> tuple[Any, np.ndarray]:
-        """Execute one batch of window offsets.
+    def _stage(self, lo: int, hi: int) -> torch.Tensor:
+        """The root source's samples [lo, hi) as (2, hi - lo) planes on the
+        device, staged through a page-locked slot (grown to the largest
+        span asked for) that a file-backed source fills through the
+        capture loader."""
+        j, self._turn = self._turn, self._turn ^ 1
+        if self._copied[j] is not None:
+            self._copied[j].synchronize()  # the slot's last copy has left it
+        cuda = self.device.type == "cuda"
+        n = hi - lo
+        if self._slots[j] is None or self._slots[j].numel() < 2 * n:
+            self._slots[j] = torch.empty(2 * n, dtype=self.source.format.torch_dtype, pin_memory=cuda)
+        host = self._slots[j][: 2 * n].view(2, n)
+        self.source.stage(lo, hi, out=host.numpy())
+        buf = host.to(self.device, non_blocking=True)
+        if cuda:
+            self._copied[j] = torch.cuda.Event()
+            self._copied[j].record(torch.cuda.current_stream(self.device))
+        return buf
 
-        Returns ``(outputs, valid)``: ``outputs`` (numpy, or a tuple of
-        numpy arrays for a tuple-valued ``post``) with leading dim
-        ``len(offs)``, and ``valid`` each window's true sample count per
-        the reference's short-read semantics."""
+    def submit(self, offs: np.ndarray) -> tuple[Download, np.ndarray]:
+        """Stage, plan and launch one batch of window offsets, and start its
+        output on the way back; returns ``(download, valid)``.
+        ``download.wait()`` gives the outputs (see :meth:`run`).  One batch
+        may be submitted while the one before it is still awaited, so a
+        sink can work on batch k while batch k+1 computes."""
         offs = np.asarray(offs, dtype=np.int64)
         if len(offs) == 0:
             raise ValueError("empty offset batch")
@@ -109,15 +131,40 @@ class Executor:
             s_off, s_n = self.stream.span(int(offs.max()), self.n)
             lo = max(0, min(lo, self.source.length))
             hi = max(lo, min(s_off + s_n, self.source.length))
-            staged = self.source.stage(lo, hi)  # (2, hi - lo) planes
-            if staged.shape[1] == 0:
+            if hi > lo:
+                buf = self._stage(lo, hi)  # (2, hi - lo) planes
+            else:
                 # every window starts past EOF: one zero sample to gather
                 # from (the source masks it by its valid count)
-                staged = np.zeros((2, 1), dtype=staged.dtype)
-            buf, base = torch.from_numpy(staged).to(self.device), lo
+                buf = torch.zeros((2, 1), dtype=self.source.format.torch_dtype, device=self.device)
+            base = lo
         plan = self.stream.plan(offs, self.n, base)
         ctx = {"buf": buf, "device": self.device}
         out = self.stream.read_batch(ctx, _to_device(plan.prep, self.device), self.n)
         if self.post is not None:
             out = self.post(out)
-        return _to_host(out), plan.valid
+        # back through page-locked memory on a CUDA device
+        return Download(out, self.device), plan.valid
+
+    def run(self, offs: np.ndarray) -> tuple[Any, np.ndarray]:
+        """Execute one batch of window offsets.
+
+        Returns ``(outputs, valid)``: ``outputs`` (numpy, or a tuple of
+        numpy arrays for a tuple-valued ``post``) with leading dim
+        ``len(offs)``, and ``valid`` each window's true sample count per
+        the reference's short-read semantics."""
+        download, valid = self.submit(offs)
+        return download.wait(), valid
+
+    def run_each(self, batches):
+        """:meth:`run` over ``batches``, one ahead: yields ``(offs,
+        outputs, valid)`` of each batch in order, with the next batch
+        already submitted."""
+        pending = None
+        for offs in batches:
+            nxt = (offs, *self.submit(offs))
+            if pending is not None:
+                yield pending[0], pending[1].wait(), pending[2]
+            pending = nxt
+        if pending is not None:
+            yield pending[0], pending[1].wait(), pending[2]

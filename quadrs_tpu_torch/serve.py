@@ -1,38 +1,43 @@
-"""The CLI's serving products: ``stream``, ``waterfall``, ``scan``.
+"""The CLI's serving products: ``stream``, ``waterfall``, ``scan``,
+``info`` and ``replay``.
 
 Their lines and files are the JAX package's (``quadrs_tpu.serve``): a
 ``<cmd> peak [stream=S] window=W bin=B mag=M`` line per stream, the
 survey table of a scan, a ``wrote PATH`` line per output file, and a
 closing ``<cmd>: N samples, M windows, S.SSs, R.R Msps`` stats line.
 ``-out PREFIX`` streams results to files chunk by chunk: norms as raw
-f32 rows, peaks and survey tables as CSV.
+f32 rows, peaks and survey tables as CSV.  ``-stdin yes`` reads a live
+pipe in place of a file; ``stream -trigger`` records bursts as byte-exact
+slices of the capture; ``replay`` is the pipe's producer side.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
+import os
+import stat
+import sys
+import time
 
 import numpy as np
 import torch
 
 from quadrs_tpu_torch import args as argmod
-from quadrs_tpu_torch.sources import open_capture
-from quadrs_tpu_torch.stream_runner import RunStats
+from quadrs_tpu_torch.sources import PipeSource, RawRing, open_capture
+from quadrs_tpu_torch.stream_runner import BurstGate, RunStats, burst_spans
+from quadrs_tpu_torch.utils.sniff import guess_details
 
 # flags whose paths are not ported yet, per command, with the ROADMAP item that ports them
 _NOT_PORTED = {
     "stream": {
         "mesh": "-mesh (multi-GPU sharding, ROADMAP A13)",
-        "stdin": "-stdin (live pipe input, ROADMAP A12)",
-        "trigger": "-trigger (burst recorder, ROADMAP A12)",
     },
     "waterfall": {
         "mesh": "-mesh (multi-GPU sharding, ROADMAP A13)",
-        "stdin": "-stdin (live pipe input, ROADMAP A12)",
     },
     "scan": {
         "mesh": "-mesh (multi-GPU sharding, ROADMAP A13)",
-        "stdin": "-stdin (live pipe input, ROADMAP A12)",
         "plot": "-plot (survey plots, ROADMAP A14)",
     },
 }
@@ -42,6 +47,14 @@ def _refuse_not_ported(name: str, cmd) -> None:
     for flag, what in _NOT_PORTED[name].items():
         if getattr(cmd, flag) not in (None, False):
             raise NotImplementedError(f"{name} {what} is not yet ported to quadrs_tpu_torch")
+
+
+def _stdin_pipe_source(cmd) -> PipeSource:
+    """Live, unbuffered stdin as a :class:`PipeSource`.  The parser made
+    sure of ``-sr`` and ``-format`` (a pipe has no filename to sniff), so
+    the sniffed name never matters."""
+    details = guess_details("-", cmd.sample_rate, cmd.format)
+    return PipeSource(sys.stdin.buffer, details.format, details.sample_rate)
 
 
 def _stats_line(name: str, stats: RunStats) -> str:
@@ -80,7 +93,11 @@ def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
     from quadrs_tpu_torch.stream_runner import StreamRunner
 
     _refuse_not_ported("stream", cmd)
-    src = open_capture(cmd.filename, cmd.sample_rate, cmd.format)
+    # live pipe input: rtl_sdr - | python -m quadrs_tpu_torch stream -stdin yes ...
+    if cmd.stdin:
+        src = _stdin_pipe_source(cmd)
+    else:
+        src = open_capture(cmd.filename, cmd.sample_rate, cmd.format)
     cfg = PipelineConfig(
         sample_rate=src.sample_rate,
         shift_freq=cmd.shift,
@@ -91,6 +108,8 @@ def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
         fmt=src.format,
     )
     runner = StreamRunner(src, PipelineModel(cfg), device, chunk_samples=cmd.chunk)
+    if cmd.trigger is not None:
+        return _run_stream_trigger(cmd, src, runner)
     if cmd.scan:
         # band survey of the DECIMATED channel: bins at the channel rate,
         # centred on the shift frequency (absolute Hz printed)
@@ -140,7 +159,7 @@ def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
             def on_windows(w0, norms):
                 tracker.update(0, w0, np.argmax(norms, axis=-1), np.max(norms, axis=-1))
                 if f is not None:
-                    f.write(np.ascontiguousarray(norms, dtype=np.float32).tobytes())
+                    f.write(np.ascontiguousarray(norms, dtype=np.float32))  # its buffer, with no copy
 
             stats = runner.run(on_windows, max_chunks=cmd.chunks)
 
@@ -148,6 +167,85 @@ def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
         print(line)
     for path in wrote:
         print(f"wrote {path}")
+    print(_stats_line("stream", stats))
+    return 0
+
+
+def _run_stream_trigger(cmd: argmod.StreamCmd, src, runner) -> int:
+    """Burst recorder (the rtl_433-style squelch): gate on the decimated
+    channel's per-window peak magnitude (the search output), widen each
+    active run by ``-pre``/``-post`` windows, and write every burst as a
+    byte-exact slice of the original capture that ``from`` can read back:
+    ``{out}.bK.s{start}.sr{rate}.{fmt}`` (native format, no decode)."""
+    if getattr(src, "is_pipe", False):
+        return _run_stream_trigger_live(cmd, src, runner)
+
+    vals: list[np.ndarray] = []
+    stats = runner.run_search(lambda w0, out: vals.append(np.asarray(out[1])), max_chunks=cmd.chunks)
+    val = np.concatenate(vals) if vals else np.zeros(0, np.float32)
+    win_raw = cmd.decimate * cmd.fft_width
+    spans = burst_spans(val > np.float32(cmd.trigger), cmd.pre, cmd.post)
+    ext = src.format.value  # the enum values are the extensions
+    for k, (a, b) in enumerate(spans):
+        s0 = a * win_raw
+        s1 = min((b + 1) * win_raw, src.length)
+        path = f"{cmd.out}.b{k}.s{s0}.sr{src.sample_rate}.{ext}"
+        with open(path, "wb") as fh:
+            fh.write(src.raw_bytes(s0, s1))
+        peak = float(val[a : b + 1].max())
+        print(f"stream burst {k}: windows {a}..{b}, samples {s0}..{s1}, peak {peak:.6g}, wrote {path}")
+    print(f"stream trigger: {len(spans)} bursts over {len(val)} windows, level {cmd.trigger:g}")
+    print(_stats_line("stream", stats))
+    return 0
+
+
+def _run_stream_trigger_live(cmd: argmod.StreamCmd, src, runner) -> int:
+    """The burst recorder off a live pipe (``stream -stdin -trigger``): the
+    pipe keeps a rolling raw-byte ring (pruned to the earliest window an
+    unresolved span might still need, so memory is O(open burst +
+    context), capped), an incremental :class:`BurstGate` resolves spans
+    with exactly :func:`burst_spans`'s semantics, and each burst file is
+    written as it resolves: the same bytes and names as the file run over
+    the same stream."""
+    ring = RawRing(src.format.pair_bytes)
+    src.byte_ring = ring
+    gate = BurstGate(cmd.pre, cmd.post)
+    win_raw = cmd.decimate * cmd.fft_width
+    lvl = np.float32(cmd.trigger)
+    ext = src.format.value
+    # per-window peaks kept for the same horizon as the byte ring (the
+    # summary line prints each burst's peak)
+    vals: list[float] = []
+    vals_base = 0
+    state = {"k": 0, "windows": 0}
+
+    def emit(a: int, b: int) -> None:
+        s0 = a * win_raw
+        s1 = min((b + 1) * win_raw, ring.end)
+        path = f"{cmd.out}.b{state['k']}.s{s0}.sr{src.sample_rate}.{ext}"
+        with open(path, "wb") as fh:
+            fh.write(ring.slice(s0, s1))
+        peak = max(vals[a - vals_base : b + 1 - vals_base])
+        print(f"stream burst {state['k']}: windows {a}..{b}, samples {s0}..{s1}, peak {peak:.6g}, wrote {path}")
+        state["k"] += 1
+
+    def on_peaks(w0, out):
+        nonlocal vals, vals_base
+        val = np.asarray(out[1])
+        vals.extend(float(v) for v in val)
+        state["windows"] = w0 + len(val)
+        for a, b in gate.feed(val > lvl):
+            emit(a, b)
+        keep = gate.earliest_needed()
+        ring.prune(keep * win_raw)
+        if keep > vals_base:
+            vals = vals[keep - vals_base :]
+            vals_base = keep
+
+    stats = runner.run_search(on_peaks, max_chunks=cmd.chunks)
+    for a, b in gate.finish(state["windows"]):
+        emit(a, b)
+    print(f"stream trigger: {state['k']} bursts over {state['windows']} windows, level {cmd.trigger:g}")
     print(_stats_line("stream", stats))
     return 0
 
@@ -190,7 +288,7 @@ def run_waterfall(cmd: argmod.WaterfallCmd, device: torch.device) -> int:
                 for s in range(norms.shape[0]):
                     tracker.update(s, w0, np.argmax(norms[s], axis=-1), np.max(norms[s], axis=-1))
                     if files is not None:
-                        files[s].write(np.ascontiguousarray(norms[s], dtype=np.float32).tobytes())
+                        files[s].write(np.ascontiguousarray(norms[s], dtype=np.float32))  # its buffer, with no copy
 
             stats = runner.run(on_norms, max_chunks=cmd.chunks)
 
@@ -204,11 +302,15 @@ def run_waterfall(cmd: argmod.WaterfallCmd, device: torch.device) -> int:
 
 def _open_bank(cmd, device: torch.device):
     """Sources, model and runner of a bank command (``waterfall`` and
-    ``scan`` share the knobs: width, stride, window, chunk, filenames)."""
+    ``scan`` share the knobs: width, stride, window, chunk, stdin,
+    filenames)."""
     from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
     from quadrs_tpu_torch.stream_runner import WaterfallRunner
 
-    sources = [open_capture(f, cmd.sample_rate, cmd.format) for f in cmd.filenames]
+    if cmd.stdin:
+        sources = [_stdin_pipe_source(cmd)]
+    else:
+        sources = [open_capture(f, cmd.sample_rate, cmd.format) for f in cmd.filenames]
     fmts = {s.format for s in sources}
     if len(fmts) != 1:
         raise ValueError(f"bank files disagree on format: {sorted(f.name for f in fmts)}")
@@ -288,4 +390,92 @@ def run_scan(cmd: argmod.ScanCmd, device: torch.device) -> int:
     for path in wrote:
         print(f"wrote {path}")
     print(_stats_line("scan", result.stats))
+    return 0
+
+
+def run_info(cmd: argmod.InfoCmd, device: torch.device) -> int:
+    """Per-capture statistics (``info``): the ``soxi`` of IQ files.  Prints
+    format, rate and length from the header math, plus the device-reduced
+    signal stats of :func:`quadrs_tpu_torch.sinks.capture_info`: DC offset
+    (a direct-conversion tuner's centre spike), RMS, peak and crest, the
+    circularity ratio (the IQ-image indicator: image level is ``|rho|/2``)
+    and the raw-code clipping fraction (components at a rail: gain too
+    hot)."""
+    from quadrs_tpu_torch.sinks import capture_info
+
+    def db(x: float) -> str:
+        return f"{20.0 * math.log10(max(x, 1e-30)):.1f} dB"
+
+    t0 = time.perf_counter()
+    total = 0
+    for name in cmd.filenames:
+        src = open_capture(name, cmd.sample_rate, cmd.format)
+        i = capture_info(src, chunk=cmd.chunk, limit=cmd.limit, device=device)
+        total += i.analyzed
+        scope = "" if i.analyzed == i.samples else f" (stats over the first {i.analyzed})"
+        print(
+            f"{name}: {i.format.value}, {i.sample_rate} Hz, "
+            f"{i.samples} samples, {i.bytes} bytes, {i.seconds:.3f} s{scope}"
+        )
+        dc_rel = abs(i.dc) / max(i.rms, 1e-30)
+        print(
+            f"  dc {i.dc.real:+.5g}{i.dc.imag:+.5g}j"
+            f" (|dc|/rms {db(dc_rel)})   rms {i.rms:.5g}   "
+            f"peak {i.peak:.5g} (crest {db(i.peak / max(i.rms, 1e-30))})"
+        )
+        clip = "n/a (float format)" if i.clipped is None else f"{100.0 * i.clipped:.4g}% of components"
+        print(
+            f"  iq image |rho|/2 {abs(i.rho) / 2.0:.4g}"
+            f" ({db(abs(i.rho) / 2.0)} image)   clipped: {clip}"
+        )
+    dt = max(time.perf_counter() - t0, 1e-9)
+    print(f"info: {len(cmd.filenames)} files, {total} samples, {dt:.2f}s, {total / dt / 1e6:.0f} Msps")
+    return 0
+
+
+def run_replay(cmd: argmod.ReplayCmd, device: torch.device) -> int:
+    """Stream a capture's raw bytes to stdout paced at its sample rate
+    (``replay``): the producer side of the live-pipe story, so any
+    ``-stdin`` consumer can be exercised against a recorded capture exactly
+    as it would run against a radio.  The bytes are the file's own (no
+    decode, no device work); pacing writes ``-chunk`` samples, then sleeps
+    to the global schedule (cumulative, so jitter does not build up).
+    Stats go to stderr: stdout is the data stream, and it is closed as soon
+    as the last byte is written, so the consumer sees the end of the stream
+    then and not when this process has finished exiting."""
+    src = open_capture(cmd.filename, cmd.sample_rate, cmd.format)
+    out = sys.stdout.buffer
+    total = 0
+    t0 = time.perf_counter()
+    try:
+        for _ in range(cmd.loop):
+            off = 0
+            while off < src.length:
+                n = min(cmd.chunk, src.length - off)
+                out.write(src.raw_bytes(off, off + n))
+                off += n
+                total += n
+                if cmd.speed > 0:
+                    due = t0 + total / (src.sample_rate * cmd.speed)
+                    delay = due - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+        out.flush()
+        done = True
+    except BrokenPipeError:
+        # the consumer closed its end (piped into `head`, or a run bounded
+        # by -chunks): stop quietly
+        done = False
+    # point a piped stdout at devnull: the pipe's write end closes now, and
+    # interpreter shutdown does not raise on its flush after a broken pipe
+    try:
+        fd = sys.stdout.fileno()
+    except (AttributeError, OSError, ValueError):
+        fd = None  # not a file (a test's capture)
+    if fd is not None and (not done or stat.S_ISFIFO(os.fstat(fd).st_mode)):
+        null = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(null, fd)
+        os.close(null)
+    dt = max(time.perf_counter() - t0, 1e-9)
+    print(f"replay: {total} samples, {dt:.2f}s, {total / dt / 1e6:.1f} Msps", file=sys.stderr)
     return 0

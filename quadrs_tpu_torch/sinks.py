@@ -1,4 +1,5 @@
-"""Sinks: the terminal spectrogram, the frequency bucketer, the writer.
+"""Sinks: the terminal spectrogram, the frequency bucketer, the writer,
+and the capture statistics behind ``info``.
 
 The counterpart of ``quadrs_tpu.sinks``.  Each sink pulls windows through
 batched device work (:class:`~quadrs_tpu_torch.runtime.Executor`) and
@@ -20,7 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from quadrs_tpu_torch.formats import FileFormat, encode_cf32, encode_samples
+from quadrs_tpu_torch.formats import FileFormat, decode_plane, encode_cf32, encode_samples
 from quadrs_tpu_torch.ops.stft import stft_norms
 from quadrs_tpu_torch.runtime import Executor, root_step_of, window_batches
 from quadrs_tpu_torch.stream import Stream
@@ -34,16 +35,55 @@ DEFAULT_SPARK_MAX = 1.0  # src/fft.rs:23
 WRITE_CHUNK = 0x1000  # src/lib.rs:201
 
 
+# the glyphs' UTF-8 bytes, zero-padded to 3: the blank is 1 byte, every
+# block 3; no byte of any of them is zero, so the padding can be masked out
+_GLYPH_BYTES = np.zeros((9, 3), dtype=np.uint8)
+for _i, _g in enumerate(SPARK_GLYPHS):
+    _GLYPH_BYTES[_i, : len(_g.encode())] = np.frombuffer(_g.encode(), dtype=np.uint8)
+_FRAME = np.frombuffer("│".encode(), dtype=np.uint8)
+
+
+def glyph_levels(norms: np.ndarray, lo: float, hi: float) -> np.ndarray:
+    """Each magnitude's display level 0-8 (``src/fft.rs:45-61``): ``< lo``
+    is the blank, ``>= hi`` the full block, otherwise the value truncates
+    into one of seven partial blocks."""
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    distinction = np.float32((hi32 - lo32) / np.float32(7.0))
+    norms = np.asarray(norms, dtype=np.float32)
+    # truncate into 0..6; NaN (every comparison false) lands on 0, as its
+    # cast to an integer and clip did; a value past 6 is >= hi or < lo
+    with np.errstate(all="ignore"):
+        mid = (norms - lo32) / distinction
+        idx = np.where(mid >= 0, np.minimum(mid, np.float32(6.0)), np.float32(0.0)).astype(np.uint8)
+    idx += 1
+    np.putmask(idx, norms < lo32, 0)
+    np.putmask(idx, norms >= hi32, 8)
+    return idx
+
+
+def glyph_lines(norms: np.ndarray, lo: float, hi: float, frame: bool = True) -> str:
+    """(R, W) magnitude rows as R sparkline lines joined by newlines (none
+    after the last), each framed by ``│`` unless ``frame`` is False.  The
+    whole block is built as one UTF-8 byte buffer: a (9, 3) byte table
+    indexed by level, its zero padding masked out."""
+    idx = glyph_levels(np.atleast_2d(norms), lo, hi)
+    rows, width = idx.shape
+    if rows == 0:
+        return ""
+    edge = 3 if frame else 0
+    buf = np.zeros((rows, edge + 3 * width + edge + 1), dtype=np.uint8)
+    if frame:
+        buf[:, :3] = _FRAME
+        buf[:, -4:-1] = _FRAME
+    buf[:, edge : edge + 3 * width] = np.take(_GLYPH_BYTES, idx, axis=0).reshape(rows, 3 * width)
+    buf[:-1, -1] = ord("\n")
+    return buf[buf != 0].tobytes().decode()
+
+
 def glyph_rows(norms: np.ndarray, lo: float, hi: float) -> list[str]:
-    """Map magnitude rows to sparkline strings (``src/fft.rs:45-61``):
-    ``< lo`` is blank, ``>= hi`` the full block, otherwise the value
-    truncates into one of seven partial blocks."""
-    distinction = np.float32((np.float32(hi) - np.float32(lo)) / np.float32(7.0))
-    mid = ((norms - np.float32(lo)) / distinction).astype(np.int64)
-    idx = 1 + np.clip(mid, 0, 6)
-    idx = np.where(norms < np.float32(lo), 0, idx)
-    idx = np.where(norms >= np.float32(hi), 8, idx)
-    return ["".join(row) for row in SPARK_GLYPHS[idx]]
+    """Map magnitude rows to sparkline strings, one per row, unframed."""
+    norms = np.atleast_2d(norms)
+    return glyph_lines(norms, lo, hi, frame=False).split("\n") if norms.shape[0] else []
 
 
 def spark_fft(
@@ -55,12 +95,14 @@ def spark_fft(
     out: Callable[[str], None] | None = None,
     *,
     device: torch.device | str,
+    batched: bool = False,
 ) -> list[str] | None:
     """Terminal Unicode spectrogram (reference ``src/fft.rs:12-69``):
     strided rectangular-window STFT, each row the fftshifted magnitudes on
     nine glyph levels, framed by ``│``.  With ``out`` None the rows are
     returned; otherwise each line (the header first) goes to ``out`` as
-    it is made."""
+    it is made, or with ``batched`` each batch's lines in one call, joined
+    by newlines (one write per batch for ``print``)."""
     stride = width if stride is None else stride
     lo = DEFAULT_SPARK_MIN if lo is None else lo
     hi = DEFAULT_SPARK_MAX if hi is None else hi
@@ -84,16 +126,19 @@ def spark_fft(
     offsets = np.arange(0, stream.length - width, stride, dtype=np.int64)
     batch, batches = window_batches(offsets, width, root_step=root_step_of(stream))
     ex = Executor(stream, width, device, batch=batch, post=stft_norms)
-    for offs in batches:
-        norms, valid = ex.run(offs)
+    for offs, norms, valid in ex.run_each(batches):  # a batch's rows are made while the next computes
         if not np.all(valid == width):
             bad = offs[valid != width][0]
             raise RuntimeError(
                 f"read-exact messed up: {width} (wanted) != "
                 f"{int(valid[valid != width][0])} (read) at {int(bad)}"
             )
-        for line in glyph_rows(norms, lo, hi):
-            emit(f"│{line}│")
+        block = glyph_lines(norms, lo, hi)
+        if batched and out is not None:
+            out(block)
+        else:
+            for line in block.split("\n"):
+                emit(line)
     return collected
 
 
@@ -135,8 +180,7 @@ def freq_levels(
     batch, batches = window_batches(offsets, fft_width, root_step=root_step_of(stream))
     ex = Executor(stream, fft_width, device, batch=batch, post=post)
     vals: list[int] = []
-    for offs in batches:
-        (first, second), valid = ex.run(offs)
+    for _, (first, second), valid in ex.run_each(batches):
         if not np.all(valid == fft_width):
             raise RuntimeError("read-exact messed up in bucket")
         vals.extend(int(v) for v in np.where(first < second, 0, 1))
@@ -219,3 +263,135 @@ def _write_sequential(fh, stream: Stream, off: int, encode=encode_cf32, *, devic
             raise RuntimeError(f"short read at offset {off} of {stream.length}")
         fh.write(encode(samples[0][:read]))
         off += read
+
+
+@dataclass
+class CaptureInfo:
+    """Per-capture statistics from :func:`capture_info` (the ``info``
+    command): decoded-domain signal stats about the format's neutral
+    value, plus raw-code clipping counts."""
+
+    format: FileFormat
+    sample_rate: int
+    samples: int
+    bytes: int
+    seconds: float
+    analyzed: int  # samples the stats below actually cover
+    dc: complex  # mean deviation from the format's neutral value
+    rms: float  # sqrt(E |x - neutral|^2)
+    peak: float  # max |x - neutral|
+    rho: complex  # circularity ratio E[z^2]/E[|z|^2] of z = x - mean(x)
+    clipped: float | None  # fraction of raw components at a rail (int formats)
+
+
+_RAILS = {
+    FileFormat.COMPLEX_INT8: (-128, 127),
+    FileFormat.COMPLEX_UINT8: (0, 255),
+    FileFormat.COMPLEX_INT16: (-32768, 32767),
+}
+
+# decode of each format's idle code (the centre of its decoded range): the
+# reference's cu8/cs16 formulas park the signal near -127 / -32767.5
+# (src/lib.rs:250-253), so meaningful DC and RMS statistics subtract this
+# neutral value first.  cs8/cs16 idle at code 0, cu8 at 127.5 (an idle rtl
+# dongle dithers 127/128).
+_NEUTRAL = {
+    FileFormat.COMPLEX_FLOAT32: 0.0,
+    FileFormat.COMPLEX_INT8: 0.0,  # decode(0)
+    FileFormat.COMPLEX_UINT8: 127.5 / 255.0 - 127.5,  # decode(127.5) = -127.0
+    FileFormat.COMPLEX_INT16: -32767.5,  # decode(0)
+}
+
+
+def _info_reduce(planes: torch.Tensor, fmt: FileFormat) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One chunk's f32 reductions on its device: (sum re, sum im, sum p,
+    max p, centred power, Re and Im of the centred unconjugated square),
+    and the count of raw components at a rail (None for cf32)."""
+    # decode about the neutral value, the two constants folded into one as
+    # XLA folds the JAX package's (x / d - c) - neutral: a ripple of a few
+    # cs16 codes then reads at its true scale
+    re, im = decode_plane(planes, fmt, about=_NEUTRAL[fmt])
+    p = re * re + im * im
+    # second moments about the chunk's own mean (the host recombines them
+    # exactly by the parallel-variance identity): E[x^2] - mu^2 cancels to
+    # f32 rounding noise on a capture that is mostly DC
+    cre = re - re.mean()
+    cim = im - im.mean()
+    sums = torch.stack([
+        re.sum(), im.sum(), p.sum(), p.max().clamp_min(0.0),
+        (cre * cre + cim * cim).sum(), (cre * cre - cim * cim).sum(), (2.0 * cre * cim).sum(),
+    ])
+    rails = _RAILS.get(fmt)
+    if rails is None:
+        return sums, None
+    # an integer count stays exact past 2^24 components a chunk
+    return sums, ((planes == rails[0]) | (planes == rails[1])).sum()
+
+
+def capture_info(
+    source, chunk: int = 1 << 22, limit: int | None = None, *, device: torch.device | str
+) -> CaptureInfo:
+    """Analyze a capture (the ``info`` command): DC offset, RMS, peak,
+    circularity ratio (the IQ-imbalance indicator) and raw-code clipping
+    fraction, reduced on ``device`` chunk by chunk (f32 per-chunk
+    reductions, f64 recombination on the host), so a multi-GB file costs
+    one pass of native-dtype staging."""
+    if chunk < 1:
+        raise ValueError("chunk must be at least 1")
+    device = torch.device(device)
+    fmt = source.format
+    rails = _RAILS.get(fmt)
+
+    total = source.length if limit is None else min(limit, source.length)
+    slot = torch.empty(2 * min(chunk, max(total, 1)), dtype=fmt.torch_dtype, pin_memory=device.type == "cuda")
+    acc = np.zeros(3, dtype=np.float64)  # sum re, sum im, sum p
+    chunks: list[tuple[int, complex, float, complex]] = []  # per-chunk moments
+    max_p = 0.0
+    clips = 0.0
+    off = 0
+    while off < total:
+        n_k = min(chunk, total - off)
+        host = slot[: 2 * n_k].view(2, n_k)
+        source.stage(off, off + n_k, out=host.numpy())
+        sums, clip = _info_reduce(host.to(device, non_blocking=True), fmt)
+        # fetching the sums waits for the chunk: the slot is free again
+        parts = [float(v) for v in sums.cpu()]
+        acc += parts[:3]
+        max_p = max(max_p, parts[3])
+        mu_k = complex(parts[0] / n_k, parts[1] / n_k)
+        chunks.append((n_k, mu_k, parts[4], complex(parts[5], parts[6])))
+        if rails is not None:
+            clips += float(clip)
+        off += n_k
+    n = max(1, total)
+    mu = complex(acc[0] / n, acc[1] / n)
+    # combine the chunk-centred second moments about the global mean (exact
+    # identity: sum|x-mu|^2 = sum|x-mu_k|^2 + n_k|mu_k-mu|^2, and likewise
+    # for the unconjugated square): circularity is about the mean, because
+    # a DC offset is not an IQ image
+    s_pc = sum(cp + n_k * abs(mu_k - mu) ** 2 for n_k, mu_k, cp, _ in chunks)
+    s_z2 = sum(cz + n_k * (mu_k - mu) ** 2 for n_k, mu_k, _, cz in chunks)
+    rms = float(np.sqrt(acc[2] / n))
+    # a (near-)constant capture has no AC power to be circular about: its
+    # centred sums are f32 rounding noise, so report no image below ~100
+    # ulp of the signal scale; |rho| <= 1 mathematically, so clamp what
+    # rounding leaves
+    if np.sqrt(s_pc / n) < 1e-5 * (abs(mu) + rms + 1e-30):
+        rho = 0j
+    else:
+        rho = s_z2 / s_pc
+        if abs(rho) > 1.0:
+            rho /= abs(rho)
+    return CaptureInfo(
+        format=fmt,
+        sample_rate=source.sample_rate,
+        samples=source.length,
+        bytes=source.length * fmt.pair_bytes,
+        seconds=source.length / source.sample_rate,
+        analyzed=total,
+        dc=mu,
+        rms=rms,
+        peak=float(np.sqrt(max_p)),
+        rho=rho,
+        clipped=None if rails is None else clips / (2.0 * n),
+    )

@@ -1,24 +1,37 @@
-"""Sustained streaming: capture files -> device programs -> spectrograms.
+"""Sustained streaming: capture files or live pipes -> device programs
+-> spectrograms.
 
-:class:`StreamRunner` processes one capture as one continuous stream: a
-background thread stages chunks of native-dtype planes, each chunk
-carries the FIR's lookahead past its end (so the filter sees the true
-continuation), and each chunk runs through the receiver model on the
+:class:`StreamRunner` processes one capture as one continuous stream:
+each chunk carries the FIR's lookahead past its end (so the filter sees
+the true continuation) and runs through the receiver model on the
 runner's device, by one of two routes: the fused frontend
 (``PipelineModel.step_stream_fused``) or the chain of torch ops
 (``PipelineModel.step_stream``).  Every chunk's NCO phase is planned
 exactly on the host from its absolute offset, so chunking is invisible
 in the output.
 
-:class:`WaterfallRunner` streams a bank of equal-length captures through
-the waterfall model, a whole number of window starts per chunk.
+:class:`WaterfallRunner` streams a bank of equal-length captures (or one
+live pipe) through the waterfall model, a whole number of window starts
+per chunk.
+
+Both stage through :mod:`quadrs_tpu_torch.staging`: a staging thread
+fills page-locked slots (a file through the C++ loader's ring
+prefetcher, which re-reads the lookahead in C; a bank file by file
+straight into its row of one slot; a pipe by carrying the lookahead on
+the host), the slot crosses on a copy stream, and each chunk's output
+comes back through page-locked memory while the next chunk computes.
+
+:func:`burst_spans` and :class:`BurstGate` segment per-window activity
+into bursts for ``stream -trigger``.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
@@ -28,6 +41,7 @@ import torch
 from quadrs_tpu_torch.models.receiver import PipelineModel
 from quadrs_tpu_torch.models.waterfall import WaterfallModel
 from quadrs_tpu_torch.sources import SampleSource
+from quadrs_tpu_torch.staging import Download, RingClosed, UploadRing
 
 
 @dataclass
@@ -90,18 +104,118 @@ class _ScanTotals:
         return ScanResult(self.sum, self.max, self.above, windows, float(threshold), stats)
 
 
-def _to_host(out):
-    """A chunk's device output (a tensor or a tuple of them) as numpy."""
-    if isinstance(out, tuple):
-        return tuple(a.cpu().numpy() for a in out)
-    return out.cpu().numpy()
+def burst_spans(active, pre: int = 0, post: int = 0) -> list[tuple[int, int]]:
+    """Contiguous True runs of a per-window activity mask, each widened by
+    ``pre``/``post`` context windows and merged where the widened spans
+    touch: the burst segmentation behind ``stream -trigger``.  Returns
+    ``[(first_window, last_window)]``, inclusive."""
+    spans: list[tuple[int, int]] = []
+    n = len(active)
+    i = 0
+    while i < n:
+        if not active[i]:
+            i += 1
+            continue
+        j = i
+        while j + 1 < n and active[j + 1]:
+            j += 1
+        lo, hi = max(0, i - pre), min(n - 1, j + post)
+        if spans and lo <= spans[-1][1] + 1:
+            spans[-1] = (spans[-1][0], hi)
+        else:
+            spans.append((lo, hi))
+        i = j + 1
+    return spans
+
+
+class BurstGate:
+    """Incremental mirror of :func:`burst_spans` for live input: feed
+    per-window activity in stream order; a widened span comes back as soon
+    as no future window can merge into it (an active window at ``w``
+    reaches back to ``w - pre``, so a pending span ``(lo, hi)`` is final
+    once the cursor passes ``hi + pre + 1``).  ``finish(n)`` closes the
+    tail with :func:`burst_spans`'s end-clipping.  Feeding any mask in
+    pieces yields exactly ``burst_spans`` of the whole."""
+
+    def __init__(self, pre: int = 0, post: int = 0):
+        self.pre, self.post = int(pre), int(post)
+        self._w = 0  # next window index to consume
+        self._run_start: int | None = None  # open raw run's first index
+        self._pending: tuple[int, int] | None = None  # widened, mergeable
+        self._closed: list[tuple[int, int]] = []
+
+    def _close_run(self, i: int, j: int) -> None:
+        lo, hi = max(0, i - self.pre), j + self.post
+        if self._pending is not None and lo <= self._pending[1] + 1:
+            self._pending = (self._pending[0], hi)
+        else:
+            if self._pending is not None:
+                self._closed.append(self._pending)
+            self._pending = (lo, hi)
+
+    def feed(self, active) -> list[tuple[int, int]]:
+        """Consume the next window-activity values; returns the spans that
+        became final (widened, inclusive, in order)."""
+        active = np.asarray(active, dtype=bool)
+        if len(active) == 0:
+            return []
+        w0 = self._w
+        if self._run_start is not None and not active[0]:
+            # the run ended exactly at the previous feed's last window
+            self._close_run(self._run_start, w0 - 1)
+            self._run_start = None
+        elif active[0] and self._run_start is None:
+            self._run_start = w0
+        for e in np.flatnonzero(np.diff(active.astype(np.int8))):
+            if active[e]:  # True -> False: a run ends at w0 + e
+                self._close_run(self._run_start, w0 + int(e))
+                self._run_start = None
+            else:  # False -> True: a run starts at w0 + e + 1
+                self._run_start = w0 + int(e) + 1
+        self._w = w0 + len(active)
+        # spans in _closed were superseded by a later run that did not
+        # merge: final.  The pending span is final once the cursor passes
+        # hi + pre + 1 with no open run left to merge into it.
+        out = list(self._closed)
+        self._closed.clear()
+        if self._run_start is None and self._pending is not None and self._w > self._pending[1] + self.pre + 1:
+            out.append(self._pending)
+            self._pending = None
+        return out
+
+    def finish(self, n: int | None = None) -> list[tuple[int, int]]:
+        """Close the stream after ``n`` total windows (defaults to the fed
+        count): flush the open run and clip the final span's end like
+        :func:`burst_spans`."""
+        n = self._w if n is None else int(n)
+        if self._run_start is not None:
+            self._close_run(self._run_start, self._w - 1)
+            self._run_start = None
+        out = list(self._closed)
+        self._closed.clear()
+        if self._pending is not None:
+            out.append(self._pending)
+            self._pending = None
+        return [(lo, min(hi, n - 1)) for lo, hi in out]
+
+    def earliest_needed(self) -> int:
+        """The smallest window index a future or unresolved span might
+        still reference: everything below can be pruned."""
+        cands = [self._w - self.pre]
+        if self._pending is not None:
+            cands.append(self._pending[0])
+        if self._closed:
+            cands.append(self._closed[0][0])
+        if self._run_start is not None:
+            cands.append(max(0, self._run_start - self.pre))
+        return max(0, min(cands))
 
 
 def _background(gen, depth: int = 2):
     """Run a generator on a daemon thread, yielding its items through a
-    bounded queue: staging (file reads + numpy copies) overlaps the
+    bounded queue: staging (file reads, copies into slots) overlaps the
     consumer's device work.  If the consumer abandons the generator, the
-    producer notices (stop event) instead of pinning buffers; producer
+    producer notices (stop event) and closes its generator; producer
     exceptions surface in the consumer."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     _DONE = object()
@@ -110,7 +224,7 @@ def _background(gen, depth: int = 2):
     def put(item) -> bool:
         while not stop.is_set():
             try:
-                q.put(item, timeout=0.2)
+                q.put(item, timeout=0.05)
                 return True
             except queue.Full:
                 continue
@@ -122,8 +236,12 @@ def _background(gen, depth: int = 2):
                 if not put(item):
                     return
             put(_DONE)
+        except RingClosed:
+            pass  # the consumer closed the ring: it is gone
         except BaseException as e:  # surface staging errors to the consumer
             put(e)
+        finally:
+            gen.close()  # stops a loader's prefetcher with its generator
 
     t = threading.Thread(target=fill, daemon=True)
     t.start()
@@ -139,6 +257,49 @@ def _background(gen, depth: int = 2):
         stop.set()
         while not q.empty():
             q.get_nowait()
+        # the producer sees the stop within its put timeout; a reader blocked
+        # on a silent pipe is left to its daemon thread
+        t.join(timeout=2.0)
+
+
+def _check_pipe_sources(sources) -> None:
+    """Pipe sources are sequential-only: one per runner, never part of a
+    bank."""
+    if any(getattr(s, "is_pipe", False) for s in sources) and len(sources) != 1:
+        raise ValueError("a pipe source cannot be part of a bank")
+
+
+def _pipelined(ring: UploadRing, staged, step, emit, device: torch.device, max_chunks: int | None) -> None:
+    """The runners' consumer loop.  ``staged`` yields ``(slot, first
+    window, shapes, account)`` for slots the staging thread has filled;
+    each slot is uploaded, ``step(first window, buffers)`` launches its
+    work, its output starts back to the host, and only then is the
+    previous chunk's output awaited and handed to ``emit``: a chunk's
+    ``emit`` runs while the next one computes.  ``account()`` runs as the
+    chunk is launched.  ``max_chunks`` stops after that many."""
+    chunks = _background(staged)
+    pending = None
+    done = 0
+    try:
+        for k, w0, shapes, account in chunks:
+            out = step(w0, ring.upload(k, **shapes))
+            ring.consumed(k)
+            account()
+            result = (w0, Download(out, device)) if emit is not None else None
+            if pending is not None:
+                emit(pending[0], pending[1].wait())
+            pending = result
+            ring.recycle(k)
+            done += 1
+            if max_chunks is not None and done >= max_chunks:
+                break  # before pulling (and staging) the next chunk
+        if pending is not None:
+            emit(pending[0], pending[1].wait())
+    finally:
+        ring.close()
+        chunks.close()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 FRONTENDS = ("auto", "fused", "chain")
@@ -147,6 +308,9 @@ FRONTENDS = ("auto", "fused", "chain")
 class StreamRunner:
     """Drive one capture through the receiver chain on ``device``.
 
+    ``source``: a :class:`~quadrs_tpu_torch.sources.SampleSource` (a file
+    reads through the loader's ring prefetcher, a byte buffer through
+    ``stage``) or a :class:`~quadrs_tpu_torch.sources.PipeSource`.
     ``chunk_samples`` is rounded down to a whole number of STFT windows.
     ``on_windows(first_window_index, norms)`` receives (windows,
     fft_width) f32 rows per chunk.
@@ -161,7 +325,7 @@ class StreamRunner:
 
     def __init__(
         self,
-        source: SampleSource,
+        source,
         model: PipelineModel,
         device: torch.device | str,
         chunk_samples: int = 1 << 22,
@@ -191,9 +355,12 @@ class StreamRunner:
         if cfg.taps // 2 // cfg.decimate >= cfg.fft_width:
             raise ValueError("fft window shorter than the FIR group delay span")
         self.chunk_samples = max(self._win_raw, chunk_samples // self._win_raw * self._win_raw)
+        self._ring: UploadRing | None = None
 
-    def _chunks(self, start_off: int = 0) -> Iterator[tuple[int, np.ndarray, int]]:
-        """(offset, (2, chunk+lookahead) planes, real samples) per chunk."""
+    def _chunks(self, start_off: int = 0, out=None) -> Iterator[tuple[int, np.ndarray, int]]:
+        """(offset, (2, chunk+lookahead) planes, real samples) per chunk,
+        staged with ``source.stage``.  ``out``: a callable giving the
+        array each chunk is staged into (a slot); by default a new one."""
         la = self._lookahead
         length = self.source.length
         off = start_off
@@ -201,14 +368,143 @@ class StreamRunner:
             n = min(self.chunk_samples, (length - off) // self._win_raw * self._win_raw)
             if n <= 0:
                 return
-            planes = self.source.stage(off, off + n + la)
-            valid = planes.shape[1]
-            if valid < n + la:
-                # raw zero bytes decode to nonzero values for cu8/cs16,
-                # so the model masks [valid:] in the decoded domain
-                planes = np.pad(planes, ((0, 0), (0, n + la - valid)))
+            if out is None:
+                planes = self.source.stage(off, off + n + la)
+                valid = planes.shape[1]
+                if valid < n + la:
+                    # raw zero bytes decode to nonzero values for cu8/cs16,
+                    # so the model masks [valid:] in the decoded domain
+                    planes = np.pad(planes, ((0, 0), (0, n + la - valid)))
+            else:
+                buf = out()
+                valid = self.source.stage(off, off + n + la, out=buf).shape[1]
+                planes = buf[:, : n + la]
+                planes[:, valid:] = 0  # a reused slot holds an earlier chunk's bytes
             yield off, planes, valid
             off += n
+
+    def _chunks_native(self, start_off: int, out) -> Iterator[tuple[int, np.ndarray, int]]:
+        """Chunks through the loader's ring prefetcher: its reader threads
+        pread and deinterleave upcoming chunks while the current one
+        computes, each delivered into the array ``out()`` gives (a slot),
+        the lookahead re-read in C.  The same ``(off, planes, valid)``
+        triples as :meth:`_chunks`."""
+        la = self._lookahead
+        length = self.source.length
+        slots: collections.deque[np.ndarray] = collections.deque()  # lent to the loader, in stream order
+
+        def lend():
+            slots.append(out())
+            return slots[-1]
+
+        # the loader holds two slots while a third is on its way to the device
+        it = self.source.native.prefetch(self.chunk_samples, n_buffers=3, start_off=start_off, overlap=la, out=lend)
+        try:
+            for off, full in it:
+                slot = slots.popleft()
+                if off >= length - self.model.cfg.taps:
+                    return
+                n = min(self.chunk_samples, (length - off) // self._win_raw * self._win_raw)
+                if n <= 0:
+                    return
+                valid = min(full.shape[1], n + la)
+                planes = slot[:, : n + la]
+                planes[:, valid:] = 0  # a reused slot holds an earlier chunk's bytes
+                yield off, planes, int(valid)
+        finally:
+            it.close()
+
+    def _chunks_pipe(self, start_off: int = 0) -> Iterator[tuple[int, np.ndarray, int]]:
+        """Sequential chunks from a :class:`~quadrs_tpu_torch.sources.PipeSource`:
+        the same ``(off, planes, valid)`` triples and tail and window-floor
+        semantics as :meth:`_chunks`, with the effective capture length
+        discovered at EOF.  The lookahead is carried between chunks on the
+        host (a pipe cannot re-read), and a nonzero ``start_off`` drains
+        the skipped samples (a pipe cannot seek); resume phases stay exact
+        because offsets are absolute."""
+        la = self._lookahead
+        src = self.source
+        taps = self.model.cfg.taps
+        win = self._win_raw
+        off = 0
+        while off < start_off:
+            m = src.read_planes(min(self.chunk_samples, start_off - off)).shape[1]
+            if m == 0:
+                return
+            off += m
+        buf = None
+        while True:
+            need = self.chunk_samples + la - (0 if buf is None else buf.shape[1])
+            if need > 0:
+                new = src.read_planes(need)
+                buf = new if buf is None else np.concatenate([buf, new], axis=1)
+            avail = buf.shape[1]
+            if avail == self.chunk_samples + la and not src.eof:
+                n = self.chunk_samples
+                yield off, buf, n + la
+                buf = buf[:, n:]
+                off += n
+                continue
+            # EOF: the stream's effective length is known now; mirror
+            # _chunks' end-of-capture math (floor to whole windows, pad
+            # the staged tail, stop inside the final taps span)
+            length = off + avail
+            while off < length - taps:
+                n = min(self.chunk_samples, (length - off) // win * win)
+                if n <= 0:
+                    break
+                planes = buf[:, : n + la]
+                valid = planes.shape[1]
+                if valid < n + la:
+                    planes = np.pad(planes, ((0, 0), (0, n + la - valid)))
+                yield off, planes, valid
+                buf = buf[:, n:]
+                off += n
+            return
+
+    def _slot_buffers(self) -> dict[str, tuple[int, torch.dtype]]:
+        """The ring's buffers: a full chunk's planes and, on the fused
+        route, its per-tile NCO bases (a few KB)."""
+        width = self.chunk_samples + self._lookahead
+        buffers = {"planes": (2 * width, self.model.cfg.fmt.torch_dtype)}
+        if self.fused:
+            bases = self.model.stream_bases(0, width)
+            buffers["bases"] = (bases.size, torch.from_numpy(bases).dtype)
+        return buffers
+
+    def _staged(self, ring: UploadRing, start_off: int, account):
+        """The staging thread's generator: fill a free slot with each
+        chunk (and, on the fused route, its NCO bases, planned here from
+        the chunk's absolute offset) and yield what :func:`_pipelined`
+        takes."""
+        width = self.chunk_samples + self._lookahead
+        pipe = getattr(self.source, "is_pipe", False)
+        taken: collections.deque[int] = collections.deque()  # slots handed out, in stream order
+
+        def slot():
+            taken.append(ring.take())
+            return ring.host(taken[-1], "planes", (2, width))
+
+        if pipe:
+            chunks = self._chunks_pipe(start_off)
+        elif getattr(self.source, "native", None) is not None:
+            chunks = self._chunks_native(start_off, slot)
+        else:
+            chunks = self._chunks(start_off, slot)
+        try:
+            for off, planes, valid in chunks:
+                cols = planes.shape[1]
+                if pipe:
+                    slot()[:, :cols] = planes
+                k = taken.popleft()
+                shapes = {"planes": (2, width)}
+                if self.fused:
+                    bases = self.model.stream_bases(off, cols)
+                    ring.host(k, "bases", bases.shape)[...] = bases
+                    shapes["bases"] = bases.shape
+                yield k, (off, cols, valid), shapes, lambda cols=cols: account(cols)
+        finally:
+            chunks.close()
 
     def run(
         self,
@@ -248,15 +544,15 @@ class StreamRunner:
         stats = self._run("scan", totals.add, start_window, max_chunks, threshold)
         return totals.result(threshold, stats, stats.windows_out)
 
-    def _step(self, mode: str, off: int, planes: np.ndarray, valid: int, threshold: float):
+    def _step(self, mode: str, off: int, raw: torch.Tensor, head, valid: int, threshold: float):
         """One chunk through the runner's route: its ``norms``, its
-        per-window peaks (``search``) or its survey stats (``scan``)."""
+        per-window peaks (``search``) or its survey stats (``scan``).
+        ``raw``: the chunk's planes on the device; ``head``: its per-tile
+        bases there (the fused route) or None (the chain plans its
+        first-sample phase here)."""
         model = self.model
-        raw = torch.from_numpy(planes).to(self.device)
-        nv = None if valid == planes.shape[1] else int(valid)
+        nv = None if valid == raw.shape[1] else int(valid)
         if self.fused:
-            # per-tile bases, planned on the host from the absolute offset
-            head = torch.from_numpy(model.stream_bases(off, planes.shape[1])).to(self.device)
             norms_of, search_of = model.step_stream_fused, model.step_stream_fused_search
         else:
             head = model.theta0(np.asarray([off]))[0]  # the chunk's first-sample phase
@@ -276,21 +572,24 @@ class StreamRunner:
         cfg = self.model.cfg
         stats = RunStats()
         t0 = time.perf_counter()
-        done = 0
-        chunks = _background(self._chunks(start_window * self._win_raw))
-        for off, planes, valid in chunks:
-            out = self._step(mode, off, planes, valid, threshold)
-            stats.samples_in += planes.shape[1] - self._lookahead
-            stats.windows_out += (planes.shape[1] - cfg.taps) // cfg.decimate // cfg.fft_width
-            if emit is not None:
-                emit(off // self._win_raw, _to_host(out))
-            done += 1
-            if max_chunks is not None and done >= max_chunks:
-                # break before pulling (and staging) the next chunk
-                chunks.close()
-                break
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self._ring is None:
+            self._ring = UploadRing(self.device, 4, **self._slot_buffers())
+        ring = self._ring
+        ring.reset()
+
+        def account(cols: int) -> None:
+            stats.samples_in += cols - self._lookahead
+            stats.windows_out += (cols - cfg.taps) // cfg.decimate // cfg.fft_width
+
+        def step(at, bufs):
+            off, cols, valid = at
+            return self._step(mode, off, bufs["planes"][:, :cols], bufs.get("bases"), valid, threshold)
+
+        def emit_at(at, out):
+            emit(at[0] // self._win_raw, out)
+
+        _pipelined(ring, self._staged(ring, start_window * self._win_raw, account), step,
+                   None if emit is None else emit_at, self.device, max_chunks)
         stats.seconds = time.perf_counter() - t0
         return stats
 
@@ -301,8 +600,10 @@ class WaterfallRunner:
     number of window starts, and carries the ``width - stride`` lookahead
     that its last windows read, so chunking is invisible in the output.
     ``sources``: one or more :class:`SampleSource` of equal length and
-    format (the bank's streams).  Staging runs on a background thread,
-    ahead of the device work.
+    format (the bank's streams), or a single
+    :class:`~quadrs_tpu_torch.sources.PipeSource` (a live spectrogram).
+    A staging thread reads every file straight into its row of one
+    page-locked (S, 2, span) slot, ahead of the device work.
 
     :meth:`run` hands ``on_norms(first_window_index, norms)`` the
     (S, windows, width) f32 rows of each chunk; :meth:`run_search` the
@@ -323,23 +624,25 @@ class WaterfallRunner:
         for src in sources:
             if src.format is not cfg.fmt:
                 raise ValueError(f"source format {src.format} != bank format {cfg.fmt}")
+        _check_pipe_sources(sources)
         if len({src.length for src in sources}) != 1:
             raise ValueError("bank sources must have equal lengths")
         self.sources = sources
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.chunk_windows = max(1, chunk_windows)
+        self._ring: UploadRing | None = None
 
     def _total_windows(self) -> int:
         cfg = self.model.cfg
         length = self.sources[0].length
         return (length - cfg.fft_width) // cfg.stride + 1 if length >= cfg.fft_width else 0
 
-    def _staged_chunks(self, start_window: int, limit: int | None = None):
-        """(first_window, n_valid, newly_staged_real_samples, (S, 2, span)
-        planes) per chunk.  ``limit`` bounds how many chunks are staged, so
-        the background thread does not run ahead of a ``max_chunks``
-        consumer."""
+    def _spans(self, start_window: int, limit: int | None = None):
+        """(first_window, n_valid, newly_staged_real_samples, lo, hi) per
+        chunk of a file bank: the chunk's windows read samples [lo, hi).
+        ``limit`` bounds how many chunks are staged, so the staging thread
+        does not run ahead of a ``max_chunks`` consumer."""
         cfg = self.model.cfg
         total_windows = self._total_windows()
         w = start_window
@@ -355,8 +658,112 @@ class WaterfallRunner:
             # chunk's span counts once, skipping-stride gaps not at all
             new = hi - (lo if prev_hi is None else max(lo, prev_hi))
             prev_hi = hi
-            yield w, n_w, new, np.stack([src.stage(lo, hi) for src in self.sources])
+            yield w, n_w, new, lo, hi
             w += n_w
+
+    def _staged_chunks(self, start_window: int, limit: int | None = None):
+        """(first_window, n_valid, newly_staged_real_samples, (S, 2, span)
+        planes) per chunk, each a new array."""
+        for w, n_w, new, lo, hi in self._spans(start_window, limit):
+            yield w, n_w, new, np.stack([src.stage(lo, hi) for src in self.sources])
+
+    def _staged_chunks_pipe(self, start_window: int, limit: int | None = None):
+        """The :meth:`_staged_chunks` contract for a single
+        :class:`~quadrs_tpu_torch.sources.PipeSource` stream (a live
+        spectrogram: ``rtl_sdr - | ... waterfall -stdin yes``).
+
+        The pipe is read sequentially into an absolute-position buffer:
+        each chunk's ``[lo, hi)`` span is ensured by reading forward, the
+        ``width - stride`` overlap carries between chunks (a pipe cannot
+        re-read), skipping strides' gaps between chunks are read and
+        discarded (a pipe cannot seek), and the total window count is
+        discovered at EOF, after which the staged spans, valid counts and
+        sample accounting match the file path exactly."""
+        cfg = self.model.cfg
+        src = self.sources[0]
+        width, stride = cfg.fft_width, cfg.stride
+        w = start_window
+        staged = 0
+        pos = 0  # absolute sample index of buf[:, 0]
+        buf = None  # (2, m) unconsumed planes
+        eof_len: int | None = None  # effective capture length, known at EOF
+
+        def ensure(abs_hi: int) -> None:
+            """Read forward until the buffer covers [pos, abs_hi) or EOF."""
+            nonlocal buf, eof_len
+            have = 0 if buf is None else buf.shape[1]
+            need = abs_hi - (pos + have)
+            if need > 0 and eof_len is None:
+                new = src.read_planes(need)
+                buf = new if buf is None else np.concatenate([buf, new], axis=1)
+                if new.shape[1] < need:
+                    eof_len = pos + buf.shape[1]
+
+        def drop_to(abs_lo: int) -> None:
+            """Discard samples below abs_lo (reading past the buffer if a
+            skipping stride's gap has not been read yet)."""
+            nonlocal buf, pos, eof_len
+            while True:
+                have = 0 if buf is None else buf.shape[1]
+                k = abs_lo - pos
+                if k <= 0:
+                    return
+                if k <= have:
+                    buf = buf[:, k:]
+                    pos = abs_lo
+                    return
+                pos += have
+                buf = None
+                if eof_len is not None:
+                    return
+                skip = src.read_planes(min(abs_lo - pos, 1 << 20))
+                if skip.shape[1] == 0:
+                    eof_len = pos
+                    return
+                buf = skip
+
+        prev_hi = None
+        while limit is None or staged < limit:
+            n_w = self.chunk_windows
+            lo = w * stride
+            hi = (w + n_w - 1) * stride + width
+            drop_to(lo)
+            ensure(hi)
+            if eof_len is not None:
+                total = (eof_len - width) // stride + 1 if eof_len >= width else 0
+                if w >= total:
+                    return
+                n_w = min(n_w, total - w)
+                hi = (w + n_w - 1) * stride + width
+            staged += 1
+            planes = buf[:, : hi - pos][None, ...]  # (1, 2, span)
+            new = hi - (lo if prev_hi is None else max(lo, prev_hi))
+            prev_hi = hi
+            yield w, n_w, new, planes
+            w += n_w
+
+    def _staged(self, ring: UploadRing, start_window: int, limit, account):
+        """The staging thread's generator: each chunk's (S, 2, span) planes
+        in a free slot.  A file bank reads every file straight into its
+        row, a few files at a time on reader threads (the loader releases
+        the interpreter lock); a pipe's planes are copied in."""
+        n_s = len(self.sources)
+
+        def item(k, w, n_w, new, span):
+            return k, w, {"planes": (n_s, 2, span)}, lambda: account(n_w, new)
+
+        if getattr(self.sources[0], "is_pipe", False):
+            for w, n_w, new, planes in self._staged_chunks_pipe(start_window, limit):
+                k = ring.take()
+                ring.host(k, "planes", planes.shape)[...] = planes
+                yield item(k, w, n_w, new, planes.shape[-1])
+            return
+        with ThreadPoolExecutor(min(4, n_s)) as pool:
+            for w, n_w, new, lo, hi in self._spans(start_window, limit):
+                k = ring.take()
+                host = ring.host(k, "planes", (n_s, 2, hi - lo))
+                list(pool.map(lambda s: self.sources[s].stage(lo, hi, out=host[s]), range(n_s)))
+                yield item(k, w, n_w, new, hi - lo)
 
     def run(self, on_norms=None, start_window: int = 0, max_chunks=None) -> RunStats:
         return self._run(self.model.step, on_norms, start_window, max_chunks)
@@ -380,22 +787,24 @@ class WaterfallRunner:
         return totals.result(threshold, stats, stats.windows_out // n_s)
 
     def _run(self, step, emit, start_window: int, max_chunks) -> RunStats:
+        cfg = self.model.cfg
         stats = RunStats()
         t0 = time.perf_counter()
-        done = 0
         n_s = len(self.sources)
-        chunks = _background(self._staged_chunks(start_window, max_chunks))
-        for w, n_valid, new_samples, planes in chunks:
-            out = step(torch.from_numpy(planes).to(self.device))
+        if self._ring is None:
+            span = (self.chunk_windows - 1) * cfg.stride + cfg.fft_width
+            length = self.sources[0].length
+            if length is not None:
+                span = max(1, min(span, length))
+            self._ring = UploadRing(self.device, 2, planes=(n_s * 2 * span, cfg.fmt.torch_dtype))
+        ring = self._ring
+        ring.reset()
+
+        def account(n_valid: int, new_samples: int) -> None:
             stats.samples_in += new_samples * n_s
             stats.windows_out += n_s * n_valid
-            if emit is not None:
-                emit(w, _to_host(out))
-            done += 1
-            if max_chunks is not None and done >= max_chunks:
-                chunks.close()
-                break
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+
+        _pipelined(ring, self._staged(ring, start_window, max_chunks, account),
+                   lambda _w, bufs: step(bufs["planes"]), emit, self.device, max_chunks)
         stats.seconds = time.perf_counter() - t0
         return stats

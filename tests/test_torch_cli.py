@@ -1,7 +1,8 @@
 """The ported ``stream`` command end to end: ``quadrs_tpu.cli.main`` and
 ``quadrs_tpu_torch.cli.main`` (``QUADRS_PLATFORM=cpu``) over the same
 captures, compared file by file and line by line; the device rule (no
-silent CPU); the flags not ported yet; and the port's freedom from jax.
+silent CPU); the flags not ported yet, and ``-stdin`` and ``-trigger``,
+which are; and the port's freedom from jax.
 
 Norms agree to ``5e-5 * scale``; peak bins are exact wherever the top
 two magnitudes differ by more than that."""
@@ -138,10 +139,36 @@ def test_cuda_is_required_unless_cpu_is_asked(tmp_path, capsys, monkeypatch):
     ],
 )
 def test_flags_not_yet_ported(flags, what, tmp_path, capsys, monkeypatch):
+    """``-mesh`` still waits for its slice.  ``-stdin`` and ``-trigger``
+    are ported: the pipe run prints the file run's lines (timing apart),
+    and the burst recorder writes slices of the capture under ``-out``."""
     monkeypatch.setenv("QUADRS_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
     path = tmp_path / "cap.sr21M.cs8"
     write_capture(path, "cs8", 50_000, seed=2)
-    argv = ["stream", *flags] + ([] if what == "-stdin" else [str(path)])
+    if what == "-stdin":
+        import io
+        from types import SimpleNamespace
+
+        monkeypatch.setattr(sys, "stdin", SimpleNamespace(buffer=io.BytesIO(path.read_bytes())))
+        rc, out, err = run(tcli.main, ["stream", "-shift", "280k", *flags], capsys)
+        assert rc == 0, err
+        rc, file_out, err = run(tcli.main, ["stream", "-shift", "280k", str(path)], capsys)
+        assert rc == 0, err
+        assert out.splitlines()[0] == file_out.splitlines()[0] and out.startswith("stream peak window=")
+        assert stats_counts(out) == stats_counts(file_out) == (49_152, 24)
+        return
+    if what == "-trigger":
+        rc, out, err = run(tcli.main, ["stream", "-shift", "280k", *flags, str(path)], capsys)
+        assert rc == 0, err
+        bursts = sorted(tmp_path.glob("burst.b*.sr21000000.cs8"))
+        assert len(bursts) >= 1 and f"stream trigger: {len(bursts)} bursts over 24 windows, level 0.5" in out
+        data = path.read_bytes()
+        for k, b in enumerate(bursts):
+            s0 = int(b.name.split(".s")[1].split(".")[0])
+            assert b.name.startswith(f"burst.b{k}.s") and b.read_bytes() == data[2 * s0 : 2 * s0 + b.stat().st_size]
+        return
+    argv = ["stream", *flags, str(path)]
     rc, out, err = run(tcli.main, argv, capsys)
     assert rc == 1
     assert f"stream {what}" in err and "not yet ported" in err and "ROADMAP" in err

@@ -90,8 +90,8 @@ CROSSOVERS = [
 
 @pytest.mark.parametrize("d,size,n_out,batch,impl", CROSSOVERS)
 def test_auto_takes_the_jax_packages_impl(d, size, n_out, batch, impl):
-    """``auto`` resolves as the JAX package's does at each crossover, and
-    its output is that impl's, bit for bit."""
+    """On the CPU ``auto`` resolves as the JAX package's does at each
+    crossover, and its output is that impl's, bit for bit."""
     assert tfir.auto_impl(size, d, batch * n_out) == impl
     assert tfir.is_spectral(size, d) == jfir.is_spectral(size, d)
     if batch * n_out > 4096:
@@ -103,6 +103,47 @@ def test_auto_takes_the_jax_packages_impl(d, size, n_out, batch, impl):
     assert torch.equal(got, tfir.fir_decimate(x, taps, d, n_out, impl=impl))
     want = jax_fir(x.numpy(), taps, d, n_out, "auto")
     np.testing.assert_allclose(want, jax_fir(x.numpy(), taps, d, n_out, impl), rtol=0, atol=1e-7)
+
+
+# the card's rule (ops.fir._auto_impl_cuda, from chip_smoke.py's sweep): (size, d, n_out, batch, impl)
+CUDA_RULE = [
+    (400, 32, 64, 16384, "polyphase"),  # the sparkfft batch: the CPU rule takes banded there
+    (400, 32, 4096, 256, "polyphase"),
+    (400, 100, 40_000, 1, "polyphase"),
+    (96, 8, 64, 16384, "polyphase"),
+    (512, 8, 64, 1, "polyphase"),  # 64 subfilters: the last time-domain size
+    (40, 4, 1_000_000, 1, "overlap_save"),  # below D 8
+    (40, 2, 4096, 256, "overlap_save"),
+    (5, 1, 300, 2, "overlap_save"),
+    (528, 8, 64, 1, "os_poly"),  # 66 subfilters, a block shorter than overlap-save's frame
+    (4000, 32, 64, 16384, "os_poly"),
+    (4000, 32, 386, 1, "os_poly"),  # 386 * 32 + 4000 = 16352: one short of the 16384 frame
+    (4000, 32, 387, 1, "overlap_save"),
+    (4000, 32, 4096, 256, "overlap_save"),
+    (1100, 8, 500_000, 1, "overlap_save"),
+    (8192, 100, 40_000, 1, "overlap_save"),
+]
+
+
+@pytest.mark.parametrize("size,d,n_out,batch,impl", CUDA_RULE)
+def test_auto_takes_the_cards_impl_on_cuda(size, d, n_out, batch, impl):
+    """On a CUDA device ``auto`` follows the card's own rule; the side of
+    ``is_spectral`` (the receiver's premixed taps hang on it) is the JAX
+    package's on every device; the CPU's rule is untouched; and the impl
+    the card takes computes the JAX package's ``auto`` result."""
+    assert tfir.auto_impl(size, d, batch * n_out, "cuda", n_out) == impl
+    assert tfir.is_spectral(size, d) == jfir.is_spectral(size, d)
+    if tfir.is_spectral(size, d):
+        assert impl in SPECTRAL and tfir.auto_impl(size, d, batch * n_out) in SPECTRAL
+    assert tfir.auto_impl(size, d, batch * n_out, "cpu", n_out) == tfir.auto_impl(size, d, batch * n_out)
+    if batch * n_out * (d + size // 64) > 1 << 16:
+        return  # the big shapes: the rule is enough, their FIRs are slow here
+    rng = np.random.default_rng(d + size)
+    x = blocks(rng, batch, n_out * d + size)
+    taps = taps_of("complex" if tfir.is_spectral(size, d) else "real", size, 0.02, d)
+    got = tfir.fir_decimate(torch.from_numpy(x), taps, d, n_out, impl=impl).numpy()
+    want = jax_fir(x, taps, d, n_out, "auto")
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-5 * max(np.abs(want).max(), 1.0))
 
 
 def test_complex_taps_split_after_auto():

@@ -2,7 +2,7 @@
 ``stream -scan`` commands end to end: ``quadrs_tpu.cli.main`` and
 ``quadrs_tpu_torch.cli.main`` (``QUADRS_PLATFORM=cpu``) over the same
 captures, compared line by line and file by file; the flags not ported
-yet; the parse errors.
+yet, and ``-stdin``, which is; the parse errors.
 
 Norms agree to ``rtol=2e-5, atol=2e-5·max`` (the JAX package's own
 kernel tolerance); peak and CSV bins exactly, wherever a window's top two
@@ -207,8 +207,25 @@ def test_stream_scan_matches_jax(tmp_path, capsys, monkeypatch):
     ],
 )
 def test_bank_flags_not_yet_ported(cmd, flags, what, tmp_path, capsys, monkeypatch):
+    """``-mesh`` and ``scan -plot`` still wait for their slices; ``-stdin``
+    is ported: the pipe run prints the file run's lines (timing apart)."""
     monkeypatch.setenv("QUADRS_PLATFORM", "cpu")
-    files = [] if what == "-stdin" else write_bank(tmp_path, "cs8", 5_000, 1)
+    files = write_bank(tmp_path, "cs8", 5_000, 1)
+    if what == "-stdin":
+        import io
+        import sys
+        from types import SimpleNamespace
+
+        with open(files[0], "rb") as f:
+            monkeypatch.setattr(sys, "stdin", SimpleNamespace(buffer=io.BytesIO(f.read())))
+        rc, out, err = run(tcli.main, [cmd, *flags], capsys)
+        assert rc == 0, err
+        rc, file_out, err = run(tcli.main, [cmd, *files], capsys)
+        assert rc == 0, err
+        assert [ln.rsplit(" windows, ", 1)[0] for ln in out.splitlines()] == \
+            [ln.rsplit(" windows, ", 1)[0] for ln in file_out.splitlines()]
+        assert f"{cmd}: 4096 samples, 4 windows" in out
+        return
     rc, out, err = run(tcli.main, [cmd, *flags, *files], capsys)
     assert rc == 1
     assert f"{cmd} {what}" in err and "not yet ported" in err and "ROADMAP" in err
