@@ -42,6 +42,21 @@ the run.  Phases:
    survey against the plain version's stride-256 norms, with the count of
    peak bins and threshold counts that differ from the plain version (each
    inside a near-tie or the threshold's noise band, or the phase fails);
+   then ``find`` (torch ops and cuFFT, no kernel) over a copy of the
+   capture with random cs8 templates planted at known offsets, gains and
+   phases (one just left of a dispatch boundary, one flush with the end):
+   the single template's 8 offsets with scores above 0.9, a 3-template bank
+   over a 9-row grid of carrier offsets (offsets, which and freqs), each
+   against the same argv on the CPU over the 2^22-sample prefix,
+   ``-write`` slices against the capture's bytes, the bank from ``replay
+   -speed 0 | find -stdin yes`` against the file run, and the dispatches
+   that the device scan decided (some must be); then the conditioning stages
+   over the first capture (``iqbal dcblock agc resample 147/160 write``;
+   the FSK chain through ``dcblock -window 256 agc -window 64`` into
+   ``sparkfft``), each against its CPU run over the prefix, and
+   ``resample_real`` 656,250 to 48,000 against the CPU; a profiled run of
+   ``find``, the bank and the stage chain each gives the device's share
+   of its wall;
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
@@ -51,7 +66,12 @@ the run.  Phases:
    f64 sum, and one
    bank chunk (64 streams x 2000 windows x 1024 points) at strides 1024
    and 256 (yardstick: ``torch.fft.fft`` over the decoded frames), each
-   waterfall kernel first held against its plain version on those inputs.
+   waterfall kernel first held against its plain version on those inputs;
+   then ``find``'s device program at ``l`` 1024 and 4096 over a sweep of
+   blocks, single template and 9-row grid, split into forward FFT, rows
+   (product, inverse FFT, scores), energy and extraction, and the
+   resampler's product at the write batch against a weight matrix
+   gathered per window.
    A yardstick does part of its kernel's work; its inputs are made outside
    the timed region, and the port never calls it.  The frontend kernels and
    their yardstick take tens of microseconds, less than a call of their
@@ -76,6 +96,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -411,6 +432,43 @@ def run_cli(argv: list[str], expect_rc: int = 0, err_has: str = "") -> str:
     return out
 
 
+def start_replay(source: str) -> subprocess.Popen:
+    """``replay -speed 0 SOURCE`` in another process, its stdout a pipe.
+    Started ahead of its consumer, its start-up overlaps other work: it
+    writes until the pipe is full, then waits."""
+    env = dict(os.environ, QUADRS_PLATFORM="cpu")  # replay moves bytes: no device work
+    return subprocess.Popen([sys.executable, "-m", "quadrs_tpu_torch", "replay", "-speed", "0", source],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+
+
+def piped(argv: list[str], source: str, walls: dict[str, float] | None = None, name: str = "",
+          producer: subprocess.Popen | None = None) -> str:
+    """The CLI in this process, its stdin the stdout of ``replay -speed 0
+    SOURCE`` in another (``producer``, or one started now); with ``walls``,
+    ``walls[name]`` is the CLI's wall from the producer's first byte."""
+    import types
+
+    producer = producer or start_replay(source)
+    stdin = sys.stdin
+    sys.stdin = types.SimpleNamespace(buffer=producer.stdout)
+    try:
+        t0 = time.perf_counter()
+        producer.stdout.peek(1)  # the producer is up: its start is not the consumer's time
+        waited, t0 = time.perf_counter() - t0, time.perf_counter()
+        out = run_cli(argv)
+        if walls is not None:
+            walls[name] = time.perf_counter() - t0
+    finally:
+        sys.stdin = stdin
+        producer.stdout.close()
+        err = producer.stderr.read().decode().strip()
+        rc = producer.wait(timeout=120)
+    print(f"    producer: {err}; its first byte came {waited:.2f}s after the consumer's start")
+    if rc != 0 or not err.startswith("replay: "):
+        raise AssertionError(f"replay exited {rc}: {err}")
+    return out
+
+
 def phase_main_path(card: str, path: str, tmp: str) -> tuple[dict[str, int], np.ndarray]:
     """Phase 4, the stream: the CLI's stream path over the 2^26-sample
     capture at ``path``, read through the loader's ring; returns each
@@ -511,7 +569,6 @@ def phase_live_path(card: str, cap: str, tmp: str, norms: np.ndarray) -> dict[st
     ``info`` against its CPU run.  Every comparison is bit for bit except
     ``info``'s f32 sums.  Returns each kernel's launches over the phase."""
     import glob
-    import types
 
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.models.receiver import PipelineModel
@@ -539,26 +596,6 @@ def phase_live_path(card: str, cap: str, tmp: str, norms: np.ndarray) -> dict[st
             raise AssertionError(f"{what} launched {got}, expected {want}")
         for name, v in got.items():
             total[name] += v
-        return out
-
-    def piped(argv: list[str], source: str) -> str:
-        """The CLI in this process, its stdin the stdout of ``replay -speed 0 SOURCE`` in another."""
-        env = dict(os.environ, QUADRS_PLATFORM="cpu")  # replay moves bytes: no device work
-        producer = subprocess.Popen([sys.executable, "-m", "quadrs_tpu_torch", "replay", "-speed", "0", source],
-                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
-        stdin = sys.stdin
-        sys.stdin = types.SimpleNamespace(buffer=producer.stdout)
-        try:
-            producer.stdout.peek(1)  # the producer is up: its start is not the consumer's time
-            out = run_cli(argv)
-        finally:
-            sys.stdin = stdin
-            producer.stdout.close()
-            err = producer.stderr.read().decode().strip()
-            rc = producer.wait(timeout=120)
-        print(f"    producer: {err}")
-        if rc != 0 or not err.startswith("replay: "):
-            raise AssertionError(f"replay exited {rc}: {err}")
         return out
 
     def same_file(a: str, b: str, what: str) -> None:
@@ -665,12 +702,78 @@ SPARK_BOUNDS = np.concatenate([[0.08, 1.0], np.float32(0.08) + (np.float32(1.0) 
                                * np.arange(1, 7, dtype=np.float32)]).astype(np.float32)
 
 
+def glyph_diffs(rows: list[str], cpu_rows: list[str], cpu_stream, width: int, stride: int) -> tuple[int, int]:
+    """sparkfft rows printed on the card against the CPU's over the prefix:
+    (rows that differ, glyphs that differ).  Each differing glyph's CPU norm
+    (``cpu_stream``'s window, on the CPU) must lie within ``TOL`` of its
+    value from a level, or this raises."""
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import Executor
+
+    bad = [r for r in range(len(cpu_rows)) if rows[r] != cpu_rows[r]]
+    near = 0
+    if bad:
+        # each differing glyph's distance to the nearest level, relative to its value
+        # (tests/test_sparkfft.py::test_ook_quantization_margins) and in f32 spacings there
+        norms = Executor(cpu_stream, width, "cpu", post=stft_norms).run(np.asarray(bad, dtype=np.int64) * stride)[0]
+        for i, r in enumerate(bad):
+            for k, (a, b) in enumerate(zip(rows[r][1:-1], cpu_rows[r][1:-1])):
+                if a != b:
+                    level = SPARK_BOUNDS[np.abs(SPARK_BOUNDS - norms[i, k]).argmin()]
+                    margin = float(abs(level - norms[i, k]) / max(float(norms[i, k]), 1e-12))
+                    print(f"    row {r} bin {k}: {a!r} on the card, {b!r} on the CPU; norm {norms[i, k]:.9g} lies "
+                          f"{margin:.2e} of its value ({abs(level - norms[i, k]) / np.spacing(level):.1f} f32 spacings) "
+                          f"from the level {level:.9g}")
+                    if margin > TOL:
+                        raise AssertionError(f"sparkfft row {r} bin {k}: {a!r} vs {b!r}, {margin:.2e} from a level")
+                    near += 1
+    return len(bad), near
+
+
 def all_launches() -> dict[str, int]:
     from quadrs_tpu_torch.ops import frontend as fe
     from quadrs_tpu_torch.ops import waterfall as wf
 
     return {k.__name__: k.launches for k in (fe.frontend_fir, fe.frontend_fir_stft, fe.frontend_banded,
                                              wf.waterfall_norms, wf.waterfall_search, wf.waterfall_scan)}
+
+
+def card_run(name: str, argv: list[str], card: str, walls: dict[str, float], expect_rc=0, err="") -> str:
+    """``argv`` through the CLI on the card; records its wall in
+    ``walls[name]`` and raises if it launched a kernel of the port (these
+    paths run as torch ops).  Returns its stdout."""
+    os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
+    before = all_launches()
+    t0 = time.perf_counter()
+    out = run_cli(argv, expect_rc, err)
+    walls[name] = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
+    print(f"    {name}: {walls[name]:.3f}s, {CAPTURE_SAMPLES / walls[name] / 1e6:.1f} Msps ({card}); "
+          f"kernel launches: {launched or 'none'}")
+    if launched:
+        raise AssertionError(f"{name} launched {launched}: the chain runs as torch ops")
+    return out
+
+
+def cpu_run(name: str, argv: list[str], expect_rc=0, err="") -> str:
+    """``argv`` through the CLI on the CPU (``QUADRS_PLATFORM=cpu``)."""
+    os.environ["QUADRS_PLATFORM"] = "cpu"
+    t0 = time.perf_counter()
+    try:
+        out = run_cli(argv, expect_rc, err)
+    finally:
+        os.environ.pop("QUADRS_PLATFORM", None)
+    print(f"    {name}, the prefix on the CPU: {time.perf_counter() - t0:.3f}s")
+    return out
+
+
+def card_then_cpu(name: str, argv, cap: str, pre: str, card: str, walls: dict[str, float], expect_rc=0,
+                  err=("", "")) -> tuple[str, str]:
+    """``argv(capture, tag)`` through the CLI on the card over ``cap``
+    (:func:`card_run`), then on the CPU over the prefix capture ``pre``.
+    Returns both stdouts."""
+    out = card_run(name, argv(cap, "gpu"), card, walls, expect_rc, err[0])
+    return out, cpu_run(name, argv(pre, "cpu"), expect_rc, err[1])
 
 
 def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
@@ -695,24 +798,7 @@ def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
     walls: dict[str, float] = {}
 
     def both(name: str, argv, expect_rc=0, err=("", "")):
-        """``argv(capture, tag)`` on the card over the capture, then on the
-        CPU over the prefix; returns both stdouts."""
-        os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
-        before = all_launches()
-        t0 = time.perf_counter()
-        out = run_cli(argv(cap, "gpu"), expect_rc, err[0])
-        walls[name] = time.perf_counter() - t0
-        launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
-        print(f"    {name}: {walls[name]:.3f}s, {CAPTURE_SAMPLES / walls[name] / 1e6:.1f} Msps ({card}); "
-              f"kernel launches: {launched or 'none'}")
-        if launched:
-            raise AssertionError(f"{name} launched {launched}: the chain runs as torch ops")
-        os.environ["QUADRS_PLATFORM"] = "cpu"
-        try:
-            cpu_out = run_cli(argv(pre, "cpu"), expect_rc, err[1])
-        finally:
-            os.environ.pop("QUADRS_PLATFORM", None)
-        return out, cpu_out
+        return card_then_cpu(name, argv, cap, pre, card, walls, expect_rc, err)
 
     def chain_stream(path, taps_power=200):
         return LowPass(Shift(open_capture(path), 280_000), 200_000, 32, 2 * taps_power)
@@ -723,24 +809,8 @@ def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
     length = 1 + (CAPTURE_SAMPLES - 400) // 32
     if len(rows) != len(range(0, length - 64, 16)) or not cpu_rows:
         raise AssertionError(f"sparkfft printed {len(rows)} rows for a {length}-sample stream")
-    bad = [r for r in range(len(cpu_rows)) if rows[r] != cpu_rows[r]]
-    near = 0
-    if bad:
-        # each differing glyph's distance to the nearest level, relative to its value
-        # (tests/test_sparkfft.py::test_ook_quantization_margins) and in f32 spacings there
-        norms = Executor(chain_stream(pre), 64, "cpu", post=stft_norms).run(np.asarray(bad, dtype=np.int64) * 16)[0]
-        for i, r in enumerate(bad):
-            for k, (a, b) in enumerate(zip(rows[r][1:-1], cpu_rows[r][1:-1])):
-                if a != b:
-                    level = SPARK_BOUNDS[np.abs(SPARK_BOUNDS - norms[i, k]).argmin()]
-                    margin = float(abs(level - norms[i, k]) / max(float(norms[i, k]), 1e-12))
-                    print(f"    row {r} bin {k}: {a!r} on the card, {b!r} on the CPU; norm {norms[i, k]:.9g} lies "
-                          f"{margin:.2e} of its value ({abs(level - norms[i, k]) / np.spacing(level):.1f} f32 spacings) "
-                          f"from the level {level:.9g}")
-                    if margin > TOL:
-                        raise AssertionError(f"sparkfft row {r} bin {k}: {a!r} vs {b!r}, {margin:.2e} from a level")
-                    near += 1
-    print(f"  sparkfft: {len(cpu_rows)} rows of the prefix compared, {len(bad)} differ, {near} glyphs within "
+    bad, near = glyph_diffs(rows, cpu_rows, chain_stream(pre), 64, 16)
+    print(f"  sparkfft: {len(cpu_rows)} rows of the prefix compared, {bad} differ, {near} glyphs within "
           f"{TOL} of a level (the chain's f32 tolerance: the documented exception)")
     # the rows are built as one byte buffer a batch: byte-equal to one string a row over the card's own norms
     from quadrs_tpu_torch import sinks
@@ -796,6 +866,399 @@ def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
         raise AssertionError(f"stream -decimate 100 wrote {got.shape[0]} windows")
     compare("stream -decimate 100, first chunk (card vs CPU)", torch.from_numpy(got[:first]), torch.from_numpy(want[:first]))
     return walls
+
+
+FIND_LEN = 1024  # phase 4: the single template of the find runs
+FIND_BANK = (1024, 700, 512)  # phase 4: the bank's templates
+FIND_STEP = 0.4 * SAMPLE_RATE / FIND_LEN  # find's default grid step for the bank (Hz)
+FIND_TOL = "32k"  # 4 steps a side: a 9-row grid
+FIND_BLOCKS = {1024: (4096, 8192, 16384, 32768, 65536), 4096: (8192, 16384, 32768, 65536)}  # phase 5: c by l
+
+
+def find_plants(n: int, prefix: int, boundary: int):
+    """Where phase 4 plants its templates in an ``n``-sample capture whose
+    first ``prefix`` samples the CPU runs read: (the single template's
+    ``(offset, gain, phase)``, one at the lag just left of a dispatch
+    boundary and one flush with the end; the bank's ``(offset, template,
+    grid row, gain, phase)``), three of each kind inside the prefix."""
+    single = [(1000, 0.05, 0.3), (prefix // 3 + 1, 2.0, 1.1), (boundary - 1, 0.3, 2.0), (n // 6 + 3, 1.0, 2.9),
+              (n // 3 + 7, 0.7, 4.0), (n // 2 - 1, 0.1, 5.2), (3 * n // 4 + 11, 1.5, 0.7), (n - FIND_LEN, 0.5, 3.3)]
+    bank = [(prefix // 8, 0, -3, 0.5, 0.2), (prefix // 2 + 5, 1, 2, 1.0, 1.7), (7 * prefix // 8 - 3, 2, 4, 0.2, 2.5),
+            (n // 4 + 9, 0, 1, 1.5, 3.9), (5 * n // 8 + 1, 1, -4, 0.1, 5.0), (7 * n // 8 + 13, 2, 0, 0.8, 0.9)]
+    return single, bank
+
+
+def write_find_capture(path: str, tmp: str, signal: str) -> dict:
+    """The phase 4 capture of ``find``: a copy of :func:`write_capture`'s
+    ``signal`` with random cs8 templates written over it at
+    :func:`find_plants`' offsets, each scaled, rotated and (the bank's)
+    shifted onto a row of the frequency grid; the templates as cs8 files
+    beside it."""
+    from quadrs_tpu_torch import sinks
+
+    shutil.copyfile(signal, path)
+    rng = np.random.default_rng(SEED + 7)
+    names, codes = [], []
+    for i, l in enumerate((FIND_LEN, *FIND_BANK)):
+        t = rng.integers(-60, 61, (l, 2)).astype(np.int8)  # doubled, still inside int8
+        names.append(os.path.join(tmp, f"{'t' if i == 0 else f'b{i - 1}'}.sr21M.cs8"))
+        t.tofile(names[-1])
+        codes.append(t)
+    c = sinks.find_block(FIND_LEN, CAPTURE_SAMPLES)
+    boundary = sinks.FIND_DISPATCH_BUDGET // c * (c - FIND_LEN + 1)  # the first dispatch's lags
+    single, bank = find_plants(CAPTURE_SAMPLES, PREFIX_SAMPLES, boundary)
+    with open(path, "r+b") as f:
+        for code, (o, g, ph), hz in [(codes[0], p, 0.0) for p in single] + [
+                (codes[1 + k], (o, g, ph), row * FIND_STEP) for o, k, row, g, ph in bank]:
+            m = np.arange(len(code))
+            z = (code[:, 0] + 1j * code[:, 1]) * g * np.exp(1j * (ph + 2 * np.pi * hz * m / SAMPLE_RATE))
+            f.seek(2 * o)
+            f.write(np.clip(np.rint(np.stack([z.real, z.imag], -1)), -127, 127).astype(np.int8).tobytes())
+    return {"template": names[0], "bank": names[1:], "single": single, "bank_plants": bank, "block": c,
+            "boundary": boundary}
+
+
+def find_rows(out: str) -> tuple[list[tuple[int, float, float, float, int]], str]:
+    """A ``find`` run's match lines as ``(offset, score, scale, freq,
+    which)`` and its closing line."""
+    lines = out.strip().splitlines()
+    rows = [ln.split(",") for ln in lines if ln[:1].isdigit()]
+    return [(int(r[0]), float(r[1]), float(r[2]), float(r[3]), int(r[4]) if len(r) > 4 else 0) for r in rows], lines[-1]
+
+
+def same_matches(what: str, got, want, only_below: int | None = None) -> None:
+    """Offsets, freqs and which exact; scores and scales within 2e-4 (and
+    the print's rounding); with ``only_below``, of the matches at lags
+    below it."""
+    if only_below is not None:
+        got = [r for r in got if r[0] < only_below]
+    if [(r[0], r[3], r[4]) for r in got] != [(r[0], r[3], r[4]) for r in want]:
+        raise AssertionError(f"{what}: matches {[(r[0], r[3], r[4]) for r in got]} vs {[(r[0], r[3], r[4]) for r in want]}")
+    worst = max([max(abs(a[1] - b[1]), abs(a[2] - b[2]) / max(1.0, abs(b[2]))) for a, b in zip(got, want)] or [0.0])
+    print(f"  {what}: {len(want)} matches, offsets, freqs and which equal; scores and scales within {worst:.1e}")
+    if worst > 2e-4 + 5e-5:
+        raise AssertionError(f"{what}: scores or scales {worst:.2e} apart")
+
+
+def profiled(argv: list[str]) -> tuple[float, float]:
+    """(wall s, device busy s) of one more card run of ``argv`` under
+    ``torch.profiler`` (busy: the union of the device's event intervals,
+    as ``profile_stream.py`` reads it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_stream import device_busy
+
+    with contextlib.redirect_stdout(io.StringIO()), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, device_busy(prof)[0] / 1e3
+
+
+def phase_find_path(card: str, tmp: str, signal: str) -> dict[str, float]:
+    """Phase 4, ``find`` through the CLI over a 2^26-sample cs8 capture with
+    planted templates (over a copy of ``signal``): the single template at
+    its 8 offsets (scores above 0.9), the 3-template bank over a 9-row grid
+    (offsets, which and freqs), each against the same argv on the CPU over
+    the 2^22-sample prefix; ``-write`` slices against the capture's bytes;
+    the bank from a pipe (``replay -speed 0 | find -stdin yes``) against the
+    file run; the dispatches of each kind (some must take the device scan).
+    Returns walls and device shares."""
+    from quadrs_tpu_torch import sinks
+
+    laps = [("start", time.perf_counter())]  # where the phase's own time goes
+    cap, pre = os.path.join(tmp, "find.sr21M.cs8"), os.path.join(tmp, "findpre.sr21M.cs8")
+    plan = write_find_capture(cap, tmp, signal)
+    with open(cap, "rb") as f, open(pre, "wb") as g:
+        g.write(f.read(PREFIX_SAMPLES * 2))
+    walls: dict[str, float] = {}
+    counts = sinks.find_pattern.dispatches
+    bank_args = [a for b in plan["bank"] for a in ("-pattern", b)] + ["-freq-tol", FIND_TOL]
+    argv_of = {"find": lambda path: ["from", path, "find", "-pattern", plan["template"]],
+               "find bank": lambda path: ["from", path, "find", *bank_args]}
+    want_rows = {"find": [(o, 0.0, g, 0.0, 0) for o, g, _ in sorted(plan["single"])],
+                 "find bank": [(o, 0.0, g, row * FIND_STEP, k) for o, k, row, g, _ in sorted(plan["bank_plants"])]}
+    print(f"  find: block {plan['block']}, the first dispatch's last lag {plan['boundary'] - 1}")
+    # the pipe's producer starts here: its start-up (seconds: it imports
+    # torch) overlaps the file runs below; it then waits on the full pipe
+    laps.append(("capture", time.perf_counter()))
+    producer = start_replay(cap)
+    try:
+        on_card = {}
+        for name, want in want_rows.items():
+            counts.update(extract=0, overflow=0, full=0)
+            got, closing = find_rows(card_run(name, argv_of[name](cap), card, walls))
+            on_card[name] = got
+            print(f"    {name}: dispatches {dict(counts)} on the card")
+            if counts["extract"] == 0:
+                raise AssertionError(f"{name}: every dispatch took the full-score path")
+            if closing != f"find: {len(want)} matches, pattern {FIND_LEN} samples, {CAPTURE_SAMPLES} scanned":
+                raise AssertionError(f"{name}: {closing!r}")
+            if [(r[0], r[4]) for r in got] != [(r[0], r[4]) for r in want] or any(
+                    abs(a[3] - b[3]) > 0.5 for a, b in zip(got, want)):
+                raise AssertionError(f"{name}: found {got}")
+            if min(r[1] for r in got) <= 0.9 or any(abs(a[2] - b[2]) > 0.05 * max(b[2], 0.1) for a, b in zip(got, want)):
+                raise AssertionError(f"{name}: scores or scales off: {got}")
+            print(f"  {name}: the {len(got)} planted offsets (and templates and grid rows) found; scores "
+                  f"{min(r[1] for r in got):.4f}-{max(r[1] for r in got):.4f}; scales within 5% of the gains")
+        laps.append(("card runs", time.perf_counter()))
+
+        for name in want_rows:
+            cpu_rows = find_rows(cpu_run(name, argv_of[name](pre)))[0]
+            same_matches(f"{name}, the card against the CPU over the prefix", on_card[name], cpu_rows,
+                         PREFIX_SAMPLES - FIND_LEN + 1)
+        laps.append(("CPU runs", time.perf_counter()))
+
+        # -write: each slice the capture's bytes
+        os.makedirs(os.path.join(tmp, "fw"))
+        prefix = os.path.join(tmp, "fw", "m")
+        run_cli(["from", cap, "find", "-pattern", plan["template"], "-write", prefix, "-pre", "100", "-post", "100"])
+        with open(cap, "rb") as f:
+            raw = f.read()
+        names = sorted(os.listdir(os.path.join(tmp, "fw")))
+        for name in names:
+            s0 = int(name.split(".s")[1].split(".")[0])
+            with open(os.path.join(tmp, "fw", name), "rb") as g:
+                data = g.read()
+            if data != raw[2 * s0 : 2 * s0 + len(data)] or len(data) != 2 * (min(s0 + FIND_LEN + 200, CAPTURE_SAMPLES) - s0):
+                raise AssertionError(f"find -write: {name} is no slice of the capture")
+        if len(names) != len(plan["single"]):
+            raise AssertionError(f"find -write wrote {len(names)} files")
+        print(f"  find -write: {len(names)} files, each the capture's bytes of its match widened by 100 a side")
+        del raw
+        laps.append(("-write", time.perf_counter()))
+    except BaseException:
+        producer.kill()
+        producer.wait()
+        raise
+
+    # the bank from the pipe: the file run's lines
+    counts.update(extract=0, overflow=0, full=0)
+    out = piped(["find", *bank_args, "-stdin", "yes", "-sr", str(SAMPLE_RATE), "-format", "cs8"], cap, walls,
+                "replay | find bank -stdin", producer)
+    got, closing = find_rows(out)
+    wall = walls["replay | find bank -stdin"]
+    print(f"    replay | find -stdin (bank): {wall:.3f}s from the first byte, {CAPTURE_SAMPLES / wall / 1e6:.1f} Msps; "
+          f"dispatches {dict(counts)} ({card})")
+    if closing != f"find: {len(on_card['find bank'])} matches, pattern {FIND_LEN} samples, {CAPTURE_SAMPLES} scanned":
+        raise AssertionError(f"find -stdin: {closing!r}")
+    same_matches("find -stdin (bank) against the file run", got, on_card["find bank"])
+    laps.append(("the pipe", time.perf_counter()))
+
+    find_breakdown(card, cap, plan["template"])
+    laps.append(("breakdown", time.perf_counter()))
+    for name in ("find", "find bank"):
+        wall, busy = profiled(argv_of[name](cap))
+        walls[f"{name} profiled"], walls[f"{name} busy"] = wall, busy
+        print(f"  {name}, a profiled card run: wall {wall:.3f}s, device busy {busy:.3f}s, "
+              f"device share {100 * busy / wall:.1f}% ({card})")
+    laps.append(("profiled runs", time.perf_counter()))
+    print("  find phase, its steps: " + ", ".join(f"{name} {t - laps[i][1]:.1f}s" for i, (name, t) in enumerate(laps[1:])))
+    return walls
+
+
+def find_breakdown(card: str, cap: str, template: str) -> dict[str, float]:
+    """Where ``find``'s wall goes: its device-scan dispatches over ``cap``
+    one stage at a time, as :class:`Executor` runs them (the root span into
+    the page-locked slot through the loader, with the host's planning; the
+    slot's copy; the device program; its outputs back; the host's side of
+    the candidate scan).  The full-score tail is left out."""
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.ops.correlate import PeakScan, make_xcorr_post
+    from quadrs_tpu_torch.runtime import Executor, _to_device, window_batches
+    from quadrs_tpu_torch.sources import SampleSource, open_capture
+    from quadrs_tpu_torch.staging import Download
+
+    src, psrc = open_capture(cap), SampleSource.from_file(template)
+    pat = psrc.read_at(0, psrc.length, DEVICE)[0]
+    c = sinks.find_block(len(pat), src.length)
+    n_out, thr = c - len(pat) + 1, float(np.float32(0.5))
+    offsets = np.arange(0, src.length - len(pat) + 1, n_out, dtype=np.int64)
+    batch, batches = window_batches(offsets, c, budget=max(c, sinks.FIND_DISPATCH_BUDGET))
+    post = make_xcorr_post(pat, c, extract=(thr, sinks.FIND_TOPK))
+    ex, scan = Executor(src, c, DEVICE, batch=batch), PeakScan(thr)
+    t = dict(staging=0.0, h2d=0.0, device=0.0, d2h=0.0, host=0.0)
+    t0 = time.perf_counter()
+    for offs in batches:
+        if len(offs) != batch or int(offs[-1]) + c > src.length:
+            continue
+        a = time.perf_counter()
+        lo = int(offs[0])
+        buf = ex._stage(lo, int(offs[-1]) + c)
+        plan = src.plan(offs, c, lo)
+        b = time.perf_counter()
+        prep = _to_device(plan.prep, DEVICE)
+        torch.cuda.synchronize()
+        d0 = time.perf_counter()
+        left = torch.tensor(scan.carry, dtype=torch.float32, device=DEVICE)
+        out = post(src.read_batch({"buf": buf, "device": DEVICE}, prep, c), left)
+        torch.cuda.synchronize()
+        d1 = time.perf_counter()
+        res = Download(out, DEVICE).wait()
+        e = time.perf_counter()
+        scan.feed_extract(lo, len(offs) * n_out, res)
+        t["staging"] += b - a
+        t["h2d"] += d0 - b
+        t["device"] += d1 - d0
+        t["d2h"] += e - d1
+        t["host"] += time.perf_counter() - e
+    total = time.perf_counter() - t0
+    print(f"  find, its device-scan dispatches one stage at a time: {total * 1e3:.2f} ms, "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in t.items()) + f" ({card})")
+    return t
+
+
+def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
+    """Phase 4, the conditioning stages through the CLI over the 2^26-sample
+    capture: ``iqbal dcblock agc resample 147/160 write`` and the FSK chain
+    through ``dcblock agc`` into ``sparkfft``, each against the same argv on
+    the CPU over the 2^22-sample prefix; then ``resample_real`` 656,250 to
+    48,000 on the card against the CPU.  No kernel of the port launches."""
+    from quadrs_tpu_torch.ops.resample import resample_real
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream import Agc, DcBlock, IqCorrect, LowPass, Resample, Shift
+
+    laps = [("start", time.perf_counter())]  # where the phase's own time goes
+    pre = os.path.join(tmp, "stagepre.sr21M.cs8")
+    with open(cap, "rb") as f, open(pre, "wb") as g:
+        g.write(f.read(PREFIX_SAMPLES * 2))
+    walls: dict[str, float] = {}
+    chain = ["iqbal", "dcblock", "agc", "resample", "147/160"]
+    card_then_cpu("stages write", lambda path, tag: ["from", path, *chain, "write", os.path.join(tmp, f"st{tag}")],
+                  cap, pre, card, walls)
+    laps.append(("write runs", time.perf_counter()))
+    got = np.fromfile(os.path.join(tmp, "stgpu.sr19293750.cf32"), np.complex64)
+    want = np.fromfile(os.path.join(tmp, "stcpu.sr19293750.cf32"), np.complex64)
+    # the stages read exactly what they need, so every sample the prefix
+    # gives equals the capture's at the same index
+    err, scale = float(np.abs(got[: len(want)] - want).max()), float(np.abs(want).max())
+    print(f"  stages write: {len(got)} samples at 19,293,750 sps; the prefix's {len(want)}: max |diff| {err:.3e}, "
+          f"scale {scale:.4g}, err/scale {err / scale:.3e}")
+    full_len = Resample(Agc(DcBlock(IqCorrect(open_capture(cap), c=0, device="cpu"), 32_000)), 147, 160).length
+    if not np.isfinite(got).all() or len(got) != full_len or err > 1e-5 * scale:
+        raise AssertionError("stages write disagrees with the CPU run or its length")
+    laps.append(("write check", time.perf_counter()))
+    wall, busy = profiled(["from", cap, *chain, "write", "-overwrite", "yes", os.path.join(tmp, "stgpu")])
+    walls["stages write profiled"], walls["stages write busy"] = wall, busy
+    print(f"  stages write, a profiled card run: wall {wall:.3f}s, device busy {busy:.3f}s, "
+          f"device share {100 * busy / wall:.1f}% ({card})")
+    laps.append(("profiled run", time.perf_counter()))
+
+    # the FSK chain through dcblock and agc: windows of 256 and 64 (the
+    # defaults' 32k + 4k lookback is re-read for each 64-sample pull)
+    cond = ["dcblock", "-window", "256", "agc", "-window", "64"]
+    fsk = ["shift", "280k", "lowpass", "-power", "200", "-decimate", "32", "200k", *cond]
+    out, cpu_out = card_then_cpu("stages sparkfft", lambda path, tag: ["from", path, *fsk, "sparkfft", "-width", "64",
+                                                                       "-stride", "16"], cap, pre, card, walls)
+    laps.append(("sparkfft runs", time.perf_counter()))
+    rows, cpu_rows = out.splitlines()[1:], cpu_out.splitlines()[1:]
+    length = 1 + (CAPTURE_SAMPLES - 400) // 32
+    if len(rows) != len(range(0, length - 64, 16)) or not cpu_rows:
+        raise AssertionError(f"stages sparkfft printed {len(rows)} rows for a {length}-sample stream")
+    stream = Agc(DcBlock(LowPass(Shift(open_capture(pre), 280_000), 200_000, 32, 400), 256), window=64)
+    bad, near = glyph_diffs(rows, cpu_rows, stream, 64, 16)
+    print(f"  stages sparkfft: {len(cpu_rows)} rows of the prefix compared, {bad} differ, {near} glyphs within "
+          f"{TOL} of a level")
+    laps.append(("sparkfft check", time.perf_counter()))
+
+    # the audio stage: 2^22 samples of a channel at 656,250 sps to 48 kHz
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t = torch.arange(1 << 22, device=DEVICE, dtype=torch.float64) / 656_250
+    audio = (torch.sin(2 * np.pi * 1000 * t) + 0.1 * torch.randn(t.shape, generator=g, device=DEVICE,
+                                                                   dtype=torch.float64)).float()
+    rate, y = resample_real(audio, 656_250, 48_000)
+    rate_cpu, y_cpu = resample_real(audio.cpu(), 656_250, 48_000)
+    err = float((y.cpu() - y_cpu).abs().max())
+    scale = float(y_cpu.abs().max())
+    ms = time_ms(lambda: resample_real(audio, 656_250, 48_000), iters=5)
+    print(f"  resample_real 656,250 -> 48,000 of {audio.numel()} samples: {y.numel()} out, max |diff| card vs CPU "
+          f"{err:.3e}, scale {scale:.4g}; {ms:.3f} ms on the card ({card})")
+    if (rate, rate_cpu) != (48_000, 48_000) or y.shape != y_cpu.shape or err > 1e-5 * scale:
+        raise AssertionError("resample_real disagrees with the CPU")
+    walls["resample_real ms"] = ms
+    laps.append(("resample_real", time.perf_counter()))
+    print("  stage phase, its steps: " + ", ".join(f"{name} {t - laps[i][1]:.1f}s" for i, (name, t) in enumerate(laps[1:])))
+    return walls
+
+
+def phase_find_timing(card: str) -> dict[str, float]:
+    """Phase 5, ``find``'s device program (:class:`XCorr`) at ``l`` 1024 and
+    4096 over the blocks of :data:`FIND_BLOCKS`, a dispatch of
+    ``FIND_DISPATCH_BUDGET`` samples of windows, single template and 9-row
+    grid: times of the forward FFT, the rows (product, inverse
+    FFT, scores), the energy, the extraction and the whole program, each the
+    device's own time (:func:`device_ms`); then the resampler's product at
+    the write batch against per-window weights."""
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.ops.correlate import XCorr
+    from quadrs_tpu_torch.ops.resample import phase_columns, resample_block, resample_tables
+
+    rng = np.random.default_rng(SEED)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out: dict[str, float] = {}
+    left = torch.tensor(float("-inf"), device=DEVICE)
+    configs = []
+    for l, blocks in FIND_BLOCKS.items():
+        p = rng.standard_normal(l) + 1j * rng.standard_normal(l)
+        for kind, freqs in (("single", None), ("grid 9", np.arange(-4, 5) * 0.4 / l)):
+            for c in blocks:
+                b = max(1, sinks.FIND_DISPATCH_BUDGET // c)
+                x = torch.complex(torch.randn((b, c), generator=g, device=DEVICE),
+                                  torch.randn((b, c), generator=g, device=DEVICE))
+                xc = XCorr(p, c, freqs)
+                xf, me = xc.forward(x), xc.energy(x)
+                sc = xc.scores(xf, me)
+                parts = {"forward FFT": lambda xc=xc, x=x: xc.forward(x), "rows": lambda xc=xc, xf=xf, me=me: xc.scores(xf, me),
+                         "energy": lambda xc=xc, x=x: xc.energy(x),
+                         "extraction": lambda xc=xc, sc=sc: xc.extract(*sc, left, 0.5, 1024),
+                         "whole": lambda xc=xc, x=x: xc.extract(*xc.compute(x), left, 0.5, 1024)}
+                configs.append((l, kind, c, b * (c - l + 1), parts, {k: [] for k in parts}))
+    # the device's own time (graph replays): host timing swung 1.5x between
+    # runs, two passes of graph replays agreed within 1%
+    for l, kind, c, lags, parts, runs in configs:
+        for k, fn in parts.items():
+            runs[k].append(device_ms(fn, launches=5, replays=5))
+    for l, kind, c, lags, parts, runs in configs:
+        t = {k: sum(v) / len(v) for k, v in runs.items()}
+        key = f"find l {l} {kind} c {c}"
+        out[key] = t["whole"] / lags * 1e6  # ns a lag
+        print(f"  {key}: {lags} lags; " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items())
+              + f"; {out[key]:.3f} ns a lag, {lags / t['whole'] / 1e3:.0f} Mlags/s ({card})")
+    for l, blocks in FIND_BLOCKS.items():
+        for kind in ("single", "grid 9"):
+            default = sinks.find_block(l, 1 << 40)
+            best = min(blocks, key=lambda c: out[f"find l {l} {kind} c {c}"])
+            gain = out[f"find l {l} {kind} c {default}"] / out[f"find l {l} {kind} c {best}"]
+            print(f"  find l {l} {kind}: fastest block {best}; the default {default} takes {gain:.2f}x its time a lag "
+                  f"(a CUDA default of its own would need 1.2x at l 1024 and 4096) ({card})")
+    configs.clear()
+
+    # the resampler at the write batch (256 pulls of 0x1000 outputs, 147/160)
+    size, up, down = 2 * 8 * 160, 147, 160
+    weights, _, m, _ = resample_tables(size, up, down)
+    n_in = (-(-0x1000 // up) - 1) * down + m
+    x = torch.complex(torch.randn((256, n_in), generator=g, device=DEVICE), torch.randn((256, n_in), generator=g, device=DEVICE))
+    w_sel = torch.from_numpy((np.arange(256) * 0x1000) % up).to(DEVICE)
+    w_dev = torch.as_tensor(weights, device=DEVICE)
+
+    def per_window():
+        # the JAX package's form: one (m, L) weight matrix gathered a window
+        from quadrs_tpu_torch.ops.fir import overlapped_frames
+
+        nb = -(-0x1000 // up)
+        frames = overlapped_frames(x, down, m, nb)
+        wsel = w_dev[w_sel]
+        y = torch.complex(torch.einsum("bfm,bml->bfl", frames.real, wsel), torch.einsum("bfm,bml->bfl", frames.imag, wsel))
+        return y.reshape(256, nb * up)[:, :0x1000]
+
+    err = float((resample_block(x, w_sel, size, up, down, 0x1000) - per_window()).abs().max())
+    t_cols, t_win = time_ms(lambda: resample_block(x, w_sel, size, up, down, 0x1000)), time_ms(per_window)
+    out["resample_block ms"], out["per-window weights ms"] = t_cols, t_win
+    print(f"  resample_block at the write batch (256 x {n_in} -> 0x1000, 147/160, {size} taps): {t_cols:.3f} ms "
+          f"against {t_win:.3f} ms gathering a weight matrix a window ({256 * m * up * 4 / 2**20:.1f} MiB); "
+          f"|diff| {err:.1e}; the columns table is {phase_columns(size, up, down).nbytes / 2**10:.0f} KiB ({card})")
+    return out
 
 
 def synth_on_device(fmt, shape, seed: int) -> torch.Tensor:
@@ -1451,6 +1914,14 @@ def main() -> int:
         live_launches = phase_live_path(card, cap, tmp, norms)
         del norms
         phase_chain_path(card, cap, tmp)
+        before, t0 = all_launches(), time.perf_counter()
+        walls = phase_find_path(card, tmp, cap)
+        t1 = time.perf_counter()
+        walls.update(phase_stage_path(card, cap, tmp))
+        if all_launches() != before:
+            raise AssertionError("find or the stages launched a kernel of the port: they run as torch ops")
+        print(f"  find and the stages: {time.perf_counter() - t0:.1f}s of phase 4 (find {t1 - t0:.1f}s, "
+              f"the stages {time.perf_counter() - t1:.1f}s)")
     bank_launches, bank_err = phase_bank_path(card)
     launches.update(bank_launches)
     for name, count in live_launches.items():
@@ -1468,6 +1939,12 @@ def main() -> int:
     ms.update(phase_chain_timing(card))
     phase_cs16_readings(card)
     wf_ms = phase_waterfall_timing(card, at_main)
+    t0 = time.perf_counter()
+    phase_find_timing(card)
+    print(f"  find's sweep and the resampler's product: {time.perf_counter() - t0:.1f}s of phase 5")
+    for name in ("find", "find bank", "stages write"):
+        print(f"  {name}: {CAPTURE_SAMPLES / walls[name] / 1e6:.1f} Msps of capture; a profiled run's device share "
+              f"{100 * walls[f'{name} busy'] / walls[f'{name} profiled']:.1f}% ({card})")
 
     # errors at the main paths' shapes: max_abs_err, and err_over_max
     # (that over the max of the plain output; for scan, the sum error

@@ -17,6 +17,13 @@ many captures decode, window and transform at once into spectrogram
 rows, per-window peaks or per-bin survey statistics, through three
 hand-written CUDA kernels (``csrc/waterfall.cu``).
 
+Pattern search (``find``: a template bank over a carrier-offset grid,
+overlap-save FFT correlation with the candidate scan on the device) and
+the conditioning stages (``iqbal``, ``dcblock``, ``agc``, ``resample``)
+run as torch ops and cuFFT in any chain (:mod:`.ops.correlate`,
+:mod:`.ops.resample`, :mod:`.stream`); :mod:`.bits` decodes OOK pulse
+trains.
+
 Capture files are read through the package's own C++ loader
 (``native/loader.cc``, built with g++ at first use), staged into
 page-locked rings and copied on a copy stream (:mod:`.staging`); live

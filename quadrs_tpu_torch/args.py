@@ -6,11 +6,12 @@ arguments.
     from [-sr R] [-format F] FILE  shift [-]FREQ  lowpass [-power P]
     [-decimate D] FREQ  sparkfft [-width W] [-stride S] [-range LO:HI]
     bucket [-width W] [-stride S] -by freq COUNT  write [-overwrite B]
-    PREFIX  gen [-cos F]* [-len SECS] RATE  stream ...  waterfall ...
+    PREFIX  gen [-cos F]* [-len SECS] RATE  resample UP/DOWN  dcblock
+    agc  iqbal  find -pattern FILE ...  stream ...  waterfall ...
     scan ...  info FILE...  replay FILE
 
-``resample``, ``dcblock``, ``agc``, ``iqbal``, ``find``, ``ui`` and ``eui``
-parse as in the JAX package; running them raises "not yet ported".
+``ui`` and ``eui`` parse as in the JAX package; running them raises "not
+yet ported".
 
 Parsing rules preserved from ``read_just_args`` (``src/args.rs:404-445``):
 flags are collected until the first non-flag token; a ``-``-prefixed

@@ -18,15 +18,30 @@ import torch
 from quadrs_tpu_torch import args as argmod
 from quadrs_tpu_torch import serve
 from quadrs_tpu_torch.ops.frontend import no_tf32
-from quadrs_tpu_torch.pipeline import run_pipeline
+from quadrs_tpu_torch.pipeline import FindOp, run_pipeline
+from quadrs_tpu_torch.sources import LivePipeStream
 
 USAGE = """\
 usage: {us} \\
     from [-sr SAMPLE_RATE] [-format cf32|cs8|cu8|cs16] FILENAME.sr32k.cf32 \\
    shift [-]FREQUENCY \\
  lowpass [-power 20] [-decimate 8] FREQUENCY \\
+resample [-power 8] [-size N] UP/DOWN [rational rate conversion, e.g. 3/2 or 147/160] \\
+ dcblock [-window 32k] [subtract the trailing-window mean: kills a tuner's DC spike] \\
+     agc [-target 1] [-window 4k] [-max-gain 1k] [normalize trailing-window RMS to target] \\
+   iqbal [-c RE:IM] [-est 256k] [IQ-imbalance image cancel; -c explicit, else blind-estimated] \\
 sparkfft [-width 128] [-stride =width] [-range LOW:HIGH] \\
   bucket [-width 128] [-stride =width] [-by freq] COUNT \\
+    find [-pattern FILE.srR.cf32]+ [-threshold 0.5] [-top 0 (all)] [-distance =patlen] \\
+         [-freq-tol HZ (also search a carrier-offset grid)] [-freq-step =0.4*sr/patlen] \\
+         [matched filter: find every occurrence of the pattern(s) in the stream by \\
+          gain/phase-invariant normalized correlation; prints offset,score,scale,freq \\
+          (repeated -pattern = a sync-word bank; lines then add the winning template)] \\
+         [-stdin no] [-sr R] [-format F] [search a live pipe with O(chunk) memory: \\
+          rtl_sdr - | {us} find -pattern sync.sr2M.cf32 -stdin yes -sr 2M -format cu8] \\
+         [-write PREFIX] [-pre 0] [-post 0] [-overwrite no] [save each match as a \\
+          re-from-able slice of the ORIGINAL capture, widened by pre/post samples — \\
+          preamble-triggered packet extraction, span-mapped through the chain] \\
    write [-overwrite no] [-format cf32|cs8|cu8|cs16 (quantize; default cf32)] FILENAME_PREFIX \\
      gen [-cos FREQUENCY]* [-len 1 (second)] [-noise 0 (sigma/component, seeded)] [-seed 0] SAMPLE_RATE \\
   stream [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] \\
@@ -42,8 +57,8 @@ waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
   replay [-speed 1 (x real time; 0 = unthrottled)] [-loop 1] [-chunk 64k] FILENAME \\
          (raw bytes to stdout, paced: a recorded capture as a live pipe)
 
-(resample, dcblock, agc, iqbal, find, ui and eui, and -mesh and scan -plot,
-parse as in quadjax but are not yet ported.)
+(ui and eui, and -mesh and scan -plot, parse as in quadjax but are not yet
+ported.)
 
 Formats:
 
@@ -61,6 +76,15 @@ _RUNNERS = {
     argmod.InfoCmd: serve.run_info,
     argmod.ReplayCmd: serve.run_replay,
 }
+
+
+def _kind(command) -> str:
+    """How :func:`main` runs a command: folded over the accumulator
+    (``chain``), as ``find -stdin`` over the pipe (``live find``), or as a
+    command of its own (``runner``)."""
+    if not isinstance(command, argmod.Octagon):
+        return "runner"
+    return "live find" if isinstance(command.op, FindOp) and command.op.stdin else "chain"
 
 
 def select_device() -> torch.device:
@@ -100,12 +124,17 @@ def main(argv: list[str] | None = None) -> int:
     try:
         device = select_device()
         # each run of chainable commands folds over the accumulator, which
-        # carries across the runner commands between them
-        for chained, group in itertools.groupby(commands, key=lambda c: isinstance(c, argmod.Octagon)):
-            if chained:
+        # carries across the other commands between them
+        for kind, group in itertools.groupby(commands, key=_kind):
+            if kind == "chain":
                 stream = run_pipeline([c.op for c in group], device=device, stream=stream)
                 continue
             for command in group:
+                if kind == "live find":
+                    # find -stdin searches the pipe itself and leaves the
+                    # accumulator untouched; matches print at EOF
+                    run_pipeline([command.op], device=device, stream=LivePipeStream(serve._stdin_pipe_source(command.op)))
+                    continue
                 if isinstance(command, (argmod.Ui, argmod.Eui)):
                     name = "ui" if isinstance(command, argmod.Ui) else "eui"
                     raise NotImplementedError(f"{name} is not yet ported to quadrs_tpu_torch (ROADMAP A14)")

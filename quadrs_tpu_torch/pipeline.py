@@ -4,12 +4,11 @@ The counterpart of ``quadrs_tpu.pipeline``, after the reference's
 ``Operation`` enum and ``exec`` fold (``src/lib.rs:25-176``): ``From`` and
 ``Gen`` create the stream accumulator, ``Shift`` and ``LowPass`` wrap it
 lazily, and the sinks (``SparkFft``, ``Bucket``, ``Write``) consume it and
-pass it on unchanged, so several sinks can be chained.  Every device
+pass it on unchanged, so several sinks can be chained.  The JAX package's
+additions are here too: the stages ``resample``, ``dcblock``, ``agc`` and
+``iqbal``, and the pattern search ``find`` (a sink).  Every device
 computation runs on the ``device`` the caller passes in (the CLI chooses
 it once).
-
-The JAX package's other operations (``resample``, ``dcblock``, ``agc``,
-``iqbal``, ``find``) parse as there and raise "not yet ported" here.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import torch
 from quadrs_tpu_torch import sinks
 from quadrs_tpu_torch.formats import FileDetails
 from quadrs_tpu_torch.sources import SampleSource, ToneGen
-from quadrs_tpu_torch.stream import LowPass, Shift, Stream
+from quadrs_tpu_torch.stream import Agc, DcBlock, IqCorrect, LowPass, Resample, Shift, Stream
 
 
 class Operation:
@@ -82,7 +81,7 @@ class GenOp(Operation):
     seed: int = 0
 
 
-# -- parsed, not yet ported (the JAX package's additions) --------------------
+# -- the JAX package's additions ---------------------------------------------
 
 
 @dataclass
@@ -130,16 +129,6 @@ class FindOp(Operation):
     mesh: tuple[int, int] | None = None
 
 
-# operation -> (command, the ROADMAP item that ports it)
-NOT_PORTED = {
-    ResampleOp: ("resample", "A10"),
-    DcBlockOp: ("dcblock", "A10"),
-    AgcOp: ("agc", "A10"),
-    IqbalOp: ("iqbal", "A10"),
-    FindOp: ("find", "A9"),
-}
-
-
 def _need(stream: Stream | None, what: str) -> Stream:
     if stream is None:
         raise ValueError(f"{what} requires an input")
@@ -164,6 +153,18 @@ def exec_operation(
         return Shift(stream, op.frequency, stream.sample_rate)
     if isinstance(op, LowPassOp):
         return LowPass(_need(stream, "lowpass"), op.frequency, op.decimate, op.size)
+    if isinstance(op, ResampleOp):
+        return Resample(_need(stream, "resample"), op.up, op.down, size=op.size, power=op.power)
+    if isinstance(op, DcBlockOp):
+        return DcBlock(_need(stream, "dcblock"), op.window)
+    if isinstance(op, AgcOp):
+        return Agc(_need(stream, "agc"), target=op.target, window=op.window, max_gain=op.max_gain)
+    if isinstance(op, IqbalOp):
+        return IqCorrect(_need(stream, "iqbal"), c=op.c, est_samples=op.est, device=device)
+    if isinstance(op, FindOp):
+        stream = _need(stream, "find")
+        _find(op, stream, emit, device)
+        return stream
     if isinstance(op, SparkFftOp):
         stream = _need(stream, "sparkfft")
         # print takes a batch's rows as one string: one write per batch
@@ -178,10 +179,61 @@ def exec_operation(
         stream = _need(stream, "write")
         sinks.do_write(stream, op.overwrite, op.prefix, directory=write_dir, fmt=op.format, device=device)
         return stream
-    if type(op) in NOT_PORTED:
-        name, item = NOT_PORTED[type(op)]
-        raise NotImplementedError(f"{name} is not yet ported to quadrs_tpu_torch (ROADMAP {item})")
     raise ValueError(f"unknown operation: {op!r}")
+
+
+def _find(op: FindOp, stream: Stream, emit: Callable[[str], None], device) -> None:
+    """``find``: search ``stream`` for the pattern files, print one line a
+    match and a closing line, and with ``-write`` save each match as a
+    slice of the original capture."""
+    pats = []
+    for fname, details in zip(op.filenames, op.details):
+        psrc = SampleSource.from_file(fname, details)
+        if psrc.sample_rate != stream.sample_rate:
+            raise ValueError(
+                f"pattern rate {psrc.sample_rate} != stream rate "
+                f"{stream.sample_rate}: resample one side first"
+            )
+        pat, valid = psrc.read_at(0, psrc.length, device)
+        if valid != psrc.length:
+            raise RuntimeError("short read loading the pattern capture")
+        pats.append(pat)
+    res = sinks.find_pattern(
+        stream,
+        pats if len(pats) > 1 else pats[0],
+        threshold=op.threshold,
+        max_matches=op.top if op.top else None,
+        min_distance=op.distance,
+        freq_tol=op.freq_tol,
+        freq_step=op.freq_step,
+        mesh=op.mesh,
+        device=device,
+    )
+    bank = len(pats) > 1
+    for o, s, a, f, w in zip(res.offsets, res.scores, res.scales, res.freqs, res.which):
+        line = f"{int(o)},{float(s):.4f},{float(a):.6g},{float(f):+g}"
+        emit(line + f",{int(w)}" if bank else line)  # a bank adds which
+    if op.write is not None:
+        root = stream.root()
+        if not hasattr(root, "raw_bytes"):
+            raise ValueError(
+                "find -write needs a seekable capture file behind the "
+                "chain (a pipe keeps no history to slice)"
+            )
+        ext = root.format.value  # the enum values are the extensions
+        for k, (o, w) in enumerate(zip(res.offsets, res.which)):
+            # widen in searched-stream samples, then map the span through the
+            # chain (FIR lookahead included), so the slice re-demodulates
+            a = max(0, int(o) - op.pre)
+            n = int(o) + len(pats[int(w)]) + op.post - a
+            s0, sn = stream.span(a, n)
+            s0 = max(0, s0)
+            s1 = min(s0 + sn, root.length)
+            path = f"{op.write}.m{k}.s{s0}.sr{root.sample_rate}.{ext}"
+            with open(path, "wb" if op.overwrite else "xb") as fh:
+                fh.write(root.raw_bytes(s0, s1))
+            emit(f"find match {k}: samples {s0}..{s1}, wrote {path}")
+    emit(f"find: {len(res.offsets)} matches, pattern {res.pattern_len} samples, {res.scanned} scanned")
 
 
 def run_pipeline(

@@ -75,17 +75,25 @@ class Executor:
         n: int,
         device: torch.device | str,
         batch: int | None = None,
-        post: Callable[[torch.Tensor], Any] | None = None,
+        post: Callable[..., Any] | None = None,
+        post_takes_aux: bool = False,
     ):
         """``post``: optional transform of the (B, n) complex64 batch (for
         example windowed FFT norms), run on the device before the result
-        crosses to the host.  ``batch``: the most windows one :meth:`run`
-        takes."""
+        crosses to the host.  Its outputs may also be batch-level (0-dim
+        tensors, top-k rows): batches are never padded, so no row is
+        stripped.  ``batch``: the most windows one :meth:`run` takes.
+
+        ``post_takes_aux``: ``post`` is ``post(x, aux)``, ``aux`` a small
+        host scalar passed per :meth:`run` or :meth:`submit` (the carried
+        boundary score of the device-side candidate scan), on the device as
+        a 0-dim f32 tensor."""
         self.stream = stream
         self.n = int(n)
         self.device = torch.device(device)
         self.batch = batch
         self.post = post
+        self.post_takes_aux = post_takes_aux
         self.source = stream.root()
         # two page-locked host buffers for staged spans, used in turn, each
         # with the event of its last copy: one batch stages while the one
@@ -114,7 +122,7 @@ class Executor:
             self._copied[j].record(torch.cuda.current_stream(self.device))
         return buf
 
-    def submit(self, offs: np.ndarray) -> tuple[Download, np.ndarray]:
+    def submit(self, offs: np.ndarray, aux=None) -> tuple[Download, np.ndarray]:
         """Stage, plan and launch one batch of window offsets, and start its
         output on the way back; returns ``(download, valid)``.
         ``download.wait()`` gives the outputs (see :meth:`run`).  One batch
@@ -141,19 +149,22 @@ class Executor:
         plan = self.stream.plan(offs, self.n, base)
         ctx = {"buf": buf, "device": self.device}
         out = self.stream.read_batch(ctx, _to_device(plan.prep, self.device), self.n)
-        if self.post is not None:
+        if self.post_takes_aux:
+            out = self.post(out, torch.tensor(0.0 if aux is None else aux, dtype=torch.float32, device=self.device))
+        elif self.post is not None:
             out = self.post(out)
         # back through page-locked memory on a CUDA device
         return Download(out, self.device), plan.valid
 
-    def run(self, offs: np.ndarray) -> tuple[Any, np.ndarray]:
+    def run(self, offs: np.ndarray, aux=None) -> tuple[Any, np.ndarray]:
         """Execute one batch of window offsets.
 
         Returns ``(outputs, valid)``: ``outputs`` (numpy, or a tuple of
         numpy arrays for a tuple-valued ``post``) with leading dim
-        ``len(offs)``, and ``valid`` each window's true sample count per
-        the reference's short-read semantics."""
-        download, valid = self.submit(offs)
+        ``len(offs)`` (but for a batch-level output), and ``valid`` each
+        window's true sample count per the reference's short-read
+        semantics."""
+        download, valid = self.submit(offs, aux)
         return download.wait(), valid
 
     def run_each(self, batches):

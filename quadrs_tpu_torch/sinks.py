@@ -1,5 +1,6 @@
 """Sinks: the terminal spectrogram, the frequency bucketer, the writer,
-and the capture statistics behind ``info``.
+the pattern search behind ``find``, and the capture statistics behind
+``info``.
 
 The counterpart of ``quadrs_tpu.sinks``.  Each sink pulls windows through
 batched device work (:class:`~quadrs_tpu_torch.runtime.Executor`) and
@@ -263,6 +264,221 @@ def _write_sequential(fh, stream: Stream, off: int, encode=encode_cf32, *, devic
             raise RuntimeError(f"short read at offset {off} of {stream.length}")
         fh.write(encode(samples[0][:read]))
         off += read
+
+
+# A near-constant score track (a CW-like template over its own carrier)
+# makes every lag a rounding-noise "local max": find_pattern bounds its
+# candidate list, so that a pathological search fails fast with guidance.
+FIND_CANDIDATE_CAP = 1 << 20
+
+# Per-dispatch lag budget for find_pattern, and the device candidate
+# scan's top-k width (a dispatch with more candidates than this falls back
+# to the full-score path).  Module-level so tests can shrink them.
+FIND_DISPATCH_BUDGET = 1 << 22
+FIND_TOPK = 1024
+
+
+def _round_up_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+@dataclass
+class FindResult:
+    """Matches from :func:`find_pattern`, sorted by offset."""
+
+    offsets: np.ndarray  # int64 sample offsets into the searched stream
+    scores: np.ndarray  # f32 normalized correlation in [0, 1]
+    scales: np.ndarray  # f32 |match amplitude| relative to its template
+    freqs: np.ndarray  # f64 carrier offset of each match (Hz; 0 without a grid)
+    which: np.ndarray  # int64 index of the matching template (0 without a bank)
+    pattern_len: int  # the longest template
+    scanned: int  # stream samples scanned
+
+
+def find_block(l: int, length: int, chunk: int | None = None, live: bool = False) -> int:
+    """:func:`find_pattern`'s window (the FFT block) for a longest template
+    of ``l`` samples over a stream of ``length``: a power of two, at least
+    ``2*l``, and ``chunk`` unless the stream is shorter; on a live pipe
+    ``chunk`` itself.
+
+    The default ``chunk`` is the JAX package's ``max(4*l, 4096)``, measured
+    on a TPU v5e, on every device: on an NVIDIA H100 80GB HBM3 at 700.00 W
+    (``chip_smoke.py`` phase 5, the device's own time of a dispatch of 2^22
+    samples of windows) the best block of 4096 to 65536 took 1.02-1.11x
+    less time a lag than it, short of a reason to differ."""
+    if chunk is None:
+        chunk = max(4 * l, 4096)
+    return _round_up_pow2(max(2 * l, chunk if live else min(chunk, length)))
+
+
+def _too_many(cap: int, threshold: float, upto: int) -> ValueError:
+    return ValueError(
+        f"more than {cap} candidate peaks above threshold {threshold:g} in the "
+        f"first {upto} samples: the pattern matches nearly everywhere — raise "
+        "the threshold or use a more distinctive template"
+    )
+
+
+def find_pattern(
+    stream: Stream,
+    pattern,
+    threshold: float = 0.5,
+    chunk: int | None = None,
+    max_matches: int | None = None,
+    min_distance: int | None = None,
+    freq_tol: float = 0.0,
+    freq_step: float | None = None,
+    mesh=None,
+    *,
+    device: torch.device | str,
+) -> FindResult:
+    """Find every occurrence of a complex ``pattern`` in ``stream`` by
+    gain- and phase-invariant normalized cross-correlation
+    (:mod:`quadrs_tpu_torch.ops.correlate`).  ``pattern`` may be a sequence
+    of templates (a sync-word bank, lengths may differ): every lag keeps its
+    best normalized row, and each match reports its template in ``which``.
+
+    Windows of ``c = pow2(max(2*l_max, min(chunk, length)))`` samples step
+    by ``c - l_max + 1`` (overlap-save: every lag is scored once); a
+    streaming local-maximum scanner keeps candidates ``>= threshold`` and
+    greedy non-maximum suppression within ``min_distance`` (default: the
+    longest template) picks the matches.  ``chunk=None`` takes
+    ``max(4*l_max, 4096)`` (:func:`find_block`).  Matches do not depend on
+    the block.
+
+    ``freq_tol`` (Hz) also searches a symmetric carrier-offset grid of step
+    ``freq_step`` (default ``0.4 * rate / l``, at most 256 rows); each match
+    reports its grid frequency in ``freqs``.
+
+    Full batches whose last window fits run the device-side candidate scan
+    (top-k candidates and boundary scalars come back, not the score rows);
+    the ragged tail, and any dispatch whose candidate count overflows
+    :data:`FIND_TOPK`, run the full-score path, and :class:`PeakScan`
+    bridges the two exactly.  ``find_pattern.dispatches`` counts them:
+    ``extract`` the dispatches the device scan decided, ``overflow`` those
+    it gave back to the full-score path, ``full`` the full-score ones.
+    ``mesh`` (multi-device sharding) is not ported yet."""
+    from quadrs_tpu_torch.ops.correlate import PeakScan, make_xcorr_post, suppress
+
+    if mesh is not None:
+        raise NotImplementedError("find -mesh (multi-GPU sharding) is not yet ported to quadrs_tpu_torch (ROADMAP A13)")
+    pats = [np.asarray(q) for q in pattern] if isinstance(pattern, (list, tuple)) else [np.asarray(pattern)]
+    lens = [len(q) for q in pats]
+    l = max(lens)  # the common lag range uses the longest template
+    if min(lens) < 2:
+        raise ValueError("pattern must have at least 2 samples")
+    if stream.length < l:  # a live pipe reads as a huge sentinel here
+        raise ValueError(f"stream ({stream.length} samples) shorter than the pattern ({l})")
+    if not 0.0 < threshold <= 1.0:
+        raise ValueError("threshold must be in (0, 1]")
+    if freq_tol < 0.0:
+        raise ValueError("freq_tol must be >= 0")
+    rate = stream.sample_rate
+    if freq_tol > 0.0:
+        step = 0.4 * rate / l if freq_step is None else float(freq_step)
+        if step <= 0.0:
+            raise ValueError("freq_step must be positive")
+        n_side = int(np.ceil(freq_tol / step))
+        if 2 * n_side + 1 > 256:
+            raise ValueError(
+                f"frequency grid of {2 * n_side + 1} rows (tol {freq_tol:g} "
+                f"Hz / step {step:g} Hz) exceeds 256: raise freq_step or "
+                "shift the stream closer first"
+            )
+        grid_hz = np.arange(-n_side, n_side + 1, dtype=np.float64) * step
+        grid = grid_hz / rate  # cycles per sample for the ops
+    else:
+        grid_hz = np.zeros(1)
+        grid = None
+    live = bool(getattr(stream, "is_live", False)) and stream.length >= (1 << 59)
+    c = find_block(l, stream.length, chunk, live)
+    n_out = c - l + 1
+
+    # one f32 threshold for both comparison sites: the device scan compares
+    # in f32, the host's pending logic in f64
+    threshold = float(np.float32(threshold))
+    budget = max(c, FIND_DISPATCH_BUDGET)
+    scan = PeakScan(threshold)
+    cand_cap = FIND_CANDIDATE_CAP
+    counts = find_pattern.dispatches
+
+    def feed_batch(outs, offs, n_lags) -> None:
+        (score, scale, ridx), valid = outs
+        aux = np.stack([scale, ridx], axis=-1)
+        last = 0
+        for i in range(len(offs)):
+            o, v = int(offs[i]), int(valid[i])
+            m = min(max(0, v - l + 1), n_lags - o)
+            scan.feed(o, score[i][:m], aux[i][:m])
+            last = o + m
+        if len(scan.offsets) > cand_cap:
+            raise _too_many(cand_cap, threshold, last)
+
+    if live:
+        # a pipe's length is a sentinel until EOF: walk forward one window
+        # batch at a time (the facade reads the pipe on demand and discards
+        # behind), and when EOF surfaces mid-batch, run that batch again:
+        # the first run planned its valid counts against the sentinel
+        b = max(1, int(min(8, budget // c)))
+        ex = Executor(stream, c, device, batch=b, post=make_xcorr_post(pats, c, grid))
+        o = 0
+        while True:
+            offs = o + n_out * np.arange(b, dtype=np.int64)
+            outs = ex.run(offs)  # advances the pipe; may find EOF
+            counts["full"] += 1
+            if stream.length < (1 << 59):  # the EOF position is known
+                n_lags = stream.length - l + 1
+                if n_lags < 1:
+                    raise ValueError(f"stream ({stream.length} samples) shorter than the pattern ({l})")
+                offs = offs[offs < n_lags]
+                if len(offs):
+                    feed_batch(ex.run(offs), offs, n_lags)
+                    counts["full"] += 1
+                break
+            feed_batch(outs, offs, 1 << 60)
+            o += b * n_out
+    else:
+        n_lags = stream.length - l + 1
+        offsets = np.arange(0, n_lags, n_out, dtype=np.int64)
+        batch, batches = window_batches(offsets, c, budget=budget, root_step=root_step_of(stream))
+        ex_x = Executor(
+            stream, c, device, batch=batch,
+            post=make_xcorr_post(pats, c, grid, extract=(threshold, FIND_TOPK)),
+            post_takes_aux=True,
+        )
+        ex_full = None
+        for offs in batches:
+            if len(offs) == batch and int(offs[-1]) + c <= stream.length:
+                res, _ = ex_x.run(offs, aux=scan.carry)
+                if scan.feed_extract(int(offs[0]), len(offs) * n_out, res):
+                    counts["extract"] += 1
+                    if len(scan.offsets) > cand_cap:
+                        raise _too_many(cand_cap, threshold, int(offs[-1]) + n_out)
+                    continue
+                counts["overflow"] += 1
+            if ex_full is None:
+                ex_full = Executor(stream, c, device, batch=batch, post=make_xcorr_post(pats, c, grid))
+            feed_batch(ex_full.run(offs), offs, n_lags)
+            counts["full"] += 1
+    scan.finish()
+
+    cand_off = np.asarray(scan.offsets, dtype=np.int64)
+    cand_score = np.asarray(scan.scores, dtype=np.float32)
+    cand_aux = np.asarray(scan.aux, dtype=np.float64) if scan.aux else np.zeros((0, 2))
+    keep = suppress(cand_off, cand_score, min_distance if min_distance is not None else l, max_matches)
+    ridx = cand_aux[keep, 1].astype(np.int64)  # pattern_index * F + f_index
+    return FindResult(
+        offsets=cand_off[keep],
+        scores=cand_score[keep],
+        scales=cand_aux[keep, 0].astype(np.float32),
+        freqs=grid_hz[ridx % len(grid_hz)],
+        which=ridx // len(grid_hz),
+        pattern_len=l,
+        scanned=stream.length,
+    )
+
+
+find_pattern.dispatches = {"extract": 0, "overflow": 0, "full": 0}
 
 
 @dataclass

@@ -24,12 +24,15 @@ convolution at block edges bit for bit: ``complex_convolve`` skips
 out-of-buffer taps (``src/filter.rs:116``), which is convolving a
 zero-padded block.
 
-``DcBlock``, ``Agc``, ``IqCorrect`` and ``Resample`` of the JAX package
-are not ported yet (ROADMAP A10).
+The conditioning stages (``DcBlock``, ``Agc``, ``IqCorrect``) and the
+rational resampler (``Resample``) are the JAX package's additions; unlike
+LowPass they are pull-size invariant: a read re-reads the lookback it
+needs.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -193,3 +196,260 @@ class LowPass(Stream):
         # the truncated block the reference convolves: zero past this read
         keep = torch.arange(n_in, device=x.device)[None, :] < prep["valid_in"][:, None]
         return fir_decimate(torch.where(keep, x, 0), self.taps, self.decimate, n, impl=self.fir_impl)
+
+
+def _tw_indices(lead: torch.Tensor, n: int, window: int):
+    """Per-row block indices for trailing windows ``(m-W, m]``.
+
+    ``lead[r]`` is the block index of row ``r``'s first output sample
+    (``W-1`` once the stream has warmed up; less only for windows that
+    start within the first ``W-1`` samples, where the lookback clamps at
+    offset 0).  Returns ``(idx, hi, lo)``: ``idx`` addresses output samples
+    in the input block, ``hi``/``lo`` an exclusive prefix sum, so that
+    ``cs[hi] - cs[lo]`` is each output position's trailing-window sum."""
+    idx = lead[:, None].to(torch.int64) + torch.arange(n, device=lead.device)[None, :]
+    hi = idx + 1
+    return idx, hi, (hi - window).clamp_(min=0)
+
+
+def _tw_count(abs_c: torch.Tensor, n: int, window: int) -> torch.Tensor:
+    """(B, n) f32 sample count of each trailing window: ``min(W, m+1)`` at
+    absolute position ``m``.  ``abs_c``, the absolute position of each
+    row's first output, is clipped to ``W`` on the host."""
+    m1 = abs_c[:, None].to(torch.int64) + torch.arange(n, device=abs_c.device)[None, :] + 1
+    return m1.clamp_(max=window).to(torch.float32)
+
+
+def _trailing_sums(v: torch.Tensor, prep: Any, n: int, window: int) -> torch.Tensor:
+    """Each output position's sum of ``v`` over its trailing window, from
+    one prefix sum over the block."""
+    cs = torch.cat([torch.zeros_like(v[:, :1]), torch.cumsum(v, dim=1)], dim=1)
+    _, hi, lo = _tw_indices(prep["lead"], n, window)
+    return torch.gather(cs, 1, hi) - torch.gather(cs, 1, lo)
+
+
+class _Trailing(Stream):
+    """Shared plumbing for stages conditioned on a trailing window of the
+    last ``W`` input samples (the current one included): exact random
+    access (the lookback is re-read, clamped at the stream start), so
+    outputs do not depend on the pull size, unlike LowPass's per-read
+    truncation."""
+
+    window: int
+
+    def __init__(self, inner: Stream, window: int):
+        if window < 1:
+            raise ValueError("window must be at least 1")
+        self.inner = inner
+        self.window = int(window)
+        self.length = inner.length
+        self.sample_rate = inner.sample_rate
+
+    def span(self, off: int, n: int) -> tuple[int, int]:
+        lo = max(0, off - (self.window - 1))
+        return self.inner.span(lo, n + (off - lo))
+
+    def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
+        offs = np.asarray(offs, dtype=np.int64)
+        back = self.window - 1
+        offs_in = np.maximum(offs - back, 0)
+        lead = offs - offs_in
+        inner = self.inner.plan(offs_in, n + back, base)
+        valid_out = np.clip(inner.valid - lead, 0, n)
+        prep = {
+            "inner": inner.prep,
+            "lead": lead,
+            "abs_c": np.minimum(offs, self.window),
+            "valid_out": valid_out,
+        }
+        return Plan(prep=prep, valid=valid_out)
+
+    @staticmethod
+    def _mask_valid(y: torch.Tensor, prep: Any, n: int) -> torch.Tensor:
+        """Outputs past the source-derived valid count are exactly zero (a
+        trailing mean or gain would otherwise leak into the padding)."""
+        keep = torch.arange(n, device=y.device)[None, :] < prep["valid_out"][:, None]
+        return torch.where(keep, y, 0)
+
+    def _inner_block(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
+        return self.inner.read_batch(ctx, prep["inner"], n + self.window - 1)
+
+    def _current(self, x: torch.Tensor, prep: Any, n: int) -> torch.Tensor:
+        """Each output position's own input sample."""
+        idx, _, _ = _tw_indices(prep["lead"], n, self.window)
+        return torch.gather(x, 1, idx)
+
+
+class DcBlock(_Trailing):
+    """DC-offset remover (the JAX package's addition; no reference
+    counterpart).  Subtracts from each sample the mean of the trailing
+    ``window`` input samples (inclusive):
+
+        y[m] = x[m] - mean(x[max(0, m-W+1) .. m])
+
+    The trailing sum is a difference of two prefix-sum lookups over each
+    pulled block, taken about the block's mean: ``x - mean(x)`` has the
+    same trailing deviations, and its f32 prefix does not grow with a
+    baseline (cu8's decode parks every sample near -127, where the JAX
+    package's prefix of ``x`` itself loses 1.8e-2 of the output at window 7
+    against the f64 formula; this stays within 2.1e-5 of it, 2.4e-7 at
+    cf32 and cs8)."""
+
+    def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
+        x = self._inner_block(ctx, prep, n)
+        if self.window == 1:  # the trailing window is the sample itself
+            return torch.zeros((x.shape[0], n), dtype=x.dtype, device=x.device)
+        x = x - x.mean(dim=1, keepdim=True)
+        dc = _trailing_sums(x, prep, n, self.window) / _tw_count(prep["abs_c"], n, self.window)
+        return self._mask_valid(self._current(x, prep, n) - dc, prep, n)
+
+
+class Agc(_Trailing):
+    """Automatic gain control (the JAX package's addition).  Normalizes the
+    trailing-window RMS to ``target``:
+
+        rms[m] = sqrt(mean(|x[k]|^2, k in (m-W, m]))
+        y[m]   = x[m] * target / max(rms[m], target / max_gain)
+
+    Instant attack, ``window``-shaped decay; ``max_gain`` stops silence
+    from being amplified into noise."""
+
+    def __init__(self, inner: Stream, target: float = 1.0, window: int = 4_000, max_gain: float = 1000.0):
+        super().__init__(inner, window)
+        if not target > 0:
+            raise ValueError("target must be positive")
+        if not max_gain > 0:
+            raise ValueError("max-gain must be positive")
+        self.target = float(target)
+        self.max_gain = float(max_gain)
+
+    def _gain(self, rms: torch.Tensor) -> torch.Tensor:
+        return self.target / torch.clamp(rms, min=self.target / self.max_gain)
+
+    def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
+        x = self._inner_block(ctx, prep, n)
+        if self.window == 1:
+            # the direct magnitude: a prefix-sum difference would carry the
+            # prefix's cancellation noise for nothing
+            return self._mask_valid(x * self._gain(torch.sqrt(x.real**2 + x.imag**2)), prep, n)
+        psum = _trailing_sums(x.real**2 + x.imag**2, prep, n, self.window)
+        rms = torch.sqrt(torch.clamp(psum, min=0.0) / _tw_count(prep["abs_c"], n, self.window))
+        return self._mask_valid(self._current(x, prep, n) * self._gain(rms), prep, n)
+
+
+class IqCorrect(Stream):
+    """IQ-imbalance corrector (the JAX package's addition): the
+    widely-linear correction
+
+        y[m] = x[m] - c * conj(x[m])
+
+    with ``c`` given, or blind-estimated once at construction from the
+    capture's leading samples by the mean-centred circularity ratio
+
+        z = x - E[x],    rho = E[z^2] / E[|z|^2],    c = rho / 2
+
+    on the host in f64 (centring keeps a DC offset, such as the cu8/cs16
+    decode formulas' parked baseline, from reading as an image).  The
+    estimate's read runs on ``device``."""
+
+    def __init__(self, inner: Stream, c: complex | None = None, est_samples: int = 256_000, *, device: torch.device | str):
+        self.inner = inner
+        self.length = inner.length
+        self.sample_rate = inner.sample_rate
+        if c is None:
+            n = int(min(est_samples, inner.length))
+            if n < 2:
+                raise ValueError("capture too short to estimate IQ imbalance")
+            x, valid = inner.read_at(0, n, device)
+            x = np.asarray(x[:valid], dtype=np.complex128)
+            x = x - x.mean()
+            denom = float(np.sum(np.abs(x) ** 2))
+            if denom == 0.0:
+                raise ValueError("constant capture: cannot estimate IQ imbalance")
+            rho = complex(np.sum(x * x) / denom)
+            if abs(rho) > 0.9:
+                raise ValueError(
+                    f"circularity ratio |E[x^2]|/E[|x|^2] = {abs(rho):.3f}: "
+                    "the signal is nearly non-circular (e.g. pure real/AM "
+                    "at DC), so blind estimation would cancel the signal "
+                    "itself — pass an explicit coefficient instead"
+                )
+            c = rho / 2.0
+        self.c = complex(c)
+
+    def span(self, off: int, n: int) -> tuple[int, int]:
+        return self.inner.span(off, n)
+
+    def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
+        inner = self.inner.plan(offs, n, base)
+        return Plan(prep={"inner": inner.prep}, valid=inner.valid)
+
+    def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
+        x = self.inner.read_batch(ctx, prep["inner"], n)
+        c = torch.tensor(self.c, dtype=torch.complex64, device=x.device)
+        return x - c * torch.conj(x)
+
+
+class Resample(Stream):
+    """Rational sample-rate converter (the JAX package's addition; the
+    reference only decimates).
+
+    Converts by ``up/down`` (reduced by their gcd): zero-stuff by L,
+    Blackman-sinc anti-alias and anti-image FIR at the upsampled rate
+    (cutoff ``min(1/(2L), 1/(2M))``, gain L), every M-th output with the
+    house group-delay pick; :mod:`quadrs_tpu_torch.ops.resample` has the
+    formula and the device products.  Unlike LowPass's over-report,
+    ``length`` is the exact readable output count, so ``write`` ends
+    cleanly."""
+
+    def __init__(self, inner: Stream, up: int, down: int, *, size: int | None = None, power: int = 8):
+        from quadrs_tpu_torch.ops.resample import resample_tables
+
+        if up <= 0 or down <= 0:
+            raise ValueError("up/down must be positive")
+        g = math.gcd(int(up), int(down))
+        self.up = int(up) // g
+        self.down = int(down) // g
+        out_rate_num = inner.sample_rate * self.up
+        if out_rate_num % self.down:
+            raise ValueError(f"resample {self.up}/{self.down} of {inner.sample_rate} Hz gives a non-integer sample rate")
+        self.inner = inner
+        self.sample_rate = out_rate_num // self.down
+        self.size = int(size) if size is not None else 2 * int(power) * max(self.up, self.down)
+        if self.size < 2:
+            raise ValueError("filter size must be at least 2")
+        if inner.length * self.up < self.size:
+            raise ValueError("input shorter than the resampling filter")
+        _, self._gamma_min, self._frame_len, self._d = resample_tables(self.size, self.up, self.down)
+        # exact readable length: output j*L + r needs window-relative input
+        # through j*M + d[0, r]; the shortest phase's first unreadable index
+        # is the valid-prefix count (window at offset 0)
+        avail = inner.length - self._gamma_min
+        jmax = (avail - 1 - self._d[0]) // self.down
+        self.length = max(0, int(np.min((jmax + 1) * self.up + np.arange(self.up))))
+
+    def _n_in(self, n: int) -> int:
+        nb = -(-n // self.up)
+        return (nb - 1) * self.down + self._frame_len
+
+    def span(self, off: int, n: int) -> tuple[int, int]:
+        return self.inner.span((off // self.up) * self.down + self._gamma_min, self._n_in(n))
+
+    def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
+        offs = np.asarray(offs, dtype=np.int64)
+        w = offs % self.up
+        inner_offs = (offs // self.up) * self.down + self._gamma_min
+        inner = self.inner.plan(inner_offs, self._n_in(n), base)
+        valid_in = inner.valid.astype(np.int64)
+        jmax = (valid_in[:, None] - 1 - self._d[w]) // self.down
+        first_bad = np.min((jmax + 1) * self.up + np.arange(self.up), axis=1)
+        valid_out = np.clip(first_bad, 0, n)
+        return Plan(prep={"inner": inner.prep, "w_sel": w, "valid_in": valid_in}, valid=valid_out)
+
+    def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
+        from quadrs_tpu_torch.ops.resample import resample_block
+
+        n_in = self._n_in(n)
+        x = self.inner.read_batch(ctx, prep["inner"], n_in)
+        keep = torch.arange(n_in, device=x.device)[None, :] < prep["valid_in"][:, None]
+        return resample_block(torch.where(keep, x, 0), prep["w_sel"], self.size, self.up, self.down, n)

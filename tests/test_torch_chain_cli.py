@@ -2,8 +2,8 @@
 ``quadrs_tpu.cli.main`` and ``quadrs_tpu_torch.cli.main``
 (``QUADRS_PLATFORM=cpu``) prints the same stdout and writes files that
 agree (cf32 within ``1e-5``, integer formats byte for byte); the
-commands that are not ported yet parse and exit 1; parse errors are the
-JAX package's."""
+commands that are not ported yet (``ui``, ``eui``) parse and exit 1;
+parse errors are the JAX package's."""
 
 import pathlib
 
@@ -94,9 +94,18 @@ def test_gen_write_then_from_bucket(cpu, capsys):
     ],
 )
 def test_not_yet_ported(argv, what, cpu, capsys):
+    """``ui`` and ``eui`` still exit 1 naming their ROADMAP item; the five
+    commands ported since print what ``quadjax`` prints on the same argv
+    (``find`` here the pattern-rate error)."""
     rc, out, err = run(tcli.main, argv, capsys)
-    assert rc == 1 and f"{what} is not yet ported" in err and "ROADMAP" in err
-    assert "sparkfft sample_rate" not in out
+    if what in ("ui", "eui"):
+        assert rc == 1 and f"{what} is not yet ported" in err and "ROADMAP" in err
+        assert "sparkfft sample_rate" not in out
+        return
+    assert (rc, out, err) == run(jcli.main, argv, capsys)
+    assert (rc, err) == ((1, "Error: pattern rate 400 != stream rate 48000: resample one side first\n")
+                         if what == "find" else (0, ""))
+    assert what == "find" or out.startswith("sparkfft sample_rate=") and out.count("\n") > 10
 
 
 def test_chain_parse_errors_match_jax(cpu, capsys):

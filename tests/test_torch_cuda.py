@@ -9,7 +9,8 @@ test builds the kernels.  Frontend tolerance ``5e-5 * scale``, the JAX
 package's kernel-versus-chain bound; waterfall tolerances the JAX
 package's waterfall ones (``tests/test_waterfall_pallas.py``).  The
 chain of torch ops (``step_stream``, the reference chain's sinks) runs on
-the card and on CPU tensors, held to the same bound."""
+the card and on CPU tensors, held to the same bound; ``find`` and the
+conditioning stages to their parity tests' bounds."""
 
 import numpy as np
 import pytest
@@ -414,6 +415,80 @@ def test_reference_chain_matches_cpu(cuda, tmp_path):
     want = np.fromfile(sinks.do_write(gen, False, "c", directory=str(tmp_path), device="cpu"), np.complex64)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# -- find and the conditioning stages on the card (torch ops and cuFFT) ------------
+
+
+def test_find_pattern_matches_cpu(cuda, monkeypatch):
+    """``find_pattern`` on the card against the CPU: a bank of three
+    templates over a 5-row carrier-offset grid, planted in cs8 noise, with
+    dispatches small enough that the device scan decides most and the
+    full-score path takes the tail.  Offsets, which and freqs exact, scores
+    and scales within 2e-4; the extract tuple's 0-dim outputs come back
+    through the page-locked download as 0-dim arrays."""
+    from quadrs_tpu_torch import sinks, sources
+    from quadrs_tpu_torch.ops.correlate import make_xcorr_post
+    from quadrs_tpu_torch.runtime import Executor
+
+    rate, n = 2_000_000, 1 << 20
+    rng = np.random.default_rng(11)
+    x = rng.integers(-40, 41, (n, 2)) @ np.array([1, 1j])
+    pats = [rng.integers(-60, 61, (l, 2)) @ np.array([1, 1j]) for l in (256, 180, 128)]
+    step = 0.4 * rate / 256
+    plants = [(5_000, 0, 1, 0.5), (30_719, 1, -2, 1.0), (400_003, 2, 0, 0.2), (n - 256, 0, 2, 1.5)]
+    for o, k, row, gain in plants:
+        m = np.arange(len(pats[k]))
+        x[o : o + len(m)] = gain * pats[k] * np.exp(1j * (0.7 * k + 2 * np.pi * row * step * m / rate))
+    raw = np.clip(np.rint(np.stack([x.real, x.imag], -1)), -127, 127).astype(np.int8).reshape(-1).view(np.uint8)
+    src = sources.SampleSource(raw, FileFormat.COMPLEX_INT8, rate)
+    monkeypatch.setattr(sinks, "FIND_DISPATCH_BUDGET", 1 << 15)
+    res = {}
+    for dev in ("cpu", cuda):
+        sinks.find_pattern.dispatches.update(extract=0, overflow=0, full=0)
+        res[dev] = sinks.find_pattern(src, pats, freq_tol=2 * step, device=dev)
+    assert sinks.find_pattern.dispatches["extract"] > 1 and sinks.find_pattern.dispatches["full"] >= 1
+    got, want = res[cuda], res["cpu"]
+    assert list(want.offsets) == [o for o, *_ in plants] and list(want.which) == [k for _, k, _, _ in plants]
+    assert np.allclose(want.freqs, [row * step for *_, row, _ in plants])
+    for f in ("offsets", "which", "freqs"):
+        assert np.array_equal(getattr(got, f), getattr(want, f))
+    assert np.abs(got.scores - want.scores).max() <= 2e-4
+    assert np.abs(got.scales - want.scales).max() <= 2e-4 * want.scales.max()
+
+    post = make_xcorr_post(pats[0], 4096, extract=(0.5, 16))
+    out = {dev: Executor(src, 4096, dev, batch=4, post=post, post_takes_aux=True).run(np.arange(4) * 3841, aux=-np.inf)[0]
+           for dev in ("cpu", cuda)}
+    assert [a.shape for a in out[cuda]] == [a.shape for a in out["cpu"]] == [(16,)] * 4 + [()] * 6
+    assert int(out[cuda][4]) == int(out["cpu"][4])
+
+
+@pytest.mark.parametrize("fmt", [FileFormat.COMPLEX_INT8, FileFormat.COMPLEX_UINT8])
+def test_stages_match_cpu(cuda, fmt):
+    """The conditioning stages on the card against the CPU at random
+    offsets: ``iqbal dcblock agc resample 147/160`` within 1e-5 of the
+    output's scale in units of the decoded magnitude (cu8 decodes to
+    ``x/255 - 127.5``, so its f32 sums round at 128's ulp: 1.3e-4 of the
+    output's scale apart on an H100, where cs8 keeps within 1e-5), and the
+    resampler in full f32 even when the caller left TF32 on (it is reached
+    outside the CLI here)."""
+    from quadrs_tpu_torch import sources, stream
+    from quadrs_tpu_torch.runtime import Executor
+
+    raw = np.ascontiguousarray(synth_planes(fmt, 300_000, seed=4).T).reshape(-1).view(np.uint8)
+    src = sources.SampleSource(raw, fmt, 21_000_000)
+
+    def chain(dev):
+        return stream.Resample(stream.Agc(stream.DcBlock(stream.IqCorrect(src, device=dev), 300), window=64), 147, 160)
+
+    offs = np.sort(np.random.default_rng(2).integers(0, chain("cpu").length, 64))
+    want, valid = Executor(chain("cpu"), 0x1000, "cpu").run(offs)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    got, valid_card = Executor(chain(cuda), 0x1000, cuda).run(offs)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert np.array_equal(valid, valid_card) and np.isfinite(got).all()
+    magnitude = 128.0 if fmt is FileFormat.COMPLEX_UINT8 else 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * magnitude * np.abs(want).max())
 
 
 # -- the staging rings on the card ------------------------------------------------
