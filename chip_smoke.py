@@ -56,7 +56,22 @@ the run.  Phases:
    ``sparkfft``), each against its CPU run over the prefix, and
    ``resample_real`` 656,250 to 48,000 against the CPU; a profiled run of
    ``find``, the bank and the stage chain each gives the device's share
-   of its wall;
+   of its wall; then the receivers (torch ops and cuFFT, no kernel: the
+   kernels' launch counts must not move), each through the streaming front
+   end (``models.demod._ChannelStep``, its dispatches counted) and against
+   the same argv on the CPU over a 2^22-sample prefix: ``ook -width 4
+   -stride 2 -bit 250`` over 2^24 cs8 samples at 1 Msps of Manchester
+   bursts (the payload comes back), ``fsk -shift 280k -lowpass 200k
+   -decimate 32 -width 64`` over the stream's capture (symbols equal but at
+   near-ties), ``fm -shift -500k -lowpass 100k -decimate 8 -audio-rate
+   48000`` over 2^25 cu8 samples at 2.4 Msps of a 1 kHz tone at 75 kHz
+   deviation (tone within a bin, rms deviation within 3%; with ``-wav yes``;
+   from ``replay -speed 0 | fm -stdin yes``, bit for bit the file run's),
+   ``am -shift -500k -audio-rate 48000`` over 2^24 cu8 samples of depth 0.5
+   (tone, peak modulation within 3%) and ``ssb -sideband usb`` over 2^24
+   cs8 samples at 2 Msps (tone), the audio of the card's run over the
+   prefix within 1e-5 of full scale of the CPU's; ``bucket`` above takes the
+   same front end;
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
@@ -71,7 +86,10 @@ the run.  Phases:
    blocks, single template and 9-row grid, split into forward FFT, rows
    (product, inverse FFT, scores), energy and extraction, and the
    resampler's product at the write batch against a weight matrix
-   gathered per window.
+   gathered per window; then one streaming dispatch of each receiver at
+   its phase-4 shape, split into staging (host clock), decode + mix, FIR
+   and post (CUDA events), and the device's share of a profiled ``fm`` and
+   ``fsk`` run.
    A yardstick does part of its kernel's work; its inputs are made outside
    the timed region, and the port never calls it.  The frontend kernels and
    their yardstick take tens of microseconds, less than a call of their
@@ -738,17 +756,39 @@ def all_launches() -> dict[str, int]:
                                              wf.waterfall_norms, wf.waterfall_search, wf.waterfall_scan)}
 
 
-def card_run(name: str, argv: list[str], card: str, walls: dict[str, float], expect_rc=0, err="") -> str:
-    """``argv`` through the CLI on the card; records its wall in
-    ``walls[name]`` and raises if it launched a kernel of the port (these
-    paths run as torch ops).  Returns its stdout."""
+@contextlib.contextmanager
+def counting_dispatches():
+    """Counts the receivers' streaming dispatches (calls of
+    ``models.demod._ChannelStep``) while open: yields a dict whose ``n`` each
+    call adds one to."""
+    from quadrs_tpu_torch.models import demod
+
+    count = {"n": 0}
+    call = demod._ChannelStep.__call__
+
+    def counted(step, o):
+        count["n"] += 1
+        return call(step, o)
+
+    demod._ChannelStep.__call__ = counted
+    try:
+        yield count
+    finally:
+        demod._ChannelStep.__call__ = call
+
+
+def card_run(name: str, argv: list[str], card: str, walls: dict[str, float], expect_rc=0, err="",
+             samples: int = CAPTURE_SAMPLES) -> str:
+    """``argv`` through the CLI on the card over a capture of ``samples``;
+    records its wall in ``walls[name]`` and raises if it launched a kernel
+    of the port (these paths run as torch ops).  Returns its stdout."""
     os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
     before = all_launches()
     t0 = time.perf_counter()
     out = run_cli(argv, expect_rc, err)
     walls[name] = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
-    print(f"    {name}: {walls[name]:.3f}s, {CAPTURE_SAMPLES / walls[name] / 1e6:.1f} Msps ({card}); "
+    print(f"    {name}: {walls[name]:.3f}s, {samples / walls[name] / 1e6:.1f} Msps ({card}); "
           f"kernel launches: {launched or 'none'}")
     if launched:
         raise AssertionError(f"{name} launched {launched}: the chain runs as torch ops")
@@ -768,11 +808,11 @@ def cpu_run(name: str, argv: list[str], expect_rc=0, err="") -> str:
 
 
 def card_then_cpu(name: str, argv, cap: str, pre: str, card: str, walls: dict[str, float], expect_rc=0,
-                  err=("", "")) -> tuple[str, str]:
-    """``argv(capture, tag)`` through the CLI on the card over ``cap``
-    (:func:`card_run`), then on the CPU over the prefix capture ``pre``.
-    Returns both stdouts."""
-    out = card_run(name, argv(cap, "gpu"), card, walls, expect_rc, err[0])
+                  err=("", ""), samples: int = CAPTURE_SAMPLES) -> tuple[str, str]:
+    """``argv(capture, tag)`` through the CLI on the card over ``cap`` of
+    ``samples`` (:func:`card_run`), then on the CPU over the prefix capture
+    ``pre``.  Returns both stdouts."""
+    out = card_run(name, argv(cap, "gpu"), card, walls, expect_rc, err[0], samples)
     return out, cpu_run(name, argv(pre, "cpu"), expect_rc, err[1])
 
 
@@ -824,7 +864,10 @@ def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
     print(f"  sparkfft: the first {len(offs)} rows equal one string a row over the card's norms, byte for byte")
 
     # bucket: digits equal except near-ties of the plain half sums
-    out, cpu_out = both("bucket", lambda path, tag: ["from", path, *lp200, "bucket", "-by", "freq", "2"])
+    with counting_dispatches() as dispatches:  # bucket takes the receivers' streaming route
+        out, cpu_out = both("bucket", lambda path, tag: ["from", path, *lp200, "bucket", "-by", "freq", "2"])
+    if dispatches["n"] < 2:
+        raise AssertionError(f"bucket: {dispatches['n']} streaming dispatches")
     digits, cpu_digits = out.strip(), cpu_out.strip()
     if len(digits) != (length - 128) // 128 or set(digits) - {"0", "1"}:
         raise AssertionError(f"bucket printed {len(digits)} digits for a {length}-sample stream")
@@ -837,7 +880,8 @@ def phase_chain_path(card: str, cap: str, tmp: str) -> dict[str, float]:
         first, second = Executor(chain_stream(pre), 128, "cpu", post=halves).run(np.asarray(bad, dtype=np.int64) * 128)[0]
         if (np.abs(first - second) > TOL * np.maximum(first, second)).any():
             raise AssertionError("bucket digits differ away from a near-tie")
-    print(f"  bucket: {len(cpu_digits)} digits of the prefix compared, {len(bad)} differ (near-ties)")
+    print(f"  bucket: {len(cpu_digits)} digits of the prefix compared, {len(bad)} differ (near-ties); "
+          f"{dispatches['n']} streaming dispatches over both runs")
 
     # write: the decimated file stream ends on the reference's zero-length read
     for name, lp, size in (("write", lp200, 400), ("write (4000 taps, os_poly)", lp2000, 4000)):
@@ -1180,6 +1224,320 @@ def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
     laps.append(("resample_real", time.perf_counter()))
     print("  stage phase, its steps: " + ", ".join(f"{name} {t - laps[i][1]:.1f}s" for i, (name, t) in enumerate(laps[1:])))
     return walls
+
+
+# phase 4's receiver captures (made with numpy from SEED, at the sizes users
+# record): (file name, sample rate, samples)
+RX_CAPTURES = {"ook": ("ook.sr1M.cs8", 1_000_000, 1 << 24), "fm": ("fm.sr2400k.cu8", 2_400_000, 1 << 25),
+               "am": ("am.sr2400k.cu8", 2_400_000, 1 << 24), "ssb": ("ssb.sr2M.cs8", 2_000_000, 1 << 24)}
+OOK_CHIP = 500  # samples a Manchester chip: 250 windows of stride 2 (ook -bit 250)
+OOK_PAYLOAD = 32  # payload bits a burst
+STATION = 500_000  # the FM and AM stations' offset from the centre (Hz)
+TONE = 1000  # the audio tone of FM, AM and SSB (Hz)
+RX_ARGV = {
+    "ook": ["ook", "-width", "4", "-stride", "2", "-bit", "250"],
+    "fsk": ["fsk", "-shift", "280k", "-lowpass", "200k", "-decimate", "32", "-width", "64"],
+    "fm": ["fm", "-shift", f"-{STATION}", "-lowpass", "100k", "-decimate", "8", "-audio-rate", "48000"],
+    "am": ["am", "-shift", f"-{STATION}", "-audio-rate", "48000"],
+    "ssb": ["ssb", "-sideband", "usb"],
+}
+
+
+def write_iq(path: str, n: int, fmt: str, make, rng) -> None:
+    """``n`` samples of ``make(absolute indices) -> unit-scale complex`` plus
+    noise of 0.01 a component from ``rng``, as cs8 or cu8 (``x * 127.5 +
+    127.5``), written block by block."""
+    block = 1 << 22
+    with open(path, "wb") as f:
+        for lo in range(0, n, block):
+            m = np.arange(lo, min(n, lo + block), dtype=np.int64)
+            x = make(m) + 0.01 * (rng.standard_normal(len(m)) + 1j * rng.standard_normal(len(m)))
+            iq = np.stack([x.real, x.imag], axis=-1)
+            if fmt == "cs8":
+                f.write(np.clip(np.rint(iq * 127), -127, 127).astype(np.int8).tobytes())
+            else:
+                f.write(np.clip(np.rint(iq * 127.5 + 127.5), 0, 255).astype(np.uint8).tobytes())
+
+
+def angle_of(freq: int, rate: int, m: np.ndarray) -> np.ndarray:
+    """``2 pi freq m / rate``, reduced exactly on the integers."""
+    return 2 * np.pi * ((m * freq) % rate) / rate
+
+
+def write_receiver_capture(name: str, tmp: str) -> tuple[str, str | None]:
+    """One of phase 4's receiver captures in ``tmp`` (names and sizes:
+    :data:`RX_CAPTURES`), its noise from ``default_rng([SEED, k])``: ``ook``,
+    Manchester bursts of a known 32-bit payload (a chip 500 samples of a 100
+    kHz carrier at 0.5 or of silence, 200 silent chips between bursts; the
+    silence exactly zero, as the default threshold 0.001 is under cs8's
+    smallest code); ``fm``, a 1 kHz tone at 75 kHz deviation; ``am``, a 1 kHz
+    tone at modulation depth 0.5; both stations at +500 kHz, where ``-shift
+    -500k`` brings them to DC (the reference's cu8 decode parks every sample
+    near -127, which a station at DC would sit on); ``ssb``, a tone 1 kHz
+    above a suppressed carrier at DC.  Returns the path and, for ``ook``,
+    the payload as a 0/1 string."""
+    file, rate, n = RX_CAPTURES[name]
+    path = os.path.join(tmp, file)
+    rng = np.random.default_rng([SEED, list(RX_CAPTURES).index(name)])
+    if name == "ook":
+        payload = rng.integers(0, 2, OOK_PAYLOAD)
+        chips = np.repeat(np.stack([payload, 1 - payload], axis=1).reshape(-1), OOK_CHIP).astype(bool)
+        env = np.zeros(n, dtype=bool)
+        for s0 in range(100 * OOK_CHIP, n - chips.size, chips.size + 200 * OOK_CHIP):
+            env[s0 : s0 + chips.size] = chips
+        m = np.arange(n, dtype=np.int64)
+        iq = 64 * env[:, None] * np.stack([np.cos(angle_of(100_000, rate, m)), np.sin(angle_of(100_000, rate, m))], -1)
+        with open(path, "wb") as f:
+            f.write(np.rint(iq).astype(np.int8).tobytes())
+        return path, "".join(map(str, payload))
+    make = {
+        "fm": lambda m: 0.9 * np.exp(1j * (angle_of(STATION, rate, m) + 75 * np.sin(angle_of(TONE, rate, m)))),
+        "am": lambda m: 0.3 * (1 + 0.5 * np.cos(angle_of(TONE, rate, m))) * np.exp(1j * angle_of(STATION, rate, m)),
+        "ssb": lambda m: 0.5 * np.exp(1j * angle_of(TONE, rate, m)),
+    }[name]
+    write_iq(path, n, "cs8" if file.endswith("cs8") else "cu8", make, rng)
+    return path, None
+
+
+def samples_of(name: str) -> int:
+    """Samples of the capture a receiver of phase 4 reads."""
+    return RX_CAPTURES[name][2] if name in RX_CAPTURES else CAPTURE_SAMPLES
+
+
+def prefix_of(path: str, n: int) -> str:
+    """The first ``n`` samples of a capture, as a file of the same rate and format."""
+    head, name = os.path.split(path)
+    pre = os.path.join(head, "pre" + name)
+    pair = {"cs8": 2, "cu8": 2, "cs16": 4, "cf32": 8}[name.rsplit(".", 1)[1]]
+    with open(path, "rb") as f, open(pre, "wb") as g:
+        g.write(f.read(n * pair))
+    return pre
+
+
+def tone_check(name: str, audio: np.ndarray, rate: int) -> float:
+    """The audio's strongest frequency (its spectrum's peak, DC aside, over
+    the whole audio); raises unless it is the tone, within one bin."""
+    spec = np.abs(np.fft.rfft(audio.astype(np.float64) * np.hanning(len(audio))))
+    spec[0] = 0.0
+    freq = float(np.argmax(spec)) * rate / len(audio)
+    print(f"    {name}: the audio's tone {freq:.3f} Hz (bins of {rate / len(audio):.4f} Hz)")
+    if abs(freq - TONE) > rate / len(audio):
+        raise AssertionError(f"{name}: tone at {freq} Hz, not {TONE}")
+    return freq
+
+
+def away_from_window_ends(n: int, ch_rate: int, out_rate: int = 48_000, chunk: int = 1 << 16) -> np.ndarray:
+    """A mask of the ``n`` audio samples more than 100 away from where a
+    receiver's channel window ends (every ``chunk`` channel samples) or the
+    audio starts: the last outputs of each window see the channel FIR's
+    per-read truncation, which on cu8 cuts off the decode's -127 offset
+    (ROADMAP C), a click."""
+    period = chunk * out_rate / ch_rate  # audio samples a window
+    at = np.arange(n) % period
+    return np.minimum(at, period - at) > 100
+
+
+def audio_against_cpu(name: str, got: np.ndarray, want: np.ndarray) -> float:
+    """The card's audio of the prefix against the CPU's: within 1e-5 of
+    full scale (1)."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: {got.shape} samples on the card, {want.shape} on the CPU")
+    err = float(np.abs(got - want).max())
+    print(f"    {name}: the prefix's {len(got)} audio samples, card vs CPU: max |diff| {err:.3e} of full scale 1")
+    if err > 1e-5:
+        raise AssertionError(f"{name}: audio disagrees with the CPU run")
+    return err
+
+
+def phase_receiver_path(card: str, tmp: str, cap: str) -> tuple[dict[str, float], dict[str, str]]:
+    """Phase 4, the receivers through the CLI on the card: ``ook`` over a
+    2^24-sample cs8 capture at 1 Msps (the payload comes back), ``fsk`` over
+    the stream's 2^26-sample capture (the README's flow), ``fm`` over a
+    2^25-sample cu8 capture at 2.4 Msps into 48 kHz audio (tone and rms
+    deviation), again with ``-wav yes`` and from ``replay -speed 0 | fm
+    -stdin yes`` (bit for bit the file run's audio), ``am`` (2^24 cu8; tone
+    and peak modulation) and ``ssb -sideband usb`` (2^24 cs8 at 2 Msps;
+    tone).  Each against the same argv on the CPU over a 2^22-sample
+    prefix: bits equal, symbols equal but at near-ties, audio (of the card's
+    run over the prefix too: AM's carrier is the mean over the capture it
+    is given) within 1e-5 of full scale.  All take the streaming front end
+    and launch no kernel of the port.  Returns walls and the captures."""
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import Executor
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream import LowPass, Shift
+    from quadrs_tpu_torch.utils.wav import wav_bytes
+
+    laps = [("start", time.perf_counter())]  # where the step's own time goes
+    caps = {"fm": write_receiver_capture("fm", tmp)[0], "fsk": cap}
+    # the pipe's producer starts here: its start-up overlaps the other
+    # captures and the runs below; it then waits on the full pipe
+    producer = start_replay(caps["fm"])
+    caps["ook"], caps["payload"] = write_receiver_capture("ook", tmp)
+    caps.update({k: write_receiver_capture(k, tmp)[0] for k in ("am", "ssb")})
+    pres = {k: prefix_of(caps[k], PREFIX_SAMPLES) for k in RX_ARGV}
+    laps.append(("captures", time.perf_counter()))
+    walls: dict[str, float] = {}
+    before = all_launches()
+
+    def both(name: str, extra=lambda tag: []) -> tuple[str, str]:
+        with counting_dispatches() as dispatches:
+            out, cpu_out = card_then_cpu(name, lambda path, tag: RX_ARGV[name] + extra(tag) + [path], caps[name],
+                                         pres[name], card, walls, samples=samples_of(name))
+        if dispatches["n"] < 2:
+            raise AssertionError(f"{name}: {dispatches['n']} streaming dispatches")
+        return out, cpu_out
+
+    def audio_of(tag: str, rate: int = 48_000) -> np.ndarray:
+        return np.fromfile(os.path.join(tmp, f"{tag}.sr{rate}.f32"), dtype="<f4")
+
+    def audio_runs(name: str, rate: int = 48_000) -> np.ndarray:
+        """The card's run over the capture and the prefix, the CPU's over the
+        prefix; returns the card's audio of the whole capture."""
+        both(name, lambda tag: ["-out", os.path.join(tmp, f"{name}{tag}")])
+        card_run(f"{name}, the prefix", RX_ARGV[name] + ["-out", os.path.join(tmp, f"{name}pre"), pres[name]], card, {},
+                 samples=PREFIX_SAMPLES)
+        walls[f"{name} err"] = audio_against_cpu(name, audio_of(f"{name}pre", rate), audio_of(f"{name}cpu", rate))
+        return audio_of(f"{name}gpu", rate)
+
+    try:
+        out, cpu_out = both("ook")
+        bits, cpu_bits = out.splitlines()[0], cpu_out.splitlines()[0]
+        print(f"  ook: payload {caps['payload']}; the card decoded {bits!r}, the CPU over the prefix {cpu_bits!r}")
+        if caps["payload"] not in bits or bits != cpu_bits:
+            raise AssertionError("ook: the payload did not come back")
+        laps.append(("ook", time.perf_counter()))
+
+        out, cpu_out = both("fsk")
+        syms, cpu_syms = out.splitlines()[0], cpu_out.splitlines()[0]
+        length = 1 + (CAPTURE_SAMPLES - 400) // 32
+        if len(syms) != (length - 64) // 64 or set(syms) - {"0", "1"} or syms.count("1") < 0.99 * len(syms):
+            raise AssertionError(f"fsk: {len(syms)} symbols, {syms.count('1')} ones (the tone lies in the lower half)")
+        bad = [i for i in range(len(cpu_syms)) if syms[i] != cpu_syms[i]]
+        if bad:
+            def halves(x):
+                norms = stft_norms(x, shift=False)
+                return norms[:, :32].sum(1), norms[:, 32:].sum(1)
+
+            chan = LowPass(Shift(open_capture(pres["fsk"]), 280_000), 200_000, 32, 400)
+            first, second = Executor(chan, 64, "cpu", post=halves).run(np.asarray(bad, dtype=np.int64) * 64)[0]
+            if (np.abs(first - second) > TOL * np.maximum(first, second)).any():
+                raise AssertionError("fsk symbols differ away from a near-tie")
+        print(f"  fsk: {len(syms)} symbols; the prefix's {len(cpu_syms)} compared, {len(bad)} differ (near-ties)")
+        laps.append(("fsk", time.perf_counter()))
+
+        audio = audio_runs("fm")
+        tone_check("fm", audio, 48_000)
+        body = audio[away_from_window_ends(len(audio), 300_000)].astype(np.float64)
+        rms = float(np.sqrt(np.mean(body**2))) * 75_000
+        print(f"    fm: rms deviation {rms:.1f} Hz away from the window ends (a 75 kHz sine: {75_000 / np.sqrt(2):.1f}); "
+              f"peak {np.abs(body).max() * 75_000:.1f} Hz there, {np.abs(audio).max() * 75_000:.1f} Hz over all")
+        if abs(rms / (75_000 / np.sqrt(2)) - 1) > 0.03:
+            raise AssertionError("fm: rms deviation off by more than 3%")
+        laps.append(("fm", time.perf_counter()))
+        card_run("fm -wav yes", RX_ARGV["fm"] + ["-wav", "yes", "-out", os.path.join(tmp, "fmwav"), caps["fm"]], card, walls,
+                 samples=samples_of("fm"))
+        with open(os.path.join(tmp, "fmwav.wav"), "rb") as f:
+            wav = f.read()
+        if wav[:56] != wav_bytes(48_000, audio)[:56] or np.abs(np.frombuffer(wav[56:], "<f4") - audio).max() > 1e-6:
+            raise AssertionError("fm -wav yes: not the -out run's audio in a WAV")
+        print(f"    fm -wav yes: {len(wav)} bytes, the -out run's {len(audio)} samples")
+        with counting_dispatches() as dispatches:
+            piped(RX_ARGV["fm"] + ["-stdin", "yes", "-sr", "2400000", "-format", "cu8", "-out", os.path.join(tmp, "fmpipe")],
+                  caps["fm"], walls, "replay | fm -stdin", producer)
+        if dispatches["n"] < 1:
+            raise AssertionError("replay | fm -stdin took no streaming dispatch")
+        if audio_of("fmpipe").tobytes() != audio.tobytes():
+            raise AssertionError("replay | fm -stdin: audio differs from the file run's")
+        print(f"    replay | fm -stdin yes: {walls['replay | fm -stdin']:.3f}s from the first byte, "
+              f"{dispatches['n']} streaming dispatches; the audio equals the file run's, bit for bit")
+        laps.append(("fm -wav, the pipe", time.perf_counter()))
+
+        audio = audio_runs("am")
+        tone_check("am", audio, 48_000)
+        body = audio[away_from_window_ends(len(audio), 300_000)][100:-100]  # and the resampler's edges
+        peak = float(np.abs(body).max())
+        print(f"    am: peak modulation {peak:.4f} away from the window ends (depth 0.5); "
+              f"{float(np.abs(audio).max()):.4f} over all")
+        if abs(peak / 0.5 - 1) > 0.03:
+            raise AssertionError("am: peak modulation off by more than 3%")
+        laps.append(("am", time.perf_counter()))
+
+        audio = audio_runs("ssb", 250_000)
+        tone_check("ssb", audio, 250_000)
+        laps.append(("ssb", time.perf_counter()))
+    except BaseException:
+        producer.kill()
+        producer.wait()
+        raise
+    if all_launches() != before:
+        raise AssertionError("the receivers launched a kernel of the port: they run as torch ops")
+    print("  receivers, their steps: " + ", ".join(f"{name} {t - laps[i][1]:.1f}s" for i, (name, t) in enumerate(laps[1:])))
+    return walls, caps
+
+
+def phase_receiver_timing(card: str, caps: dict[str, str]) -> None:
+    """Phase 5, one streaming dispatch of each receiver at its phase-4
+    shape, split into staging (the page-locked slot filled from the
+    capture file and its copy: host clock around a synchronize), decode +
+    mix (the windows' view, mask and NCO), FIR (and SSB's re-shift) and
+    post (the receiver's reduction), each with :func:`time_ms`; then the
+    device's share of a profiled ``fm`` and ``fsk`` run."""
+    from quadrs_tpu_torch.models import demod
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.sources import open_capture
+
+    scale = float(np.float32(300_000 / (2.0 * np.pi)))
+
+    def fm_post(x):  # FmDemod's discriminator
+        d = x[:, 1:] * torch.conj(x[:, :-1])
+        return torch.atan2(d.imag, d.real) * scale
+
+    def halves(x):  # freq_levels' post
+        norms = stft_norms(x, shift=False)
+        return norms[:, :32].sum(1), norms[:, 32:].sum(1)
+
+    configs = {}  # name: (chain, c, lead, post, stride, chunk_post)
+    for name, model, lead, post in (("fm", demod.FmDemod(center=-STATION), 1, fm_post),
+                                    ("am", demod.AmDemod(center=-STATION), 0, torch.abs),
+                                    ("ssb", demod.SsbDemod(), 0, torch.real)):
+        chan = model.channel(open_capture(caps[name]))
+        configs[name] = (chan, min(model.chunk, chan.length - lead), lead, post, None, None)
+    configs["fsk"] = (demod.FskDemod(center=280_000).channel(open_capture(caps["fsk"])), 64, 0, halves, 64, None)
+    th = float(np.float32(demod.OokDemod().threshold))
+    configs["ook"] = (open_capture(caps["ook"]), 4, 0, None, 2, demod._envelope_chunk_post(4, 2, th))
+    for name, (chan, c, lead, post, stride, chunk_post) in configs.items():
+        step = demod._channel_step(chan, c, lead, post, device=DEVICE, stride=stride, chunk_post=chunk_post)
+        walls = []
+        for _ in range(7):  # the first two fill (and page-lock) both slots
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot, dev, _ = step.stage(0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            step._ring.recycle(slot)
+        staging = sorted(walls[2:])[2]
+        slot, dev, _ = step.stage(0)
+        x = step.decode(dev)
+        parts = {"decode": lambda: step.decode(dev)}
+        if chunk_post is None:
+            rows = step.mix(x, dev)
+            y = step.filter(rows, dev)
+            parts.update({"decode + mix": lambda: step.mix(step.decode(dev), dev), "FIR": lambda: step.filter(rows, dev),
+                          "post": lambda: step.post(y)})
+        else:
+            parts["post (chunk envelope)"] = lambda: step.chunk_post(x[: (step.k - 1) * step.hop + step.n_in], step.k)
+        parts["whole"] = lambda: step.compute(dev)
+        ms = {k: time_ms(fn, iters=5) for k, fn in parts.items()}
+        step._ring.recycle(slot)
+        raw = step.k * step.hop
+        print(f"  {name} dispatch: {step.k} windows of {step.n_in} raw samples ({step.span} staged); staging {staging:.3f} ms, "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+              + f"; {raw / (staging + ms['whole']) / 1e3:.1f} Msps a dispatch, staging and device in turn ({card})")
+    for name in ("fm", "fsk"):
+        wall, busy = profiled(RX_ARGV[name] + [caps[name]])
+        print(f"  {name}, a profiled card run: wall {wall:.3f}s, device busy {busy:.3f}s, "
+              f"device share {100 * busy / wall:.1f}% ({card})")
 
 
 def phase_find_timing(card: str) -> dict[str, float]:
@@ -1909,7 +2267,7 @@ def main() -> int:
     from quadrs_tpu_torch.ops import frontend as fe
 
     fe.frontend_banded.launches = 0  # counts of the main paths only, from here
-    with tmp_dir:
+    try:
         launches, norms = phase_main_path(card, cap, tmp)
         live_launches = phase_live_path(card, cap, tmp, norms)
         del norms
@@ -1922,29 +2280,40 @@ def main() -> int:
             raise AssertionError("find or the stages launched a kernel of the port: they run as torch ops")
         print(f"  find and the stages: {time.perf_counter() - t0:.1f}s of phase 4 (find {t1 - t0:.1f}s, "
               f"the stages {time.perf_counter() - t1:.1f}s)")
-    bank_launches, bank_err = phase_bank_path(card)
-    launches.update(bank_launches)
-    for name, count in live_launches.items():
-        launches[name] += count
-    print(f"  launches over the main paths (the stream runs, the live runs and the bank runs): {launches}")
-    # no path of the JAX package runs the v1 function, so no main path of
-    # the port may: it is held to its plain version in phases 3 and 5
-    launches["frontend_banded"] = fe.frontend_banded.launches
-    print(f"  frontend_banded: {launches['frontend_banded']} launches over the main paths")
-    if launches["frontend_banded"]:
-        raise AssertionError("a main path launched frontend_banded")
-    at_main.update(bank_err)
-    print("phase 5: timing")
-    ms = phase_timing(card)
-    ms.update(phase_chain_timing(card))
-    phase_cs16_readings(card)
-    wf_ms = phase_waterfall_timing(card, at_main)
-    t0 = time.perf_counter()
-    phase_find_timing(card)
-    print(f"  find's sweep and the resampler's product: {time.perf_counter() - t0:.1f}s of phase 5")
-    for name in ("find", "find bank", "stages write"):
-        print(f"  {name}: {CAPTURE_SAMPLES / walls[name] / 1e6:.1f} Msps of capture; a profiled run's device share "
-              f"{100 * walls[f'{name} busy'] / walls[f'{name} profiled']:.1f}% ({card})")
+        t0 = time.perf_counter()
+        rx_walls, rx_caps = phase_receiver_path(card, tmp, cap)
+        print(f"  the receivers: {time.perf_counter() - t0:.1f}s of phase 4")
+        bank_launches, bank_err = phase_bank_path(card)
+        launches.update(bank_launches)
+        for name, count in live_launches.items():
+            launches[name] += count
+        print(f"  launches over the main paths (the stream runs, the live runs and the bank runs): {launches}")
+        # no path of the JAX package runs the v1 function, so no main path of
+        # the port may: it is held to its plain version in phases 3 and 5
+        launches["frontend_banded"] = fe.frontend_banded.launches
+        print(f"  frontend_banded: {launches['frontend_banded']} launches over the main paths")
+        if launches["frontend_banded"]:
+            raise AssertionError("a main path launched frontend_banded")
+        at_main.update(bank_err)
+        print("phase 5: timing")
+        ms = phase_timing(card)
+        ms.update(phase_chain_timing(card))
+        phase_cs16_readings(card)
+        wf_ms = phase_waterfall_timing(card, at_main)
+        t0 = time.perf_counter()
+        phase_find_timing(card)
+        print(f"  find's sweep and the resampler's product: {time.perf_counter() - t0:.1f}s of phase 5")
+        for name in ("find", "find bank", "stages write"):
+            print(f"  {name}: {CAPTURE_SAMPLES / walls[name] / 1e6:.1f} Msps of capture; a profiled run's device share "
+                  f"{100 * walls[f'{name} busy'] / walls[f'{name} profiled']:.1f}% ({card})")
+        t0 = time.perf_counter()
+        phase_receiver_timing(card, rx_caps)
+        print(f"  the receivers' dispatches and profiled runs: {time.perf_counter() - t0:.1f}s of phase 5")
+        for name in ("ook", "fsk", "fm", "am", "ssb"):
+            print(f"  {name}: {samples_of(name) / rx_walls[name] / 1e6:.1f} Msps of "
+                  f"capture in its phase-4 card run ({card})")
+    finally:
+        tmp_dir.cleanup()
 
     # errors at the main paths' shapes: max_abs_err, and err_over_max
     # (that over the max of the plain output; for scan, the sum error

@@ -24,6 +24,11 @@ run as torch ops and cuFFT in any chain (:mod:`.ops.correlate`,
 :mod:`.ops.resample`, :mod:`.stream`); :mod:`.bits` decodes OOK pulse
 trains.
 
+The receivers (``ook``, ``fsk``, ``fm``, ``am``, ``ssb``:
+:mod:`.models.demod`) run their channel through a streaming front end
+(the raw span of many per-read windows staged once a dispatch) and the
+analog ones through one audio tail on the device, as torch ops and cuFFT.
+
 Capture files are read through the package's own C++ loader
 (``native/loader.cc``, built with g++ at first use), staged into
 page-locked rings and copied on a copy stream (:mod:`.staging`); live

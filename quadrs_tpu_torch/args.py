@@ -8,10 +8,11 @@ arguments.
     bucket [-width W] [-stride S] -by freq COUNT  write [-overwrite B]
     PREFIX  gen [-cos F]* [-len SECS] RATE  resample UP/DOWN  dcblock
     agc  iqbal  find -pattern FILE ...  stream ...  waterfall ...
-    scan ...  info FILE...  replay FILE
+    scan ...  info FILE...  replay FILE  ook ...  fsk ...  fm ...  am ...
+    ssb ...
 
 ``ui`` and ``eui`` parse as in the JAX package; running them raises "not
-yet ported".
+yet ported".  ``psk`` does not parse yet: its error names ROADMAP A10d.
 
 Parsing rules preserved from ``read_just_args`` (``src/args.rs:404-445``):
 flags are collected until the first non-flag token; a ``-``-prefixed
@@ -189,6 +190,121 @@ class ReplayCmd(Command):
     chunk: int = 65_536  # samples per write and pace step
     sample_rate: str | None = None
     format: str | None = None
+
+
+@dataclass
+class OokCmd(Command):
+    """``ook``: demodulate an on-off-keyed capture to bits
+    (:class:`~quadrs_tpu_torch.models.demod.OokDemod`; the README's
+    shell-scripted OOK decode loop as one command)."""
+
+    filename: str | None
+    width: int = 4
+    stride: int = 2
+    threshold: float = 0.001
+    bit: float = 8.0  # windows per bit
+    raw: bool = False  # print raw pulse bits instead of Manchester
+    sample_rate: str | None = None
+    format: str | None = None
+    stdin: bool = False  # buffer the capture from a pipe
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+
+
+@dataclass
+class FskCmd(Command):
+    """``fsk``: demodulate a two-tone FSK capture to symbols or bits
+    (:class:`~quadrs_tpu_torch.models.demod.FskDemod`)."""
+
+    filename: str | None
+    shift: int = 0
+    lowpass: int = 200_000
+    size: int = 400
+    decimate: int = 32
+    fft_width: int = 64
+    stride: int | None = None
+    # windows per symbol for clock recovery; None prints the raw
+    # discriminator symbols
+    bit: float | None = None
+    sample_rate: str | None = None
+    format: str | None = None
+    stdin: bool = False  # buffer the capture from a pipe
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+
+
+@dataclass
+class FmCmd(Command):
+    """``fm``: demodulate an analog-FM capture to audio
+    (:class:`~quadrs_tpu_torch.models.demod.FmDemod`).  With ``-out`` the
+    normalized audio is written as ``{prefix}.sr{rate}.f32`` (mono LE
+    f32); without it the command prints a deviation-meter summary."""
+
+    filename: str | None
+    shift: int = 0
+    lowpass: int = 100_000
+    size: int = 400
+    decimate: int = 8
+    deviation: float = 75_000.0
+    audio_lowpass: int | None = None  # second-stage cutoff (Hz)
+    audio_decimate: int = 1
+    audio_size: int = 64
+    audio_rate: int | None = None  # rational resample to this exact Hz
+    out: str | None = None
+    overwrite: bool = False
+    wav: bool = False  # -out writes {prefix}.wav instead of raw f32
+    sample_rate: str | None = None
+    format: str | None = None
+    stdin: bool = False  # buffer the capture from a pipe
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+
+
+@dataclass
+class AmCmd(Command):
+    """``am``: demodulate an amplitude-modulated capture to audio
+    (:class:`~quadrs_tpu_torch.models.demod.AmDemod`) in modulation-depth
+    units (``envelope / carrier - 1``); ``-out`` as ``fm``'s."""
+
+    filename: str | None
+    shift: int = 0
+    lowpass: int = 10_000
+    size: int = 400
+    decimate: int = 8
+    audio_lowpass: int | None = None
+    audio_decimate: int = 1
+    audio_size: int = 64
+    audio_rate: int | None = None  # rational resample to this exact Hz
+    out: str | None = None
+    overwrite: bool = False
+    wav: bool = False  # -out writes {prefix}.wav instead of raw f32
+    sample_rate: str | None = None
+    format: str | None = None
+    stdin: bool = False  # buffer the capture from a pipe
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+
+
+@dataclass
+class SsbCmd(Command):
+    """``ssb``: single-sideband receiver (filter method, usb/lsb) to audio
+    (:class:`~quadrs_tpu_torch.models.demod.SsbDemod`).  ``-shift``
+    follows the house convention: bring the suppressed carrier to DC
+    (``-shift -CARRIER_OFFSET``)."""
+
+    filename: str | None
+    shift: int = 0
+    sideband: str = "usb"
+    bandwidth: int = 3_000
+    size: int = 400
+    decimate: int = 8
+    audio_lowpass: int | None = None
+    audio_decimate: int = 1
+    audio_size: int = 64
+    audio_rate: int | None = None
+    out: str | None = None
+    overwrite: bool = False
+    wav: bool = False
+    sample_rate: str | None = None
+    format: str | None = None
+    stdin: bool = False
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
 
 
 def _parse_mesh(spec: str) -> tuple[int, int]:
@@ -467,6 +583,144 @@ def _parse_replay(args: _Args, raw_map) -> Command:
     return ReplayCmd(
         filename=filename, speed=speed, loop=loop, chunk=chunk,
         sample_rate=sr, format=fmt,
+    )
+
+
+def _demod_mesh(map_: dict, cmd: str, stdin: bool) -> tuple[int, int] | None:
+    """A receiver command's ``-mesh T`` (one capture over ``time``)."""
+    mesh = map_.pop("mesh", None)
+    mesh = None if mesh is None else _parse_mesh(mesh)
+    if mesh is not None and mesh[1] != 1:
+        raise ValueError(f"{cmd} -mesh shards one capture: use T or Tx1")
+    if mesh is not None and stdin:
+        raise ValueError(f"{cmd} -mesh needs a capture file, not -stdin")
+    return mesh
+
+
+def _parse_ook(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    width = int(parse_si_uint(map_.pop("width", "4")))
+    stride = int(parse_si_uint(map_.pop("stride", "2")))
+    threshold = parse_si_float(map_.pop("threshold", "0.001"))
+    bit = parse_si_float(map_.pop("bit", "8"))
+    raw = parse_bool(map_.pop("raw", "no"))
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    filename, stdin = _take_capture_arg(args, map_, "ook", sr, fmt)
+    mesh = _demod_mesh(map_, "ook", stdin)
+    _ensure_empty(map_, "ook")
+    return OokCmd(
+        filename=filename, width=width, stride=stride, threshold=threshold,
+        bit=bit, raw=raw, sample_rate=sr, format=fmt, stdin=stdin,
+        mesh=mesh,
+    )
+
+
+def _parse_fsk(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    shift = parse_si_int(map_.pop("shift", "0"))
+    lowpass = parse_si_uint(map_.pop("lowpass", "200k"))
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 400
+    decimate = parse_si_uint(map_.pop("decimate", "32"))
+    fft_width = int(parse_si_uint(map_.pop("width", "64")))
+    stride = map_.pop("stride", None)
+    stride = None if stride is None else int(parse_si_uint(stride))
+    bit = map_.pop("bit", None)
+    bit = None if bit is None else parse_si_float(bit)
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    filename, stdin = _take_capture_arg(args, map_, "fsk", sr, fmt)
+    mesh = _demod_mesh(map_, "fsk", stdin)
+    _ensure_empty(map_, "fsk")
+    return FskCmd(
+        filename=filename, shift=shift, lowpass=lowpass, size=size,
+        decimate=decimate, fft_width=fft_width, stride=stride, bit=bit,
+        sample_rate=sr, format=fmt, stdin=stdin, mesh=mesh,
+    )
+
+
+def _parse_psk(args: _Args, raw_map) -> Command:
+    raise ValueError("'psk' is not yet ported to quadrs_tpu_torch (ROADMAP A10d)")
+
+
+def _audio_flags(map_: dict, cmd: str) -> dict:
+    """The audio tail's and the output's flags of ``fm``, ``am`` and ``ssb``."""
+    audio_lowpass = map_.pop("audio-lowpass", None)
+    audio_lowpass = None if audio_lowpass is None else parse_si_uint(audio_lowpass)
+    audio_decimate = parse_si_uint(map_.pop("audio-decimate", "1"))
+    audio_power = map_.pop("audio-power", None)
+    audio_size = 2 * parse_si_uint(audio_power) if audio_power is not None else 64
+    audio_rate = map_.pop("audio-rate", None)
+    audio_rate = None if audio_rate is None else int(parse_si_uint(audio_rate))
+    out = map_.pop("out", None)
+    overwrite = parse_bool(map_.pop("overwrite", "no"))
+    wav = parse_bool(map_.pop("wav", "no"))
+    if wav and out is None:
+        raise ValueError(f"{cmd} -wav requires -out")
+    return dict(
+        audio_lowpass=audio_lowpass, audio_decimate=audio_decimate,
+        audio_size=audio_size, audio_rate=audio_rate, out=out,
+        overwrite=overwrite, wav=wav,
+    )
+
+
+def _audio_capture(args: _Args, map_: dict, cmd: str) -> dict:
+    """The capture argument, its ``-sr``/``-format`` and ``-mesh`` of an
+    audio command."""
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    filename, stdin = _take_capture_arg(args, map_, cmd, sr, fmt)
+    mesh = _demod_mesh(map_, cmd, stdin)
+    _ensure_empty(map_, cmd)
+    return dict(filename=filename, sample_rate=sr, format=fmt, stdin=stdin, mesh=mesh)
+
+
+def _parse_fm(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    shift = parse_si_int(map_.pop("shift", "0"))
+    lowpass = parse_si_uint(map_.pop("lowpass", "100k"))
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 400
+    decimate = parse_si_uint(map_.pop("decimate", "8"))
+    deviation = parse_si_float(map_.pop("deviation", "75k"))
+    if deviation <= 0:
+        raise ValueError("-deviation must be positive")
+    audio = _audio_flags(map_, "fm")
+    return FmCmd(
+        shift=shift, lowpass=lowpass, size=size, decimate=decimate,
+        deviation=deviation, **audio, **_audio_capture(args, map_, "fm"),
+    )
+
+
+def _parse_am(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    shift = parse_si_int(map_.pop("shift", "0"))
+    lowpass = parse_si_uint(map_.pop("lowpass", "10k"))
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 400
+    decimate = parse_si_uint(map_.pop("decimate", "8"))
+    audio = _audio_flags(map_, "am")
+    return AmCmd(
+        shift=shift, lowpass=lowpass, size=size, decimate=decimate,
+        **audio, **_audio_capture(args, map_, "am"),
+    )
+
+
+def _parse_ssb(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    shift = parse_si_int(map_.pop("shift", "0"))
+    sideband = map_.pop("sideband", "usb")
+    if sideband not in ("usb", "lsb"):
+        raise ValueError(f"unknown -sideband: {sideband!r} (usb|lsb)")
+    bandwidth = int(parse_si_uint(map_.pop("bandwidth", "3k")))
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 400
+    decimate = parse_si_uint(map_.pop("decimate", "8"))
+    audio = _audio_flags(map_, "ssb")
+    return SsbCmd(
+        shift=shift, sideband=sideband, bandwidth=bandwidth, size=size,
+        decimate=decimate, **audio, **_audio_capture(args, map_, "ssb"),
     )
 
 
@@ -805,4 +1059,10 @@ _PARSERS = {
     "scan": _parse_scan,
     "info": _parse_info,
     "replay": _parse_replay,
+    "ook": _parse_ook,
+    "fsk": _parse_fsk,
+    "psk": _parse_psk,
+    "fm": _parse_fm,
+    "am": _parse_am,
+    "ssb": _parse_ssb,
 }

@@ -67,23 +67,22 @@ def _rust_round(x: float) -> float:
 
 
 def _run_of_fast(data: np.ndarray, start: int, scale: int, val: bool) -> int:
-    """:func:`run_of` on ``data[start:]`` without copying: scan until more
-    than ``scale`` consecutive contrary samples, then report the run length
-    up to (and excluding) that contrary burst."""
+    """:func:`run_of` on ``data[start:]`` without copying: the run ends
+    where the first burst of more than ``scale`` consecutive contrary
+    samples begins (the whole rest when there is none).
+
+    The burst is searched block by block, each twice the one before, so a
+    call costs about its run's length: one pass over the rest of the data
+    a call would make a long pulse train cost runs x length."""
     sub = data[start:]
-    mismatch = sub != val
-    if not mismatch.any():
-        return len(sub)
-    if scale == 0:
-        return int(np.argmax(mismatch))
-    # sliding window sum of mismatches over windows of size scale+1: a
-    # contrary burst completes where the window is all mismatches
-    w = scale + 1
-    if len(sub) < w:
-        return len(sub)
-    csum = np.concatenate([[0], np.cumsum(mismatch.astype(np.int64))])
-    window = csum[w:] - csum[:-w]  # mismatches in sub[i-w+1 .. i]
-    full = np.nonzero(window == w)[0]
-    if len(full) == 0:
-        return len(sub)
-    return int(full[0])  # the run ends where the burst begins
+    n = len(sub)
+    w = scale + 1  # a burst: a window of w samples, all contrary
+    lo, step = 0, max(4 * w, 1 << 12)
+    while lo + w <= n:
+        hi = min(n - w + 1, lo + step)  # window starts lo .. hi - 1
+        csum = np.concatenate([[0], np.cumsum(sub[lo : hi + w - 1] != val, dtype=np.int64)])
+        full = np.flatnonzero(csum[w:] - csum[:-w] == w)
+        if len(full):
+            return lo + int(full[0])
+        lo, step = hi, 2 * step
+    return n

@@ -55,10 +55,25 @@ waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
          per-bin CSV)] [-overwrite no] FILENAME... | -stdin yes -sr RATE -format FMT \\
     info [-chunk 4M] [-limit N (first N samples)] FILENAME...   (capture statistics) \\
   replay [-speed 1 (x real time; 0 = unthrottled)] [-loop 1] [-chunk 64k] FILENAME \\
-         (raw bytes to stdout, paced: a recorded capture as a live pipe)
+         (raw bytes to stdout, paced: a recorded capture as a live pipe) \\
+     ook [-width 4] [-stride 2] [-threshold 0.001] [-bit 8] [-raw no] [-stdin no] [-mesh T] FILENAME \\
+     fsk [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] [-stride S] [-bit N] [-stdin no] [-mesh T] FILENAME \\
+      fm [-shift 0] [-lowpass 100k] [-power 200] [-decimate 8] [-deviation 75k] \\
+         [-audio-lowpass HZ] [-audio-decimate 1] [-audio-power 32] [-audio-rate HZ] \\
+         [-out PREFIX (writes PREFIX.srR.f32 mono audio; '-': stream to stdout, e.g. | aplay)] \\
+         [-wav no (write PREFIX.wav instead)] \\
+         [-overwrite no] [-stdin no] [-mesh T (time-shard the channel chain over the \\
+          device mesh; all demods take it)] FILENAME \\
+      am [-shift 0] [-lowpass 10k] [-power 200] [-decimate 8] \\
+         [-audio-lowpass HZ] [-audio-decimate 1] [-audio-power 32] [-audio-rate HZ] \\
+         [-out PREFIX] [-wav no] [-overwrite no] [-stdin no] [-mesh T] FILENAME [audio = envelope/carrier - 1] \\
+     ssb [-shift 0] [-sideband usb|lsb] [-bandwidth 3k] [-power 200] [-decimate 8] \\
+         [-audio-lowpass HZ] [-audio-decimate 1] [-audio-power 32] [-audio-rate HZ] \\
+         [-out PREFIX|-] [-wav no] [-overwrite no] [-stdin no] [-mesh T] FILENAME \\
+         [single-sideband to audio; -shift -CARRIER_OFFSET brings the carrier to DC]
 
 (ui and eui, and -mesh and scan -plot, parse as in quadjax but are not yet
-ported.)
+ported; psk does not parse yet, ROADMAP A10d.)
 
 Formats:
 
@@ -75,6 +90,11 @@ _RUNNERS = {
     argmod.ScanCmd: serve.run_scan,
     argmod.InfoCmd: serve.run_info,
     argmod.ReplayCmd: serve.run_replay,
+    argmod.OokCmd: serve.run_ook,
+    argmod.FskCmd: serve.run_fsk,
+    argmod.FmCmd: serve.run_fm,
+    argmod.AmCmd: serve.run_am,
+    argmod.SsbCmd: serve.run_ssb,
 }
 
 

@@ -1,5 +1,6 @@
 """The CLI's serving products: ``stream``, ``waterfall``, ``scan``,
-``info`` and ``replay``.
+``info``, ``replay`` and the receivers ``ook``, ``fsk``, ``fm``, ``am`` and
+``ssb``.
 
 Their lines and files are the JAX package's (``quadrs_tpu.serve``): a
 ``<cmd> peak [stream=S] window=W bin=B mag=M`` line per stream, the
@@ -8,7 +9,10 @@ closing ``<cmd>: N samples, M windows, S.SSs, R.R Msps`` stats line.
 ``-out PREFIX`` streams results to files chunk by chunk: norms as raw
 f32 rows, peaks and survey tables as CSV.  ``-stdin yes`` reads a live
 pipe in place of a file; ``stream -trigger`` records bursts as byte-exact
-slices of the capture; ``replay`` is the pipe's producer side.
+slices of the capture; ``replay`` is the pipe's producer side.  The
+receivers print bits, or write audio (``-out PREFIX``: raw mono f32 or,
+with ``-wav yes``, a WAV; ``-out -``: the same bytes to stdout, the meter
+line then to stderr) and print a meter line.
 """
 
 from __future__ import annotations
@@ -24,22 +28,18 @@ import numpy as np
 import torch
 
 from quadrs_tpu_torch import args as argmod
-from quadrs_tpu_torch.sources import PipeSource, RawRing, open_capture
+from quadrs_tpu_torch.sources import PipeSource, RawRing, SampleSource, open_capture
 from quadrs_tpu_torch.stream_runner import BurstGate, RunStats, burst_spans
 from quadrs_tpu_torch.utils.sniff import guess_details
 
+_MESH = {"mesh": "-mesh (multi-GPU sharding, ROADMAP A13)"}
+
 # flags whose paths are not ported yet, per command, with the ROADMAP item that ports them
 _NOT_PORTED = {
-    "stream": {
-        "mesh": "-mesh (multi-GPU sharding, ROADMAP A13)",
-    },
-    "waterfall": {
-        "mesh": "-mesh (multi-GPU sharding, ROADMAP A13)",
-    },
-    "scan": {
-        "mesh": "-mesh (multi-GPU sharding, ROADMAP A13)",
-        "plot": "-plot (survey plots, ROADMAP A14)",
-    },
+    **{cmd: _MESH for cmd in ("ook", "fsk", "fm", "am", "ssb")},
+    "stream": _MESH,
+    "waterfall": _MESH,
+    "scan": {**_MESH, "plot": "-plot (survey plots, ROADMAP A14)"},
 }
 
 
@@ -55,6 +55,27 @@ def _stdin_pipe_source(cmd) -> PipeSource:
     the sniffed name never matters."""
     details = guess_details("-", cmd.sample_rate, cmd.format)
     return PipeSource(sys.stdin.buffer, details.format, details.sample_rate)
+
+
+# the receivers buffer the whole piped burst in memory; the cap makes a
+# live radio stream piped into one an error instead of unbounded growth
+_STDIN_BUFFER_CAP = 1 << 30
+
+
+def _cmd_source(cmd) -> SampleSource:
+    """The capture behind a receiver command: a file, or all of stdin
+    buffered into an in-memory :class:`SampleSource` (receiver captures are
+    bursts; ``stream``/``waterfall`` read stdin as a live pipe instead)."""
+    if not cmd.stdin:
+        return open_capture(cmd.filename, cmd.sample_rate, cmd.format)
+    details = guess_details("-", cmd.sample_rate, cmd.format)
+    data = sys.stdin.buffer.read(_STDIN_BUFFER_CAP + 1)
+    if len(data) > _STDIN_BUFFER_CAP:
+        raise ValueError(
+            "stdin capture exceeds the demod buffer cap (1 GiB); ook/fsk "
+            "buffer the whole burst — use stream/waterfall for live streams"
+        )
+    return SampleSource(np.frombuffer(data, dtype=np.uint8), details.format, details.sample_rate)
 
 
 def _stats_line(name: str, stats: RunStats) -> str:
@@ -479,3 +500,144 @@ def run_replay(cmd: argmod.ReplayCmd, device: torch.device) -> int:
     dt = max(time.perf_counter() - t0, 1e-9)
     print(f"replay: {total} samples, {dt:.2f}s, {total / dt / 1e6:.1f} Msps", file=sys.stderr)
     return 0
+
+
+def run_ook(cmd: argmod.OokCmd, device: torch.device) -> int:
+    """Demodulate an OOK capture and print the recovered bits."""
+    from quadrs_tpu_torch.models.demod import OokDemod, manchester_decode
+
+    _refuse_not_ported("ook", cmd)
+    src = _cmd_source(cmd)
+    demod = OokDemod(width=cmd.width, stride=cmd.stride, threshold=cmd.threshold, samples_per_bit=cmd.bit)
+    err, raw_bits = demod.demodulate(src, device=device)
+    if cmd.raw:
+        print("".join("1" if b else "0" for b in raw_bits))
+    else:
+        print("".join(str(b) for b in manchester_decode(raw_bits)))
+    print(f"ook: {len(raw_bits)} raw bits, clock error {err:.3f}")
+    return 0
+
+
+def run_fsk(cmd: argmod.FskCmd, device: torch.device) -> int:
+    """Demodulate a two-tone FSK capture and print the recovered symbols
+    (one a window, without ``-bit``) or clock-recovered bits."""
+    from quadrs_tpu_torch.models.demod import FskDemod
+
+    _refuse_not_ported("fsk", cmd)
+    src = _cmd_source(cmd)
+    demod = FskDemod(
+        center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
+        fft_width=cmd.fft_width, stride=cmd.stride, samples_per_symbol=1.0 if cmd.bit is None else cmd.bit,
+    )
+    if cmd.bit is None:
+        syms = demod.symbols(src, device=device)
+        print("".join(str(int(s)) for s in syms))
+        print(f"fsk: {len(syms)} symbols")
+    else:
+        err, bits = demod.demodulate(src, device=device)
+        print("".join("1" if b else "0" for b in bits))
+        print(f"fsk: {len(bits)} bits, clock error {err:.3f}")
+    return 0
+
+
+def _write_audio(cmd, rate: int, audio: np.ndarray) -> str | None:
+    """Write the audio as the command's flags say: raw mono LE f32
+    (``{prefix}.sr{rate}.f32``) or, with ``-wav yes``, a mono float32 WAV
+    (``{prefix}.wav``); ``-out -`` writes the same bytes to stdout (pipe
+    them into a player) and returns None."""
+    from quadrs_tpu_torch.utils.wav import wav_bytes, write_wav
+
+    if cmd.out == "-":
+        sys.stdout.buffer.write(wav_bytes(rate, audio) if cmd.wav else audio.astype("<f4").tobytes())
+        sys.stdout.buffer.flush()
+        return None
+    if cmd.wav:
+        return write_wav(f"{cmd.out}.wav", rate, audio, overwrite=cmd.overwrite)
+    filename = f"{cmd.out}.sr{rate}.f32"
+    with open(filename, "wb" if cmd.overwrite else "xb") as fh:
+        fh.write(audio.astype("<f4").tobytes())
+    return filename
+
+
+def _emit_audio(cmd, rate: int, audio: np.ndarray):
+    """Handle an audio command's output flags; returns where the meter line
+    goes (stderr when the audio itself went to stdout)."""
+    if cmd.out is None:
+        return sys.stdout
+    written = _write_audio(cmd, rate, audio)
+    if written is None:
+        return sys.stderr
+    print(written)
+    return sys.stdout
+
+
+def _run_audio(cmd, demod, device: torch.device, meter) -> int:
+    """Run an analog receiver over the command's capture, write its audio
+    as the flags say, and print ``meter(rate, audio, peak, rms)`` with the
+    capture's Msps (peak and rms of the audio, f64 mean square)."""
+    src = _cmd_source(cmd)
+    t0 = time.perf_counter()
+    rate, audio = demod.demodulate(src, device=device)
+    secs = time.perf_counter() - t0
+    meter_out = _emit_audio(cmd, rate, audio)
+    peak = np.max(np.abs(audio)) if len(audio) else 0.0
+    rms = np.sqrt(np.mean(np.square(audio, dtype=np.float64))) if len(audio) else 0.0
+    print(f"{meter(rate, audio, peak, rms)}, {src.length / max(secs, 1e-9) / 1e6:.1f} Msps", file=meter_out)
+    return 0
+
+
+def run_fm(cmd: argmod.FmCmd, device: torch.device) -> int:
+    """Demodulate an analog-FM capture to audio: write it (``-out``) and
+    print a deviation meter."""
+    from quadrs_tpu_torch.models.demod import FmDemod
+
+    _refuse_not_ported("fm", cmd)
+    demod = FmDemod(
+        center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size, deviation=cmd.deviation,
+        audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
+        audio_rate=cmd.audio_rate,
+    )
+    dev = np.float32(cmd.deviation)  # the audio's full scale in Hz
+
+    def meter(rate, audio, peak, rms):
+        return (f"fm: {len(audio)} audio samples @ {rate} Hz ({len(audio) / rate:.3f} s), peak deviation "
+                f"{float(peak * dev):.0f} Hz, rms {float(rms * dev):.0f} Hz")
+
+    return _run_audio(cmd, demod, device, meter)
+
+
+def run_am(cmd: argmod.AmCmd, device: torch.device) -> int:
+    """Demodulate an AM capture to audio in modulation-depth units: write it
+    (``-out``) and print a modulation meter."""
+    from quadrs_tpu_torch.models.demod import AmDemod
+
+    _refuse_not_ported("am", cmd)
+    demod = AmDemod(
+        center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
+        audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
+        audio_rate=cmd.audio_rate,
+    )
+
+    def meter(rate, audio, peak, rms):
+        return (f"am: {len(audio)} audio samples @ {rate} Hz ({len(audio) / rate:.3f} s), peak modulation "
+                f"{float(peak):.3f}, rms {float(rms):.3f}")
+
+    return _run_audio(cmd, demod, device, meter)
+
+
+def run_ssb(cmd: argmod.SsbCmd, device: torch.device) -> int:
+    """Demodulate a single-sideband capture to audio (usb or lsb)."""
+    from quadrs_tpu_torch.models.demod import SsbDemod
+
+    _refuse_not_ported("ssb", cmd)
+    demod = SsbDemod(
+        center=cmd.shift, sideband=cmd.sideband, bandwidth=cmd.bandwidth, decimate=cmd.decimate, taps=cmd.size,
+        audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
+        audio_rate=cmd.audio_rate,
+    )
+
+    def meter(rate, audio, peak, rms):
+        return (f"ssb: {len(audio)} audio samples @ {rate} Hz ({len(audio) / rate:.3f} s, {cmd.sideband}), "
+                f"peak {float(peak):.3f}, rms {float(rms):.3f}")
+
+    return _run_audio(cmd, demod, device, meter)

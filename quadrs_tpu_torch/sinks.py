@@ -160,10 +160,12 @@ def freq_levels(
     per strided window, compare the total magnitude of the lower and the
     upper half of the (unshifted) spectrum; 1 if lower >= upper.
 
-    The JAX package also has a streaming route for receiver-shaped chains
-    (``models.demod._strided_windows_dev``), which places and truncates
-    windows as this one does; it is ported with the receivers (ROADMAP
-    A10).  Here every chain takes the per-window Executor route."""
+    A receiver-shaped chain (``[shift ->] lowpass``, or the bare capture)
+    over a staging source takes the streaming route, as the JAX package's
+    does (:func:`quadrs_tpu_torch.models.demod._strided_windows_dev`: the
+    raw span of many windows staged once a dispatch, each window placed
+    and truncated as a per-window read would be); other chains (user
+    stages, live pipes, ``gen``) take the per-window Executor route."""
     if levels != 2:
         raise ValueError("only supporting two levels for now")
     stride = fft_width if stride is None else stride
@@ -177,6 +179,14 @@ def freq_levels(
     def post(x):
         norms = stft_norms(x, shift=False)
         return norms[:, :half].sum(dim=1), norms[:, half:].sum(dim=1)
+
+    # lazy import: the receivers' module imports this one
+    from quadrs_tpu_torch.models.demod import _strided_windows_dev
+
+    fast = _strided_windows_dev(stream, fft_width, stride, total, post, device=device)
+    if fast is not None:
+        first, second = fast
+        return Levels(vals=[int(v) for v in np.where(first < second, 0, 1)])
 
     batch, batches = window_batches(offsets, fft_width, root_step=root_step_of(stream))
     ex = Executor(stream, fft_width, device, batch=batch, post=post)

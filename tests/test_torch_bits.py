@@ -58,3 +58,25 @@ def test_scan_opening_high_and_flip_flop():
 def test_rust_round_half_away_from_zero(x):
     assert tbits._rust_round(x) == jbits._rust_round(x)
     assert abs(tbits._rust_round(x)) == np.floor(abs(x) + 0.5)
+
+
+@pytest.mark.parametrize("scale", [0.4, 7.0, 250.0])
+def test_long_runs_past_the_search_blocks(scale):
+    """Runs and contrary bursts far longer than ``_run_of_fast``'s first
+    search block (4096 samples, each block twice the last), bursts
+    straddling block edges and glitches one short of a burst: the same runs
+    and bits as the JAX package's whole-rest search."""
+    rng = np.random.default_rng(int(scale * 10))
+    samples, val = [], False
+    for _ in range(60):
+        samples.extend([val] * int(rng.integers(1, 20_000)))
+        val = not val
+    data = np.array(samples)
+    half = int(tbits._rust_round(scale / 2.0))
+    at = rng.integers(0, len(data) - half, 40)
+    for a in at:  # glitches of half samples: not a burst (more than half are)
+        data[a : a + half] = ~data[a]
+    for start in rng.integers(0, len(data), 30):
+        for v in (False, True):
+            assert tbits._run_of_fast(data, int(start), half, v) == jbits._run_of_fast(data, int(start), half, v)
+    assert tbits.scan(data, scale) == jbits.scan(data, scale)

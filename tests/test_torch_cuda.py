@@ -9,8 +9,9 @@ test builds the kernels.  Frontend tolerance ``5e-5 * scale``, the JAX
 package's kernel-versus-chain bound; waterfall tolerances the JAX
 package's waterfall ones (``tests/test_waterfall_pallas.py``).  The
 chain of torch ops (``step_stream``, the reference chain's sinks) runs on
-the card and on CPU tensors, held to the same bound; ``find`` and the
-conditioning stages to their parity tests' bounds."""
+the card and on CPU tensors, held to the same bound; ``find``, the
+conditioning stages and the receivers' channel step to their parity tests'
+bounds."""
 
 import numpy as np
 import pytest
@@ -489,6 +490,55 @@ def test_stages_match_cpu(cuda, fmt):
     assert np.array_equal(valid, valid_card) and np.isfinite(got).all()
     magnitude = 128.0 if fmt is FileFormat.COMPLEX_UINT8 else 1.0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * magnitude * np.abs(want).max())
+
+
+# -- the receivers' channel step on the card (torch ops and cuFFT) ---------------
+
+
+@pytest.mark.parametrize("kind", ["fm", "fsk"])
+def test_channel_step_matches_cpu(cuda, kind, tmp_path):
+    """The receivers' streaming front end on the card against the CPU, at the
+    smoke run's FM shape (2.4 Msps cu8 read from a file through the pinned
+    ring, station at +500 kHz, lowpass 100k, D 8, 400 taps, 1 kHz at 75 kHz
+    deviation, audio to 48 kHz) and its FSK shape (21 Msps cs8, shift 280k,
+    lowpass 200k, D 32, 400 taps, width 64).  FM audio within 1e-5 of full
+    scale; FSK digits equal but at near-ties of the two half sums (within
+    1e-5 of the larger on the CPU's own sums)."""
+    from quadrs_tpu_torch import sources
+    from quadrs_tpu_torch.models import demod
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import Executor
+
+    rng = np.random.default_rng(6)
+    n = 1 << 20
+    if kind == "fm":
+        t = np.arange(n) / 2_400_000
+        x = np.exp(1j * (2 * np.pi * 500_000 * t + 75 * np.sin(2 * np.pi * 1000 * t)))
+        x = x + 0.05 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+        iq = np.stack([x.real, x.imag], -1) * 127.5 + 127.5
+        path = tmp_path / "fm.sr2400k.cu8"
+        np.clip(np.rint(iq), 0, 255).astype(np.uint8).tofile(path)
+        src = sources.open_capture(str(path))
+        fm = demod.FmDemod(center=-500_000, bandwidth=100_000, decimate=8, taps=400, audio_rate=48_000)
+        (rate, got), (_, want) = fm.demodulate(src, device=cuda), fm.demodulate(src, device="cpu")
+        assert rate == 48_000 and got.shape == want.shape and np.isfinite(got).all()
+        assert float(np.abs(got - want).max()) <= 1e-5
+        return
+    x = 0.3 * np.exp(-2j * np.pi * 230_000 * np.arange(n) / 21_000_000) + 0.3 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    raw = np.clip(np.rint(np.stack([x.real, x.imag], -1) * 127), -127, 127).astype(np.int8).reshape(-1).view(np.uint8)
+    src = sources.SampleSource(raw, FileFormat.COMPLEX_INT8, 21_000_000)
+    fsk = demod.FskDemod(center=280_000)
+    got, want = np.asarray(fsk.symbols(src, device=cuda)), np.asarray(fsk.symbols(src, device="cpu"))
+    assert got.shape == want.shape and len(got) > 400
+    bad = np.flatnonzero(got != want)
+
+    def halves(z):
+        norms = stft_norms(z, shift=False)
+        return norms[:, :32].sum(1), norms[:, 32:].sum(1)
+
+    if len(bad):
+        first, second = Executor(fsk.channel(src), 64, "cpu", post=halves).run(bad * 64)[0]
+        assert (np.abs(first - second) <= 1e-5 * np.maximum(first, second)).all()
 
 
 # -- the staging rings on the card ------------------------------------------------
