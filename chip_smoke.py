@@ -71,7 +71,24 @@ the run.  Phases:
    (tone, peak modulation within 3%) and ``ssb -sideband usb`` over 2^24
    cs8 samples at 2 Msps (tone), the audio of the card's run over the
    prefix within 1e-5 of full scale of the CPU's; ``bucket`` above takes the
-   same front end;
+   same front end; then ``psk -symbol-rate 12500`` (BPSK, and QPSK with
+   ``-order 4``) over 2^24 cs8 samples at 2 Msps of a differentially
+   encoded payload with a carrier and a timing offset (the payload comes
+   back), a burst whose carrier drifts 800 Hz at 1k symbols/s (``-block
+   4096`` brings the payload back, ``-block 0`` must not), ``-plot``'s PNG
+   decoded with zlib (256 x 256, markers at the order-th roots), each
+   against the CPU over the prefix (decisions equal but at counted
+   near-ties); ``channelize -channels 64 -power 512`` over a 2^26-sample
+   cs8 capture at 21 Msps with tones in channels 5, 17 and 40 (they lead,
+   every other channel 30 dB down; ``-select`` files' tones within a bin;
+   against the CPU within 2e-6 of scale), the defaults once; ``ui`` (GUI
+   defaults, ``-frames 4``) and ``eui`` (``-frames 3``) over the main
+   capture, their PNGs against the CPU's over the prefix (pixels equal but
+   at counted colour-boundary pixels), ``ui -live yes -rows 2000`` against
+   the CPU's rows and ``replay | eui -live yes -stdin yes -rows 2000``
+   against the file run's; the kernels' launch counts must not move across
+   these; the bank's ``scan`` again with ``-plot yes`` (64 survey PNGs, its
+   launches counted with the scan's);
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
@@ -89,7 +106,11 @@ the run.  Phases:
    gathered per window; then one streaming dispatch of each receiver at
    its phase-4 shape, split into staging (host clock), decode + mix, FIR
    and post (CUDA events), and the device's share of a profiled ``fm`` and
-   ``fsk`` run.
+   ``fsk`` run; one channelizer dispatch at its phase-4 shape split into
+   staging, the copy, decode + mask, the branch FIR, the DFT, the phase,
+   the way back and the file writes, with its bound; PSK's two device
+   programs, its host tables and one ``-block`` peak at the BPSK burst; the
+   device's share of a profiled ``psk`` and ``channelize`` run.
    A yardstick does part of its kernel's work; its inputs are made outside
    the timed region, and the port never calls it.  The frontend kernels and
    their yardstick take tens of microseconds, less than a call of their
@@ -114,6 +135,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -444,6 +466,7 @@ def run_cli(argv: list[str], expect_rc: int = 0, err_has: str = "") -> str:
         lines = lines[:5] + [f"... ({len(lines)} lines)"] + lines[-3:]
     print("  $ python -m quadrs_tpu_torch " + " ".join(argv))
     lines = [line if len(line) <= 160 else f"{line[:150]} ... ({len(line)} chars)" for line in lines]
+    lines = [line.replace("\x1b", "\\e") for line in lines]  # the live rows' ANSI escapes, as text
     print("    " + "\n    ".join(lines + err.getvalue().strip().splitlines()))
     if rc != expect_rc or err_has not in err.getvalue():
         raise AssertionError(f"{argv[0]} exited {rc}: {err.getvalue().strip()}")
@@ -1619,6 +1642,456 @@ def phase_find_timing(card: str) -> dict[str, float]:
     return out
 
 
+# --------------------------------------------- psk, channelize and the renderers
+
+PSK_RATE = 2_000_000  # the PSK captures: cs8 at 2 Msps, 2^24 samples (8.4 s of air)
+PSK_SAMPLES = 1 << 24
+PSK_CASES = {  # name: (order, symbols a second, carrier offset Hz, drift Hz over the burst)
+    "bpsk": (2, 12_500, 3_100.0, 0.0),
+    "qpsk": (4, 12_500, -2_300.0, 0.0),
+    "drift": (2, 1_000, 1_200.0, 800.0),
+}
+PSK_T0 = 37.3  # where the first symbol ends, in raw samples: a timing offset
+PSK_PHASE = 0.7  # the carrier's phase at sample 0 (rad)
+PSK_BLOCK = 4096  # -block of the drifting burst: 65 symbols a block
+CH_RATE = 21_000_000  # the channelizer's capture: cs8 at 21 Msps, 2^26 samples
+CH_K, CH_POWER = 64, 512  # -channels 64 -power 512: 1024 taps, U = 16 branch steps
+CH_CHUNK = 256_000  # the CLI's default -chunk 256k outputs a channel
+CH_TONES = {5: (0.25, 50_000), 17: (0.2, -70_000), 40: (0.3, 20_000)}  # channel: (amplitude, offset from its centre Hz)
+VIZ_MARGIN = 1e-5  # of the largest norm: a pixel whose colour flips within it is a boundary pixel
+
+
+def psk_argv(name: str) -> list[str]:
+    order, rate, _, drift = PSK_CASES[name]
+    return ["psk", "-symbol-rate", str(rate), *(["-order", "4"] if order == 4 else []),
+            *(["-block", str(PSK_BLOCK)] if drift else [])]
+
+
+def write_psk_capture(name: str, tmp: str) -> tuple[str, str]:
+    """One PSK burst of :data:`PSK_CASES` as a cs8 capture in ``tmp``, from
+    ``default_rng([SEED, 10 + k])``: a differentially encoded random payload
+    (symbol k holds phase ``2 pi a_k / order``, ``a_k = a_{k-1} + incr_k``,
+    QPSK offset by pi/4), rectangular symbols from :data:`PSK_T0` on, a
+    carrier offset, a phase and, for ``drift``, a linear drift of the carrier
+    across the burst; noise of 0.01 a component.  Returns the path and the
+    payload's bits (the increments, Gray-coded for QPSK)."""
+    order, rate, f_off, drift = PSK_CASES[name]
+    rng = np.random.default_rng([SEED, 10 + list(PSK_CASES).index(name)])
+    sps = PSK_RATE / rate
+    incr = rng.integers(0, order, int((PSK_SAMPLES - PSK_T0) / sps) + 2)
+    a = np.cumsum(incr) % order
+    offset = np.pi / 4 if order == 4 else 0.0
+    slope = drift / (PSK_SAMPLES / PSK_RATE)  # Hz a second
+    path = os.path.join(tmp, f"{name}.sr2M.cs8")
+
+    def make(m):
+        k = np.clip(np.floor((m - PSK_T0) / sps).astype(np.int64) + 1, 0, len(a) - 1)
+        t = m / PSK_RATE
+        cycles = np.mod(f_off * t + 0.5 * slope * t * t, 1.0)
+        return 0.8 * np.exp(1j * (2 * np.pi * a[k] / order + offset + PSK_PHASE + 2 * np.pi * cycles))
+
+    write_iq(path, PSK_SAMPLES, "cs8", make, rng)
+    gray = {0: "00", 1: "01", 2: "11", 3: "10"}
+    return path, "".join(str(v) if order == 2 else gray[int(v)] for v in incr)
+
+
+def psk_line(out: str) -> tuple[str, dict[str, float]]:
+    """A ``psk`` run's bits and its trailer's numbers."""
+    lines = out.strip().splitlines()
+    nums = dict(re.findall(r"(freq|phase|tau|sps) ([-+0-9.e]+)", lines[1]))
+    return lines[0], {k: float(v) for k, v in nums.items()}
+
+
+def psk_near_ties(name: str, pre: str) -> tuple[np.ndarray, int]:
+    """The prefix's decisions (one a differential symbol) whose angle on the
+    CPU lies within 1e-5 rad of a slicing boundary, and bits a decision."""
+    from quadrs_tpu_torch.models.demod import PskDemod
+    from quadrs_tpu_torch.sources import open_capture
+
+    order, rate, _, drift = PSK_CASES[name]
+    demod = PskDemod(symbol_rate=rate, order=order, block=PSK_BLOCK if drift else 0)
+    _, sym = demod.symbols(open_capture(pre), device="cpu")
+    d = sym[1:].astype(np.complex128) * np.conj(sym[:-1].astype(np.complex128))
+    step = 2 * np.pi / order
+    frac = np.angle(d) / step - 0.5
+    return np.abs(frac - np.round(frac)) * step < 1e-5, 2 if order == 4 else 1
+
+
+def read_png_checked(path: str, shape: tuple[int, int]) -> np.ndarray:
+    from quadrs_tpu_torch.utils.png import read_png
+
+    img = read_png(path)  # zlib and the CRCs, no Pillow
+    if img.shape != (*shape, 3):
+        raise AssertionError(f"{path}: {img.shape}, not {shape}")
+    return img
+
+
+def pixel_flips(what: str, got: np.ndarray, want: np.ndarray, near: np.ndarray) -> int:
+    """Card against CPU image: equal but at boundary pixels; prints and
+    returns the count that differ."""
+    diff = (got != want).any(axis=-1)
+    bad = int((diff & ~near).sum())
+    print(f"    {what}: {int(diff.sum())} of {diff.size} pixels differ from the CPU's, each within "
+          f"{VIZ_MARGIN}·max of a colour boundary (boundary pixels there: {int(near.sum())}); away from one: {bad}")
+    if bad:
+        raise AssertionError(f"{what}: {bad} pixels differ away from a colour boundary")
+    return int(diff.sum())
+
+
+def live_cell_flips(text: str, cpu_text: str, src, fw: int, stride: int, cols: int, cmap: str, windowing: str) -> int:
+    """A live run's rows against the CPU's: lines equal but at cells whose
+    pooled norm (the CPU's) is within ``VIZ_MARGIN`` of the row's max of a
+    colour boundary; returns the differing cells."""
+    from quadrs_tpu_torch.ops.stft import blackman_harris_window, stft_norms
+    from quadrs_tpu_torch.viz import live
+
+    cell = re.compile(r"\x1b\[48;2;(\d+);(\d+);(\d+)m ")
+    lines, cpu_lines = text.splitlines(), cpu_text.splitlines()
+    if len(lines) != len(cpu_lines):
+        raise AssertionError(f"live: {len(lines)} lines on the card, {len(cpu_lines)} on the CPU")
+    flips, r = 0, -1
+    win = torch.from_numpy(blackman_harris_window(fw)) if windowing != "rectangular" else None
+    for line, cpu_line in zip(lines, cpu_lines):
+        cells = cell.findall(line)
+        r += bool(cells)
+        if line == cpu_line:
+            continue
+        if not cells:
+            raise AssertionError(f"live: {line!r} != {cpu_line!r}")
+        x, _ = src.read_at(r * stride, fw, "cpu")
+        norms = stft_norms(torch.from_numpy(x)[None, :], window=win).numpy()
+        pooled = live._pool_bins(norms, cols)[0]
+        m = VIZ_MARGIN * float(norms.max())
+        lo, hi = (cell.findall(live._row_line(pooled + d, cols, cmap)) for d in (-m, m))
+        for i, (a, b) in enumerate(zip(cells, cell.findall(cpu_line))):
+            if a != b and lo[i] == hi[i]:
+                raise AssertionError(f"live row {r} cell {i}: {a} != {b} away from a colour boundary")
+            flips += a != b
+    return flips
+
+
+def write_channel_capture(tmp: str) -> str:
+    """The channelizer's capture: cs8 at 21 Msps, 2^26 samples, tones of
+    :data:`CH_TONES` (each at its channel's centre plus an offset) and noise
+    of 0.01 a component from ``default_rng([SEED, 20])``."""
+    from quadrs_tpu_torch.serve import channel_center
+
+    rng = np.random.default_rng([SEED, 20])
+    path = os.path.join(tmp, "band.sr21M.cs8")
+
+    def make(m):
+        return sum(amp * np.exp(1j * angle_of(channel_center(ch, CH_RATE, CH_K) + off, CH_RATE, m))
+                   for ch, (amp, off) in CH_TONES.items())
+
+    write_iq(path, CAPTURE_SAMPLES, "cs8", make, rng)
+    return path
+
+
+def phase_psk_path(card: str, tmp: str, walls: dict[str, float]) -> dict[str, str]:
+    """Phase 4, ``psk``: BPSK and QPSK at 12.5k symbols a second and a
+    drifting BPSK burst at 1k (its carrier drifts 800 Hz: one whole-burst
+    estimate leaves +/-400 Hz at the ends, past BPSK's 250 Hz budget; ``-block
+    4096`` tracks it), each over 2^24 cs8 samples at 2 Msps: the payload must
+    come back exactly (``-block 0`` must fail the drifting one), the
+    estimates are printed against the planted values; each against the CPU
+    over the 2^22-sample prefix (bits equal but at counted near-ties,
+    estimates within their print resolution); ``-plot`` decoded with zlib.
+    Returns the captures' paths."""
+    caps = {}
+    for name, (order, rate, f_off, drift) in PSK_CASES.items():
+        t0 = time.perf_counter()
+        cap, want = write_psk_capture(name, tmp)
+        caps[name] = cap
+        pre = prefix_of(cap, PREFIX_SAMPLES)
+        print(f"  {name}: {PSK_SAMPLES} cs8 samples at {PSK_RATE} sps, {rate} symbols/s, order {order}, carrier "
+              f"{f_off:+.1f} Hz{f', drifting {drift:.0f} Hz' if drift else ''}, timing offset {PSK_T0} samples; "
+              f"written in {time.perf_counter() - t0:.1f}s")
+        out = card_run(f"psk {name}", psk_argv(name) + [cap], card, walls, samples=PSK_SAMPLES)
+        bits, est = psk_line(out)
+        per = 2 if order == 4 else 1
+        # a substring: the edges lose a few symbols (the first is the
+        # differential reference, the filter settles over ~1.3 symbols)
+        if bits not in want or len(bits) < len(want) - 8 * per:
+            raise AssertionError(f"psk {name}: the payload did not come back ({len(bits)} of {len(want)} bits)")
+        sps = PSK_RATE / 32 / rate
+        print(f"    payload back: {len(bits)} of {len(want)} bits; freq {est['freq']:+.1f} Hz (planted {f_off:+.1f}"
+              f"{f' plus {drift / 2:.0f} of drift on average' if drift else ''}), tau {est['tau']:.2f} of sps {sps:g} "
+              f"(planted: symbol edges {PSK_T0} raw samples in, {PSK_T0 / 32:.2f} channel samples, to which tau adds "
+              f"the filters' delays), phase {est['phase']:+.3f} rad (planted {PSK_PHASE:+.3f}, to which the estimate "
+              f"adds the filter's phase and the order-fold ambiguity)")
+        if drift:
+            single = card_run("psk drift -block 0", psk_argv(name)[:-2] + [cap], card, walls, samples=PSK_SAMPLES)
+            if psk_line(single)[0] in want:
+                raise AssertionError("psk -block 0 decoded the drifting burst: the drift test is vacuous")
+            print("    -block 0 fails the drifting burst, as it must")
+        card_out, cpu_out = card_then_cpu(f"psk {name} prefix", lambda c, tag: psk_argv(name) + [c], pre, pre, card, {},
+                                          samples=PREFIX_SAMPLES)
+        (cb, ce), (pb, pe) = psk_line(card_out), psk_line(cpu_out)
+        ties, per = psk_near_ties(name, pre)
+        if len(cb) != len(pb):
+            raise AssertionError(f"psk {name}: {len(cb)} bits on the card, {len(pb)} on the CPU")
+        g = np.frombuffer(cb.encode(), np.uint8).reshape(-1, per)
+        w = np.frombuffer(pb.encode(), np.uint8).reshape(-1, per)
+        bad = np.flatnonzero((g != w).any(axis=1))
+        print(f"    prefix, card against CPU: {len(bad)} of {len(g)} decisions differ (near-ties within 1e-5 rad on the "
+              f"CPU: {int(ties.sum())}); freq {ce['freq']:+.1f} / {pe['freq']:+.1f} Hz, phase {ce['phase']:+.3f} / "
+              f"{pe['phase']:+.3f}, tau {ce['tau']:.2f} / {pe['tau']:.2f}")
+        if len(bad) and not ties[bad].all():
+            raise AssertionError(f"psk {name}: decisions {bad[~ties[bad]][:5]} differ away from a near-tie")
+        if abs(ce["freq"] - pe["freq"]) > 0.1 or abs(ce["phase"] - pe["phase"]) > 1e-3 or abs(ce["tau"] - pe["tau"]) > 1e-2:
+            raise AssertionError(f"psk {name}: the card's estimates differ from the CPU's")
+    # -plot: 256 x 256, markers at the order-th roots (the ideal ring sits at
+    # 0.38 of the canvas from its centre whatever the symbols' magnitude)
+    from quadrs_tpu_torch.viz.constellation import _MARK_RGB, SIZE
+
+    for name in ("bpsk", "qpsk"):
+        png = os.path.join(tmp, f"{name}.png")
+        out = card_run(f"psk {name} -plot", psk_argv(name) + ["-plot", png, caps[name]], card, walls, samples=PSK_SAMPLES)
+        if f"psk: constellation -> {png}" not in out:
+            raise AssertionError("psk -plot did not say where it wrote")
+        img = read_png_checked(png, (SIZE, SIZE))
+        order = PSK_CASES[name][0]
+        half, r = SIZE // 2, 0.38 * SIZE
+        marks = [(int(round(half - r * np.sin(a))), int(round(half + r * np.cos(a)))) for a in 2 * np.pi * np.arange(order) / order]
+        if any(tuple(img[y, x]) != _MARK_RGB for y, x in marks) or int((img[..., 2] > 0).sum()) < order:
+            raise AssertionError(f"psk -plot: no marker at an order-th root, or no symbols: {marks}")
+        print(f"    {png}: {SIZE}x{SIZE}, markers at {marks}, {int((img[..., 2] > 0).sum())} symbol pixels")
+    return caps
+
+
+def phase_channelize_path(card: str, tmp: str, walls: dict[str, float]) -> str:
+    """Phase 4, ``channelize``: 64 channels of 1024 taps over the 2^26-sample
+    cs8 capture at 21 Msps with the tones of :data:`CH_TONES`: each planted
+    channel's RMS leads and every other channel is at least 30 dB under the
+    weakest of them; ``-select`` of the three with ``-out``: each file's tone
+    within one bin of its planted offset; the files against the CPU's over
+    the prefix within ``2e-6`` of their scale; the defaults (8 channels, 40
+    taps) once.  Returns the capture's path."""
+    t0 = time.perf_counter()
+    cap = write_channel_capture(tmp)
+    pre = prefix_of(cap, PREFIX_SAMPLES)
+    print(f"  channelize: wrote {CAPTURE_SAMPLES} cs8 samples at {CH_RATE} sps, tones in channels {sorted(CH_TONES)} "
+          f"in {time.perf_counter() - t0:.1f}s")
+    argv = ["channelize", "-channels", str(CH_K), "-power", str(CH_POWER)]
+    out = card_run("channelize", argv + [cap], card, walls)
+    rms = {int(m[0]): float(m[1]) for m in re.findall(r"channel (\d+): center -?\d+ Hz, rms ([0-9.e+-]+)", out)}
+    weakest = min(rms[ch] for ch in CH_TONES)
+    loudest_other = max(v for ch, v in rms.items() if ch not in CH_TONES)
+    down = 20 * np.log10(weakest / loudest_other)
+    print(f"    planted channels' rms {[rms[ch] for ch in sorted(CH_TONES)]}; the loudest other {loudest_other:.4g}, "
+          f"{down:.1f} dB under the weakest planted one")
+    if len(rms) != CH_K or down < 30:
+        raise AssertionError(f"channelize: {len(rms)} channels, the others only {down:.1f} dB down")
+    sel = ",".join(map(str, sorted(CH_TONES)))
+    rate = CH_RATE // CH_K
+    files = {}
+    for where, c in (("gpu", cap), ("gpu-pre", pre), ("cpu-pre", pre)):
+        prefix = os.path.join(tmp, f"ch-{where}")
+        run = cpu_run if where == "cpu-pre" else (lambda n, a: card_run(n, a, card, walls, samples=CAPTURE_SAMPLES if where == "gpu" else PREFIX_SAMPLES))
+        run(f"channelize -select {where}", argv + ["-select", sel, "-out", prefix, c])
+        files[where] = {ch: np.fromfile(f"{prefix}.ch{ch}.sr{rate}.cf32", dtype="<c8") for ch in CH_TONES}
+    for ch, (_, off) in CH_TONES.items():
+        x = files["gpu"][ch].astype(np.complex128)
+        spec = np.abs(np.fft.fft(x * np.hanning(len(x))))
+        peak = int(np.argmax(spec))
+        freq = (peak if peak < len(x) // 2 else peak - len(x)) * rate / len(x)
+        print(f"    channel {ch}: {len(x)} samples, tone at {freq:+.2f} Hz (planted {off:+d}; bins of {rate / len(x):.4f} Hz)")
+        if abs(freq - off) > rate / len(x):
+            raise AssertionError(f"channel {ch}: tone at {freq} Hz, planted at {off}")
+    scale = max(float(np.abs(v).max()) for v in files["cpu-pre"].values())
+    err = max(float(np.abs(files["gpu-pre"][ch] - files["cpu-pre"][ch]).max()) for ch in CH_TONES)
+    print(f"    prefix, card against CPU: max |diff| {err:.3g} of scale {scale:.4g} (bound 2e-6 of it)")
+    if err > 2e-6 * scale or any(files["gpu-pre"][ch].shape != files["cpu-pre"][ch].shape for ch in CH_TONES):
+        raise AssertionError("channelize: the card's channels differ from the CPU's")
+    out = card_run("channelize defaults", ["channelize", cap], card, walls)
+    if "channelize: 8 channels @ 2625000 Hz" not in out:
+        raise AssertionError("channelize's defaults: not 8 channels")
+    return cap
+
+
+def phase_viz_path(card: str, cap: str, tmp: str, walls: dict[str, float]) -> None:
+    """Phase 4, the renderers over the main capture: ``ui`` at the GUI's
+    defaults and ``ui -frames 4`` (through ``from``), ``eui`` and ``eui
+    -frames 3``, each image against the CPU's over the prefix (pixels equal
+    but at counted boundary pixels); ``ui -live yes -rows 2000`` against the
+    CPU's rows; ``replay -speed 0 | eui -live yes -stdin yes -rows 2000``
+    against the file run's rows, line for line."""
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.viz import waterfall as twf
+
+    pre = prefix_of(cap, PREFIX_SAMPLES)
+    home = os.getcwd()
+    os.chdir(tmp)  # the renderers write ui.png, eui.png ... here
+    try:
+        for where in ("gpu", "cpu"):
+            os.makedirs(where, exist_ok=True)
+        imgs = {}
+        for name, argv, names in (("ui", lambda c: ["from", c, "ui"], ["ui.png"]),
+                                  ("ui -frames 4", lambda c: ["from", c, "ui", "-frames", "4"], [f"ui{k:03d}.png" for k in range(4)]),
+                                  ("eui", lambda c: ["eui", c], ["eui.png"]),
+                                  ("eui -frames 3", lambda c: ["eui", "-frames", "3", c], [f"eui{k:03d}.png" for k in range(3)])):
+            card_run(name, argv(cap), card, walls)
+            for where, run in (("gpu", lambda a: card_run(f"{name} prefix", a, card, {}, samples=PREFIX_SAMPLES)),
+                               ("cpu", lambda a: cpu_run(f"{name} prefix", a))):
+                out = run(argv(pre))
+                if [ln for ln in out.splitlines() if ln.startswith("wrote")] != [f"wrote {n}" for n in names]:
+                    raise AssertionError(f"{name}: wrote {out}")
+                for n in names:
+                    os.replace(n, os.path.join(where, n))
+            imgs[name] = names
+        src = open_capture(pre)
+        flipped = 0
+        for k in range(5):  # ui.png, then the sweep's ui000.png (fft 8) to ui003.png (fft 64)
+            name = "ui.png" if k == 0 else f"ui{k - 1:03d}.png"
+            p = twf.UiParams(fft_width=8 << max(k - 1, 0), stride=4)
+            norms = twf.ui_norms(src, p, device="cpu")
+            m = VIZ_MARGIN * float(norms.max())
+            near = (twf.ui_paint(norms - m, p)[0] != twf.ui_paint(norms + m, p)[0]).any(axis=-1)
+            got, want = (read_png_checked(os.path.join(w, name), (600, 800)) for w in ("gpu", "cpu"))
+            flipped += pixel_flips(f"ui {name}", got, want, near)
+        span = 46.3 - 46.0
+        for k in range(4):  # eui.png, then the scroll's eui000.png to eui002.png (eui_render_frames' slices)
+            name = "eui.png" if k == 0 else f"eui{k - 1:03d}.png"
+            start = 46.0 + max(k - 1, 0) * span
+            p = twf.EuiParams(start, start + span) if k else twf.EuiParams()
+            norms = sinks.take_fft(src, twf.eui_slice(src.length, p), 512, 2048, device="cpu").norms
+            m = VIZ_MARGIN * float(norms.max())
+            near = twf.blue_map(norms - m) != twf.blue_map(norms + m)
+            got, want = (read_png_checked(os.path.join(w, name), (2048, 512)) for w in ("gpu", "cpu"))
+            flipped += pixel_flips(f"eui {name}", got, want, near)
+        print(f"    the renderers: {flipped} pixels differ from the CPU's over 9 images, all at colour boundaries")
+        live = ["ui", "-live", "yes", "-rows", "2000", "-cols", "100"]
+        text = card_run("ui -live", ["from", cap, *live], card, walls)
+        card_pre = card_run("ui -live prefix", ["from", pre, *live], card, {}, samples=PREFIX_SAMPLES)
+        cells = live_cell_flips(card_pre, cpu_run("ui -live prefix", ["from", pre, *live]), src, 8, 4, 100, "hsv", "rectangular")
+        if text != card_pre or text.count("\n") != 2002:
+            raise AssertionError("ui -live: the capture's first 2000 rows differ from its prefix's")
+        print(f"    ui -live: 2000 rows; card against CPU: {cells} cells differ, all at colour boundaries")
+    finally:
+        os.chdir(home)  # replay runs from the checkout's root
+    elive = ["eui", "-live", "yes", "-rows", "2000", "-cols", "100"]
+    file_rows = card_run("eui -live", [*elive, cap], card, walls)
+    pipe_rows = piped([*elive, "-stdin", "yes", "-sr", "21M", "-format", "cs8"], cap)
+    if pipe_rows != file_rows or "live: 2000 rows, fft 512, stride 512" not in file_rows:
+        raise AssertionError("eui -live -stdin: the pipe's rows differ from the file's")
+    print("    replay | eui -live -stdin: 2000 rows, equal to the file run's line for line")
+
+
+def phase_channelize_timing(card: str, cap: str, tmp: str) -> None:
+    """Phase 5, one channelizer dispatch at phase 4's shape (4 windows of
+    256,000 outputs x 64 channels, 1024 taps), split into staging (the
+    capture's span into page-locked memory: host clock), the copy, decode +
+    mask, the branch FIR, the DFT over K, the centre phase, the way back
+    (channels first, into page-locked memory) and the file writes (host
+    clock), each stage with :func:`time_ms`; with its bound."""
+    from quadrs_tpu_torch.models.channelizer import Channelize, channels_first
+    from quadrs_tpu_torch.ops import channelizer as chops
+    from quadrs_tpu_torch.runtime import _to_device, root_step_of, window_batches
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.staging import Download
+
+    src = open_capture(cap)
+    chan = Channelize(src, CH_K, size=2 * CH_POWER)
+    batch, _ = window_batches(np.arange(0, chan.length, CH_CHUNK), CH_CHUNK, root_step=root_step_of(chan))
+    offs = np.arange(batch, dtype=np.int64) * CH_CHUNK
+    lo, _ = chan.span(0, CH_CHUNK)
+    s_off, s_n = chan.span(int(offs[-1]), CH_CHUNK)
+    hi = min(s_off + s_n, src.length)
+    host = torch.empty((2, hi - lo), dtype=torch.int8, pin_memory=DEVICE.type == "cuda")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        src.stage(lo, hi, out=host.numpy())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    staging = sorted(walls)[2]
+    buf = host.to(DEVICE)
+    prep = _to_device(chan.plan(offs, CH_CHUNK, lo).prep, DEVICE)
+    ctx = {"buf": buf, "device": DEVICE}
+    n_in = CH_CHUNK * CH_K + chan.size
+    keep = torch.arange(n_in, device=DEVICE)[None, :] < prep["valid_in"][:, None]
+
+    def decode():
+        return torch.where(keep, chan.inner.read_batch(ctx, prep["inner"], n_in), 0)
+
+    x = decode()
+    b = chops.branch_sums(x, chan.taps, CH_K, CH_CHUNK)
+    y = torch.fft.fft(b, dim=-1)
+    pr, pi = chops._center_phase(chan.size, CH_K)
+    phase = torch.complex(torch.from_numpy(pr), torch.from_numpy(pi)).to(DEVICE)
+    out = y * phase
+    torch.testing.assert_close(out, chops.channelize_block(x, chan.taps, CH_K, CH_CHUNK), rtol=0, atol=0)
+    ms = {
+        "copy": time_ms(lambda: host.to(DEVICE, non_blocking=True), iters=5),
+        "decode + mask": time_ms(decode, iters=5),
+        "branch FIR": time_ms(lambda: chops.branch_sums(x, chan.taps, CH_K, CH_CHUNK), iters=5),
+        "DFT": time_ms(lambda: torch.fft.fft(b, dim=-1), iters=5),
+        "phase": time_ms(lambda: y * phase, iters=5),
+        "back": time_ms(lambda: Download(channels_first(out), DEVICE).wait(), iters=5),
+    }
+    rows = Download(channels_first(out), DEVICE).wait()
+    walls = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        for ch in range(CH_K):
+            with open(os.path.join(tmp, f"timing.ch{ch}.cf32"), "wb") as fh:
+                for row in rows:
+                    fh.write(row[ch].tobytes())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    writes = sorted(walls)[1]
+    u = -(-chan.size // CH_K)
+    outs = batch * CH_CHUNK  # output rows (each K channels)
+    nbytes = 2 * (hi - lo) + outs * CH_K * 8
+    flops = outs * (4 * u * CH_K + 5 * CH_K * np.log2(CH_K) + 6 * CH_K)
+    b_ms, b_by = bound(nbytes, flops)
+    device = sum(v for k, v in ms.items() if k not in ("copy", "back"))
+    loop = u * 3 * outs * CH_K * 8  # the U-step loop reads its slice and reads and writes the sum, each step
+    print(f"  channelize dispatch: {batch} windows of {CH_CHUNK} outputs x {CH_K} channels ({hi - lo} cs8 samples in); staging "
+          f"{staging:.3f} ms (host), " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f", file writes {writes:.3f} ms (host; {outs * CH_K * 8 / 1e6:.0f} MB); device (decode to phase) {device:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.0f} MB in and out once, {flops / 1e9:.2f} GFLOP), "
+          f"{100 * b_ms / device:.1f}% of it; the branch loop moves {loop / 1e9:.2f} GB ({card})")
+
+
+def phase_psk_timing(card: str, caps: dict[str, str]) -> None:
+    """Phase 5, PSK at the BPSK burst of phase 4: the peak program, the host
+    tables, the process program and ``z``'s way back (CUDA events, the
+    tables on the host clock), one ``-block`` peak at its shape; then the
+    device's share of a profiled ``psk`` and ``channelize`` run."""
+    from quadrs_tpu_torch.models import demod
+    from quadrs_tpu_torch.sources import open_capture
+
+    order, rate, _, _ = PSK_CASES["bpsk"]
+    psk = demod.PskDemod(symbol_rate=rate, order=order)
+    ch_rate, x = psk.baseband(open_capture(caps["bpsk"]), device=DEVICE)
+    n = len(x)
+    planes, npad = demod._padded_planes(x)
+    dplanes = torch.from_numpy(planes).to(DEVICE)
+    sps = ch_rate / rate
+    peak = time_ms(lambda: demod.psk_peak(dplanes, n, order).cpu(), iters=5)
+    khat = psk._peak_khat(planes, n, npad, DEVICE)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rot, tim = demod.psk_tables(khat, npad, order, sps)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rot_d, tim_d = torch.from_numpy(rot).to(DEVICE), torch.from_numpy(tim).to(DEVICE)
+    process = time_ms(lambda: demod.psk_process(dplanes, rot_d, tim_d, n, order, int(round(sps))), iters=5)
+    z, _ = demod.psk_process(dplanes, rot_d, tim_d, n, order, int(round(sps)))
+    back = time_ms(lambda: z.cpu(), iters=5)
+    bplanes, bpad = demod._padded_planes(x[:PSK_BLOCK])
+    bdev = torch.from_numpy(bplanes).to(DEVICE)
+    block = time_ms(lambda: demod.psk_peak(bdev, PSK_BLOCK, order).cpu(), iters=5)
+    print(f"  psk, the BPSK burst ({n} baseband samples, npad {npad}): peak program and fetch {peak:.3f} ms, host tables "
+          f"{sorted(walls)[2]:.3f} ms, process program {process:.3f} ms, z back {back:.3f} ms; one -block peak "
+          f"(npad {bpad}) {block:.3f} ms ({card})")
+    for name, argv in (("psk", psk_argv("bpsk") + [caps["bpsk"]]),
+                       ("channelize", ["channelize", "-channels", str(CH_K), "-power", str(CH_POWER), caps["band"]])):
+        wall, busy = profiled(argv)
+        print(f"  {name}, a profiled card run: wall {wall:.3f}s, device busy {busy:.3f}s, "
+              f"device share {100 * busy / wall:.1f}% ({card})")
+
+
 def synth_on_device(fmt, shape, seed: int) -> torch.Tensor:
     """Seeded random native-dtype planes, made on the card."""
     from quadrs_tpu_torch.formats import FileFormat
@@ -1776,7 +2249,7 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
         print(f"    launches {got} ({card})")
         if got != {k: chunks if k == name else 0 for k in kernels}:
             raise AssertionError(f"{argv[0]} launched {got}; {chunks} chunks of {name}")
-        launches[name] = got[name]
+        launches[name] = launches.get(name, 0) + got[name]
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1809,6 +2282,23 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
                 ["scan", "-width", str(width), "-stride", "256", "-chunk", str(BANK_CHUNK), "-threshold", repr(thr),
                  "-top", "3",
                  "-out", prefix, *files])
+        # scan -plot: a survey PNG a stream, its strip the occupancy of the CSV
+        # beside it (its launches count into the kernels line with the run above)
+        from quadrs_tpu_torch.utils.png import read_png
+
+        t0 = time.perf_counter()
+        counted("waterfall_scan", chunks_over,
+                ["scan", "-width", str(width), "-stride", "256", "-chunk", str(BANK_CHUNK), "-threshold", repr(thr),
+                 "-top", "3", "-plot", "yes", "-out", prefix + "p", *files])
+        plot_s = time.perf_counter() - t0
+        for s in range(BANK_STREAMS):
+            img = read_png(f"{prefix}p.s{s}.png")
+            above = np.loadtxt(f"{prefix}p.s{s}.scan.csv", delimiter=",", skiprows=1)[:, 4]
+            strip = np.clip(above / over * 256.0, 0, 255).astype(np.uint8)
+            if img.shape != (225, width, 3) or not (img[201:, :, 2] == strip[None, :]).all():
+                raise AssertionError(f"scan -plot: {prefix}p.s{s}.png is not stream {s}'s survey")
+        print(f"  scan -plot: {BANK_STREAMS} survey PNGs of 225 x {width}, each strip the occupancy of its CSV; "
+              f"{plot_s:.2f}s ({card})")
 
         # every kernel against its plain version on the runner's staged
         # chunks at both strides, the ragged last chunks included; then the
@@ -2283,6 +2773,20 @@ def main() -> int:
         t0 = time.perf_counter()
         rx_walls, rx_caps = phase_receiver_path(card, tmp, cap)
         print(f"  the receivers: {time.perf_counter() - t0:.1f}s of phase 4")
+        # psk, channelize and the renderers: torch ops and cuFFT, no kernel
+        # (card_run fails a run that launches one; the counts are read again here)
+        before, new_walls, steps = all_launches(), {}, {}
+        t0 = time.perf_counter()
+        new_caps = phase_psk_path(card, tmp, new_walls)
+        steps["psk"], t0 = time.perf_counter() - t0, time.perf_counter()
+        new_caps["band"] = phase_channelize_path(card, tmp, new_walls)
+        steps["channelize"], t0 = time.perf_counter() - t0, time.perf_counter()
+        phase_viz_path(card, cap, tmp, new_walls)
+        steps["the renderers"] = time.perf_counter() - t0
+        if all_launches() != before:
+            raise AssertionError("psk, channelize or the renderers launched a kernel of the port: they run as torch ops")
+        print("  kernel launches unchanged across psk, channelize, ui and eui; " +
+              ", ".join(f"{k} {v:.1f}s" for k, v in steps.items()) + " of phase 4")
         bank_launches, bank_err = phase_bank_path(card)
         launches.update(bank_launches)
         for name, count in live_launches.items():
@@ -2312,6 +2816,14 @@ def main() -> int:
         for name in ("ook", "fsk", "fm", "am", "ssb"):
             print(f"  {name}: {samples_of(name) / rx_walls[name] / 1e6:.1f} Msps of "
                   f"capture in its phase-4 card run ({card})")
+        t0 = time.perf_counter()
+        phase_channelize_timing(card, new_caps["band"], tmp)
+        phase_psk_timing(card, new_caps)
+        print(f"  the channelizer's dispatch, PSK's programs and their profiled runs: {time.perf_counter() - t0:.1f}s of phase 5")
+        for name, wall in new_walls.items():
+            if name.startswith(("psk", "channelize")) and " prefix" not in name and "-pre" not in name:
+                n = PSK_SAMPLES if name.startswith("psk") else CAPTURE_SAMPLES
+                print(f"  {name}: {wall:.3f}s, {n / wall / 1e6:.1f} Msps of capture in its phase-4 card run ({card})")
     finally:
         tmp_dir.cleanup()
 

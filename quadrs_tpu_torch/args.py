@@ -8,11 +8,11 @@ arguments.
     bucket [-width W] [-stride S] -by freq COUNT  write [-overwrite B]
     PREFIX  gen [-cos F]* [-len SECS] RATE  resample UP/DOWN  dcblock
     agc  iqbal  find -pattern FILE ...  stream ...  waterfall ...
-    scan ...  info FILE...  replay FILE  ook ...  fsk ...  fm ...  am ...
-    ssb ...
+    scan ...  info FILE...  replay FILE  ook ...  fsk ...  psk ...  fm ...
+    am ...  ssb ...  channelize ...  ui ...  eui ...
 
-``ui`` and ``eui`` parse as in the JAX package; running them raises "not
-yet ported".  ``psk`` does not parse yet: its error names ROADMAP A10d.
+``-mesh`` parses as in the JAX package; running it raises naming ROADMAP
+A13.  ``serve`` does not parse yet (ROADMAP A12c).
 
 Parsing rules preserved from ``read_just_args`` (``src/args.rs:404-445``):
 flags are collected until the first non-flag token; a ``-``-prefixed
@@ -54,8 +54,8 @@ class Octagon(Command):
 
 @dataclass
 class Ui(Command):
-    """``ui``: the waterfall renderer (parsed as in the JAX package; not
-    yet ported, ROADMAP A14)."""
+    """``ui``: the legacy GUI's waterfall as ``ui.png`` (``-frames N``: a
+    sweep of fft widths), or live in the terminal (``-live yes``)."""
 
     fft_width: int = 8
     stretch: int = 4
@@ -71,8 +71,9 @@ class Ui(Command):
 
 @dataclass
 class Eui(Command):
-    """``eui``: the sliced waterfall renderer (parsed as in the JAX
-    package; not yet ported, ROADMAP A14)."""
+    """``eui``: the egui GUI's waterfall of a percentage slice of a file as
+    ``eui.png`` (``-frames N``: a scrolling slice), or live in the terminal
+    (``-live yes``, from a file or ``-stdin yes``)."""
 
     filename: Path | None
     start_pct: float = 46.0
@@ -225,6 +226,58 @@ class FskCmd(Command):
     # windows per symbol for clock recovery; None prints the raw
     # discriminator symbols
     bit: float | None = None
+    sample_rate: str | None = None
+    format: str | None = None
+    stdin: bool = False  # buffer the capture from a pipe
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+
+
+@dataclass
+class PskCmd(Command):
+    """``psk``: demodulate a BPSK/QPSK capture to bits
+    (:class:`~quadrs_tpu_torch.models.demod.PskDemod`).  Block-coherent:
+    carrier and symbol timing are recovered a burst (order-th-power FFT
+    estimate + Oerder-Meyr), no PLL.  ``-differential yes`` (the default)
+    decodes phase transitions, so the transmitter must encode
+    differentially; coherent slicing otherwise (the bits then carry an
+    unresolved ``2*pi/order`` rotation)."""
+
+    filename: str | None
+    shift: int = 0
+    lowpass: int = 200_000
+    size: int = 400
+    decimate: int = 32
+    symbol_rate: float = 0.0  # required: symbols per second
+    order: int = 2  # 2 = BPSK, 4 = QPSK (Gray 00 01 11 10)
+    differential: bool = True
+    # re-estimate the carrier every N baseband samples (0 = one estimate
+    # for the whole burst; see PskDemod.block)
+    block: int = 0
+    plot: str | None = None  # render the constellation PNG here
+    overwrite: bool = False
+    sample_rate: str | None = None
+    format: str | None = None
+    stdin: bool = False  # buffer the capture from a pipe
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+
+
+@dataclass
+class ChannelizeCmd(Command):
+    """``channelize``: split a capture into K equally spaced channels in one
+    pass (:class:`~quadrs_tpu_torch.models.channelizer.Channelize`, the
+    polyphase filter bank; channel ``k`` matches ``shift -{k*sr/K}`` +
+    ``lowpass -decimate K``).  ``-out`` writes each selected channel as
+    ``{prefix}.ch{k}.sr{rate}.cf32``; without it the command prints a
+    channel RMS meter."""
+
+    filename: str | None
+    channels: int = 8
+    size: int = 40  # prototype taps (2 * -power, the reference lowpass's default)
+    frequency: int | None = None  # cutoff; defaults to sr/(2K)
+    chunk: int = 1 << 18  # output samples per executor pull
+    select: tuple[int, ...] | None = None  # channels to write and print (all)
+    out: str | None = None
+    overwrite: bool = False
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
@@ -641,7 +694,78 @@ def _parse_fsk(args: _Args, raw_map) -> Command:
 
 
 def _parse_psk(args: _Args, raw_map) -> Command:
-    raise ValueError("'psk' is not yet ported to quadrs_tpu_torch (ROADMAP A10d)")
+    map_ = _no_duplicates(raw_map)
+    shift = parse_si_int(map_.pop("shift", "0"))
+    lowpass = parse_si_uint(map_.pop("lowpass", "200k"))
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 400
+    decimate = parse_si_uint(map_.pop("decimate", "32"))
+    symbol_rate = map_.pop("symbol-rate", None)
+    order = int(parse_si_uint(map_.pop("order", "2")))
+    differential = parse_bool(map_.pop("differential", "yes"))
+    block = int(parse_si_uint(map_.pop("block", "0")))
+    plot = map_.pop("plot", None)
+    overwrite = parse_bool(map_.pop("overwrite", "no"))
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    filename, stdin = _take_capture_arg(args, map_, "psk", sr, fmt)
+    mesh = _demod_mesh(map_, "psk", stdin)
+    _ensure_empty(map_, "psk")
+    if symbol_rate is None:
+        raise ValueError("psk requires -symbol-rate (symbols per second)")
+    symbol_rate = parse_si_float(symbol_rate)
+    if symbol_rate <= 0:
+        raise ValueError("-symbol-rate must be positive")
+    if order not in (2, 4):
+        raise ValueError("-order must be 2 (BPSK) or 4 (QPSK)")
+    return PskCmd(
+        filename=filename, shift=shift, lowpass=lowpass, size=size,
+        decimate=decimate, symbol_rate=symbol_rate, order=order,
+        differential=differential, block=block, plot=plot,
+        overwrite=overwrite, sample_rate=sr, format=fmt, stdin=stdin,
+        mesh=mesh,
+    )
+
+
+def _parse_channelize(args: _Args, raw_map) -> Command:
+    map_ = _no_duplicates(raw_map)
+    channels = int(parse_si_uint(map_.pop("channels", "8")))
+    if channels < 2:
+        raise ValueError("-channels must be at least 2")
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 40
+    freq = map_.pop("freq", None)
+    freq = None if freq is None else int(parse_si_uint(freq))
+    chunk = int(parse_si_uint(map_.pop("chunk", "256k")))
+    select_raw = map_.pop("select", None)
+    select: tuple[int, ...] | None = None
+    if select_raw is not None:
+        try:
+            select = tuple(int(parse_si_uint(tok)) for tok in select_raw.split(","))
+        except ValueError:
+            raise ValueError(f"bad -select list: {select_raw!r}")
+        if not select:
+            raise ValueError("empty -select list")
+        bad = [ch for ch in select if ch >= channels]
+        if bad:
+            raise ValueError(f"-select channel {bad[0]} out of range (channels={channels})")
+    out = map_.pop("out", None)
+    overwrite = parse_bool(map_.pop("overwrite", "no"))
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    mesh = map_.pop("mesh", None)
+    mesh = None if mesh is None else _parse_mesh(mesh)
+    if mesh is not None and mesh[1] != 1:
+        raise ValueError("channelize -mesh shards one capture: use T or Tx1")
+    filename, stdin = _take_capture_arg(args, map_, "channelize", sr, fmt)
+    if mesh is not None and stdin:
+        raise ValueError("channelize -mesh needs a capture file, not -stdin")
+    _ensure_empty(map_, "channelize")
+    return ChannelizeCmd(
+        filename=filename, channels=channels, size=size, frequency=freq,
+        chunk=chunk, select=select, out=out, overwrite=overwrite,
+        sample_rate=sr, format=fmt, stdin=stdin, mesh=mesh,
+    )
 
 
 def _audio_flags(map_: dict, cmd: str) -> dict:
@@ -1065,4 +1189,5 @@ _PARSERS = {
     "fm": _parse_fm,
     "am": _parse_am,
     "ssb": _parse_ssb,
+    "channelize": _parse_channelize,
 }

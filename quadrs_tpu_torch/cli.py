@@ -19,7 +19,8 @@ from quadrs_tpu_torch import args as argmod
 from quadrs_tpu_torch import serve
 from quadrs_tpu_torch.ops.frontend import no_tf32
 from quadrs_tpu_torch.pipeline import FindOp, run_pipeline
-from quadrs_tpu_torch.sources import LivePipeStream
+from quadrs_tpu_torch.sources import LivePipeStream, SampleSource
+from quadrs_tpu_torch.utils.sniff import guess_details
 
 USAGE = """\
 usage: {us} \\
@@ -44,6 +45,13 @@ sparkfft [-width 128] [-stride =width] [-range LOW:HIGH] \\
           preamble-triggered packet extraction, span-mapped through the chain] \\
    write [-overwrite no] [-format cf32|cs8|cu8|cs16 (quantize; default cf32)] FILENAME_PREFIX \\
      gen [-cos FREQUENCY]* [-len 1 (second)] [-noise 0 (sigma/component, seeded)] [-seed 0] SAMPLE_RATE \\
+      ui [-fft 8] [-stretch 4] [-stride 4] [-frames 1] [renders waterfall to ui.png] \\
+         [-live no] [-rows N] [-cols N] [live: stream ANSI waterfall to the terminal; \\
+          keys: +/- fft width, [/] stride, q quit] \\
+         [-stdin no] [-sr R] [-format F] [live waterfall off a pipe, like eui] \\
+     eui [-start 46] [-end 46.3] [-fft 512] [-frames 1] [FILENAME] [renders to eui.png] \\
+         [-live no] [-stride =fft] [-rows N] [-cols N] [live: blue ANSI waterfall] \\
+         [-stdin no] [-sr R] [-format F] [live waterfall off a pipe: rtl_sdr - | {us} eui -live yes -stdin yes ...] \\
   stream [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] \\
          [-chunk 4M] [-chunks N] [-search no] [-scan no] [-threshold 0] [-top 20] \\
          [-db no] [-trigger LEVEL (burst recorder; needs -out)] [-pre 1] [-post 1] \\
@@ -52,12 +60,19 @@ waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
          [-chunks N] [-search no] [-out PREFIX] FILENAME... | -stdin yes -sr RATE -format FMT \\
     scan [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] [-chunks N] \\
          [-threshold 0 (occupancy level)] [-top 20] [-db no] [-out PREFIX (full \\
-         per-bin CSV)] [-overwrite no] FILENAME... | -stdin yes -sr RATE -format FMT \\
+         per-bin CSV)] [-plot no (render .sK.png survey plots)] [-overwrite no] \\
+         FILENAME... | -stdin yes -sr RATE -format FMT \\
     info [-chunk 4M] [-limit N (first N samples)] FILENAME...   (capture statistics) \\
   replay [-speed 1 (x real time; 0 = unthrottled)] [-loop 1] [-chunk 64k] FILENAME \\
          (raw bytes to stdout, paced: a recorded capture as a live pipe) \\
      ook [-width 4] [-stride 2] [-threshold 0.001] [-bit 8] [-raw no] [-stdin no] [-mesh T] FILENAME \\
      fsk [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] [-stride S] [-bit N] [-stdin no] [-mesh T] FILENAME \\
+     psk [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] -symbol-rate HZ \\
+         [-order 2 (BPSK; 4 = QPSK, Gray 00 01 11 10)] [-differential yes] \\
+         [-block 0 (re-estimate the carrier every N baseband samples: \\
+          tracks drifting crystals; 0 = one whole-burst estimate)] \\
+         [-plot FILE.png (render the synchronized constellation)] [-overwrite no] \\
+         [-stdin no] [-mesh T] FILENAME [block-coherent: per-burst carrier + timing, no PLL] \\
       fm [-shift 0] [-lowpass 100k] [-power 200] [-decimate 8] [-deviation 75k] \\
          [-audio-lowpass HZ] [-audio-decimate 1] [-audio-power 32] [-audio-rate HZ] \\
          [-out PREFIX (writes PREFIX.srR.f32 mono audio; '-': stream to stdout, e.g. | aplay)] \\
@@ -70,10 +85,14 @@ waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
      ssb [-shift 0] [-sideband usb|lsb] [-bandwidth 3k] [-power 200] [-decimate 8] \\
          [-audio-lowpass HZ] [-audio-decimate 1] [-audio-power 32] [-audio-rate HZ] \\
          [-out PREFIX|-] [-wav no] [-overwrite no] [-stdin no] [-mesh T] FILENAME \\
-         [single-sideband to audio; -shift -CARRIER_OFFSET brings the carrier to DC]
+         [single-sideband to audio; -shift -CARRIER_OFFSET brings the carrier to DC] \\
+channelize [-channels 8] [-power 20] [-freq =sr/2K] [-chunk 256k] [-select 0,3,..] \\
+         [-out PREFIX (writes PREFIX.chK.srR.cf32 per channel)] [-overwrite no] \\
+         [-stdin no] [-mesh T] FILENAME [polyphase filter bank: every channel in \\
+          one pass; channel k = shift -k*sr/K + lowpass -decimate K]
 
-(ui and eui, and -mesh and scan -plot, parse as in quadjax but are not yet
-ported; psk does not parse yet, ROADMAP A10d.)
+(-mesh parses as in quadjax but is not yet ported, ROADMAP A13; serve is not
+yet ported, ROADMAP A12c.)
 
 Formats:
 
@@ -92,10 +111,71 @@ _RUNNERS = {
     argmod.ReplayCmd: serve.run_replay,
     argmod.OokCmd: serve.run_ook,
     argmod.FskCmd: serve.run_fsk,
+    argmod.PskCmd: serve.run_psk,
     argmod.FmCmd: serve.run_fm,
     argmod.AmCmd: serve.run_am,
     argmod.SsbCmd: serve.run_ssb,
+    argmod.ChannelizeCmd: serve.run_channelize,
 }
+
+
+def _run_ui(command: argmod.Ui, stream, device: torch.device):
+    """``ui``: the accumulator's waterfall as ``ui.png`` (``-frames N``: a
+    sweep of fft widths, ``ui000.png`` ...), or live in the terminal; the
+    live pipe with ``-live yes -stdin yes``.  Returns the accumulator after
+    it: ``ui`` takes the samples (the reference's ``samples.take()``), but
+    a live pipe's run leaves them alone."""
+    from quadrs_tpu_torch.viz.waterfall import UiParams, ui_render_file, ui_render_frames
+
+    if command.live and command.stdin:
+        ui_input = LivePipeStream(serve._stdin_pipe_source(command))
+    elif stream is None:
+        raise ValueError("ui requires an input")
+    else:
+        ui_input = stream
+    if command.live:
+        from quadrs_tpu_torch.viz.live import LiveParams, live_waterfall
+
+        stats = live_waterfall(ui_input, LiveParams(fft_width=command.fft_width, stride=command.stride,
+                                                    cols=command.cols, max_rows=command.rows), device=device)
+        print(f"live: {stats['rows']} rows, fft {stats['fft_width']}, stride {stats['stride']}")
+        return stream if command.stdin else None
+    params = UiParams(fft_width=command.fft_width, stretch=command.stretch, stride=command.stride)
+    if command.frames > 1:
+        for path in ui_render_frames(stream, command.frames, params=params, device=device):
+            print(f"wrote {path}")
+    else:
+        print(f"wrote {ui_render_file(stream, params=params, device=device)}")
+    return None
+
+
+def _run_eui(command: argmod.Eui, device: torch.device) -> None:
+    """``eui``: a percentage slice of a file as ``eui.png`` (``-frames N``: a
+    scrolling slice, ``eui000.png`` ...), or live in the terminal from the
+    file or the pipe.  It reads its own input and leaves the accumulator
+    alone."""
+    from quadrs_tpu_torch.viz.waterfall import EuiParams, eui_render_file, eui_render_frames
+
+    if command.live:
+        from quadrs_tpu_torch.viz.live import LiveParams, live_waterfall
+
+        if command.stdin:
+            src = LivePipeStream(serve._stdin_pipe_source(command))
+        elif command.filename is None:
+            raise ValueError("eui -live requires a filename")
+        else:
+            src = SampleSource.from_file(str(command.filename), guess_details(str(command.filename)))
+        stats = live_waterfall(src, LiveParams(fft_width=command.fft_width, stride=command.stride or command.fft_width,
+                                               cols=command.cols, max_rows=command.rows,
+                                               windowing="blackman-harris", colormap="blue"), device=device)
+        print(f"live: {stats['rows']} rows, fft {stats['fft_width']}, stride {stats['stride']}")
+        return
+    params = EuiParams(start_pct=command.start_pct, end_pct=command.end_pct, fft_width=command.fft_width)
+    if command.frames > 1:
+        for path in eui_render_frames(command.filename, command.frames, params=params, device=device):
+            print(f"wrote {path}")
+    else:
+        print(f"wrote {eui_render_file(command.filename, params=params, device=device)}")
 
 
 def _kind(command) -> str:
@@ -155,9 +235,12 @@ def main(argv: list[str] | None = None) -> int:
                     # accumulator untouched; matches print at EOF
                     run_pipeline([command.op], device=device, stream=LivePipeStream(serve._stdin_pipe_source(command.op)))
                     continue
-                if isinstance(command, (argmod.Ui, argmod.Eui)):
-                    name = "ui" if isinstance(command, argmod.Ui) else "eui"
-                    raise NotImplementedError(f"{name} is not yet ported to quadrs_tpu_torch (ROADMAP A14)")
+                if isinstance(command, argmod.Ui):
+                    stream = _run_ui(command, stream, device)
+                    continue
+                if isinstance(command, argmod.Eui):
+                    _run_eui(command, device)
+                    continue
                 rc = _RUNNERS[type(command)](command, device)
                 if rc:
                     return rc

@@ -1,14 +1,16 @@
 """Receivers: capture in, bits or audio out.
 
-The counterpart of ``quadrs_tpu.models.demod`` for OOK, FSK, FM, AM and
-SSB (PSK is not ported yet: ROADMAP A10d).  Device side: decode, mix,
-filter, and the envelope, discriminator or audio reductions, as torch
-ops and cuFFT; host side: clock recovery (sequential, see
-:mod:`quadrs_tpu_torch.bits`).
+The counterpart of ``quadrs_tpu.models.demod``: OOK, FSK, PSK, FM, AM and
+SSB.  Device side: decode, mix, filter, and the envelope, discriminator,
+PSK estimator or audio reductions, as torch ops and cuFFT; host side:
+clock recovery (sequential, see :mod:`quadrs_tpu_torch.bits`) and PSK's
+f64 tables and symbol decisions.
 
 ``OokDemod`` is the README's OOK flow as one model (envelope ->
 threshold -> run-length clock recovery -> Manchester); ``FskDemod``
 shift -> lowpass -> halves-energy discriminator -> clock recovery;
+``PskDemod`` shift -> lowpass -> block-coherent carrier and timing
+estimates -> symbol decisions;
 ``FmDemod``, ``AmDemod`` and ``SsbDemod`` run a channel through a polar
 discriminator, an envelope detector or a sideband filter into the shared
 audio tail (:func:`audio_stage`).
@@ -24,6 +26,7 @@ stages and live pipes keep.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -351,6 +354,270 @@ def audio_stage(demod, rate: int, audio: torch.Tensor, div: float = 1.0, bias: f
     return cur_rate, y.contiguous().cpu().numpy()
 
 
+# ------------------------------------------------------------------- PSK
+
+_TAU = 2.0 * math.pi
+_QPSK_GRAY = {0: (0, 0), 1: (0, 1), 2: (1, 1), 3: (1, 0)}
+
+
+@dataclass(frozen=True)
+class PskEstimate:
+    """Synchronization estimates recovered from one PSK burst."""
+
+    freq_hz: float  # residual carrier offset at the channel rate
+    phase: float  # common phase (radians; one of the ``order`` branches)
+    tau: float  # symbol timing offset, channel samples in [0, sps)
+    sps: float  # channel samples per symbol
+    rate: int  # channel sample rate (Hz)
+    n: int  # baseband samples analyzed
+
+
+def _masked(planes: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (2, npad) planes as complex, zero from sample ``n`` on, and the
+    sample indices."""
+    idx = torch.arange(planes.shape[1], device=planes.device)
+    mask = (idx < n).to(torch.float32)
+    return torch.complex(planes[0] * mask, planes[1] * mask), idx
+
+
+def psk_peak(planes: torch.Tensor, n: int, order: int) -> torch.Tensor:
+    """Device program: the power spectrum peak of the order-th power of the
+    masked burst.  Returns ``(k0, P[k0-1], P[k0], P[k0+1])`` as one f64
+    tensor on the device (one fetch; the parabolic refinement stays on the
+    host).  ``torch.argmax`` keeps the first maximum, as ``jnp.argmax``
+    does."""
+    npad = planes.shape[1]
+    x, _ = _masked(planes, n)
+    for _ in range(order.bit_length() - 1):  # order in (2, 4)
+        x = x * x
+    p = torch.abs(torch.fft.fft(x)) ** 2
+    k0 = torch.argmax(p)
+    return torch.stack([k0.to(torch.float64), p[(k0 - 1) % npad].double(), p[k0].double(), p[(k0 + 1) % npad].double()])
+
+
+def psk_process(planes: torch.Tensor, rot: torch.Tensor, tim: torch.Tensor, n: int, order: int, mf_len: int):
+    """Device program: derotate by the host-exact phase table, the
+    order-th-power sum (common phase), the length-``mf_len`` moving average
+    as an f32 ``cumsum`` difference (the matched filter), and the
+    Oerder-Meyr timing correlator ``sum |z|^2 e^{-j 2 pi n / sps}`` over full
+    filter windows.  Returns ``(z complex64 on the device, (s.re, s.im, e.re,
+    e.im) f64 on the device)``."""
+    x, idx = _masked(planes, n)
+    y = x * torch.complex(rot[0], rot[1])
+    ym = y
+    for _ in range(order.bit_length() - 1):
+        ym = ym * ym
+    s = torch.sum(ym)
+    c = torch.cumsum(y, dim=0)
+    z = (c - torch.cat([torch.zeros(mf_len, dtype=y.dtype, device=y.device), c[:-mf_len]])) / mf_len
+    full = ((idx >= mf_len - 1) & (idx < n)).to(torch.float32)
+    w = (z.real**2 + z.imag**2) * full
+    e = torch.sum(w * torch.complex(tim[0], tim[1]))
+    return z, torch.stack([s.real, s.imag, e.real, e.imag]).double()
+
+
+def psk_tables(khat: float, npad: int, order: int, sps: float) -> tuple[np.ndarray, np.ndarray]:
+    """The host-exact derotation and timing tables, (2, npad) f32 each: f64
+    reductions mod one cycle, then one f32 cos/sin (the ExactNCO
+    discipline)."""
+    nn = np.arange(npad, dtype=np.float64)
+    ph = -_TAU * np.mod(khat * nn, order * npad) / (order * npad)
+    rot = np.stack([np.cos(ph), np.sin(ph)]).astype(np.float32)
+    pht = -_TAU * np.mod(nn / sps, 1.0)
+    tim = np.stack([np.cos(pht), np.sin(pht)]).astype(np.float32)
+    return rot, tim
+
+
+def _padded_planes(x: np.ndarray) -> tuple[np.ndarray, int]:
+    """The burst as (2, npad) f32 planes, zero past it, and npad (a power of
+    two, at least 256)."""
+    n = len(x)
+    npad = max(256, sinks._round_up_pow2(n))
+    planes = np.zeros((2, npad), dtype=np.float32)
+    planes[0, :n] = np.real(x)
+    planes[1, :n] = np.imag(x)
+    return planes, npad
+
+
+@dataclass
+class PskDemod:
+    """Phase-shift-keying receiver (BPSK/QPSK), block-coherent.
+
+    shift -> lowpass channel, then two device programs a burst: the
+    residual carrier from the order-th power's FFT peak (refined
+    parabolically on the host), derotation by a host-exact f64 phase table,
+    a one-symbol moving-average matched filter and the Oerder-Meyr timing
+    correlator.  The host then samples symbols at the recovered instants
+    (linear interpolation) and slices.  No PLL: carrier and timing are
+    closed-form block estimates.
+
+    ``center`` is the shift (bring the carrier to DC with ``center =
+    -carrier_offset``); ``symbol_rate`` in symbols a second, with ``sps =
+    channel_rate / symbol_rate >= 2``; ``order`` 2 (BPSK) or 4 (QPSK, Gray
+    00 01 11 10 counter-clockwise).  ``differential`` (the default) decodes
+    phase transitions, which cancels the order-fold ambiguity of power-law
+    carrier recovery; coherent slicing keeps an unresolved rotation of
+    ``2*pi/order``.  The residual carrier must satisfy ``|freq| < rate / (2
+    * order)``.
+
+    ``block=N`` re-estimates the carrier every ``N`` baseband samples (one
+    small peak program a block, host-synchronous), integrates the
+    piecewise-linear frequency track into a continuous f64 phase ramp,
+    derotates, and runs the whole-burst estimator on the detrended burst:
+    a drifting crystal's carrier.  Each block must hold at least ~4
+    symbols."""
+
+    center: int = 0
+    bandwidth: int = 200_000
+    decimate: int = 32
+    taps: int = 400
+    symbol_rate: float = 0.0  # required: symbols per second
+    order: int = 2
+    differential: bool = True
+    chunk: int = 1 << 16  # baseband samples per window (semantics at each window's end)
+    block: int = 0  # baseband samples per carrier estimate (0 = whole burst)
+
+    def _check(self) -> None:
+        if self.order not in (2, 4):
+            raise ValueError(f"order must be 2 (BPSK) or 4 (QPSK), not {self.order}")
+        if self.symbol_rate <= 0:
+            raise ValueError("symbol_rate must be positive (symbols per second)")
+
+    def channel(self, stream: Stream) -> Stream:
+        self._check()
+        chain: Stream = stream
+        if self.center:
+            chain = Shift(chain, self.center, chain.sample_rate)
+        return LowPass(chain, self.bandwidth, self.decimate, self.taps)
+
+    def baseband(self, stream: Stream, *, device: torch.device | str) -> tuple[int, np.ndarray]:
+        """``(channel_rate_hz, complex64[channel_len])`` of the filtered
+        channel, in windows of ``chunk`` samples with no lead (the analog
+        receivers' chunk loop; real and imaginary planes cross as one
+        trailing axis).  Bursts are buffered whole."""
+        chan = self.channel(stream)
+        if chan.length < 1:
+            raise ValueError("input too short for the PSK demodulator")
+        c = min(self.chunk, chan.length)
+        arr = _chunked_signal_dev(chan, c, 0, torch.view_as_real, device=device).cpu().numpy()
+        return chan.sample_rate, (arr[..., 0] + 1j * arr[..., 1]).astype(np.complex64)
+
+    def _peak_khat(self, planes: np.ndarray, n: int, npad: int, device) -> float:
+        """The refined order-th-power spectral peak, in bins of ``npad``
+        (divide by ``order * npad`` for cycles a sample)."""
+        got = psk_peak(torch.from_numpy(planes).to(device), n, self.order).cpu().numpy()
+        k0, pm, p0, pp = int(got[0]), float(got[1]), float(got[2]), float(got[3])
+        denom = pm - 2.0 * p0 + pp
+        delta = 0.0 if denom == 0.0 else 0.5 * (pm - pp) / denom
+        khat = k0 + min(0.5, max(-0.5, delta))
+        if khat > npad / 2:
+            khat -= npad
+        return khat
+
+    def _block_freq(self, rate: int, xb: np.ndarray, device) -> float:
+        """The whole-burst estimator's carrier of one baseband slice."""
+        planes, npad = _padded_planes(xb)
+        return self._peak_khat(planes, len(xb), npad, device) / (self.order * npad) * rate
+
+    def _carrier_detrend(self, rate: int, x: np.ndarray, device) -> tuple[np.ndarray, float]:
+        """Blockwise carrier tracking: the carrier every ``block`` samples,
+        the frequency interpolated linearly between block midpoints
+        (constant beyond the ends), integrated to an f64 phase ramp, and
+        removed.  Returns the detrended burst and the track's mean."""
+        n, b = len(x), int(self.block)
+        sps = rate / self.symbol_rate
+        min_blk = max(1, int(round(sps))) + int(math.ceil(3 * sps))
+        if b < min_blk:
+            raise ValueError(
+                f"block={b} baseband samples holds under ~4 symbols at "
+                f"sps={sps:.1f}: raise -block (>= {min_blk})"
+            )
+        n_blocks = max(1, n // b)  # the ragged tail merges into the last
+        bounds = [i * b for i in range(n_blocks)] + [n]
+        mids = np.empty(n_blocks, dtype=np.float64)
+        freqs = np.empty(n_blocks, dtype=np.float64)
+        for i, (s, e) in enumerate(zip(bounds[:-1], bounds[1:])):
+            mids[i] = 0.5 * (s + e - 1)
+            freqs[i] = self._block_freq(rate, x[s:e], device)
+        f_t = np.interp(np.arange(n, dtype=np.float64), mids, freqs)
+        phi = _TAU * np.cumsum(f_t) / rate  # continuous by construction
+        y = (x * np.exp(-1j * phi)).astype(np.complex64)
+        return y, float(np.mean(f_t))
+
+    def analyze(self, rate: int, x: np.ndarray, *, device: torch.device | str) -> tuple[PskEstimate, np.ndarray]:
+        """Synchronize and sample one baseband burst: ``(estimate,
+        symbols)``, the symbols the matched filter's complex decisions,
+        derotated so that the ideal constellation is the ``order``-th roots
+        of unity (up to the power-law ambiguity).  With ``block > 0`` the
+        carrier is detrended blockwise first, and ``freq_hz`` is the track's
+        mean plus the residual."""
+        self._check()
+        device = torch.device(device)
+        f_track = 0.0
+        if self.block:
+            x, f_track = self._carrier_detrend(rate, x, device)
+        m_ord = self.order
+        sps = rate / self.symbol_rate
+        if sps < 2.0:
+            raise ValueError(f"{sps:.2f} channel samples/symbol < 2: lower the symbol rate or the decimation")
+        mf_len = max(1, int(round(sps)))
+        n = len(x)
+        if n < mf_len + int(math.ceil(3 * sps)):
+            raise ValueError("burst too short: needs at least ~4 symbols")
+        planes, npad = _padded_planes(x)
+        khat = self._peak_khat(planes, n, npad, device)
+        rot, tim = psk_tables(khat, npad, m_ord, sps)
+        dev_planes = torch.from_numpy(planes).to(device)
+        z, se = psk_process(dev_planes, torch.from_numpy(rot).to(device), torch.from_numpy(tim).to(device), n, m_ord, mf_len)
+        z = z.cpu().numpy()
+        s_re, s_im, e_re, e_im = (float(v) for v in se.cpu().numpy())
+        phase = math.atan2(s_im, s_re) / m_ord
+        tau = (-math.atan2(e_im, e_re) / _TAU) % 1.0 * sps
+        est = PskEstimate(freq_hz=f_track + khat / (m_ord * npad) * rate, phase=phase, tau=tau, sps=sps, rate=int(rate), n=n)
+        # symbol instants tau + k*sps inside full matched-filter windows
+        # ([mf_len-1, n-1]); linear interpolation, then the common phase
+        k_start = max(0, int(math.ceil((mf_len - 1 - tau) / sps)))
+        k_end = int(math.floor((n - 1 - tau) / sps))
+        if k_end < k_start:
+            raise ValueError("burst too short: no full symbol instants")
+        t = tau + np.arange(k_start, k_end + 1, dtype=np.float64) * sps
+        i = np.minimum(np.floor(t).astype(np.int64), n - 2)
+        f = (t - i).astype(np.float32)
+        sym = z[i] * (1.0 - f) + z[i + 1] * f
+        sym = sym * np.complex64(complex(math.cos(-phase), math.sin(-phase)))
+        return est, sym.astype(np.complex64)
+
+    def symbols(self, stream: Stream, *, device: torch.device | str) -> tuple[PskEstimate, np.ndarray]:
+        rate, x = self.baseband(stream, device=device)
+        return self.analyze(rate, x, device=device)
+
+    def slice(self, sym: np.ndarray) -> list[int]:
+        """Decisions to bits: the phase increment between consecutive
+        symbols (differential) or the absolute position (coherent), as the
+        index ``m`` of ``e^{j 2 pi m / order}``; QPSK through the Gray code
+        00 01 11 10."""
+        m_ord = self.order
+        if self.differential:
+            if len(sym) < 2:
+                raise ValueError("differential decode needs >= 2 symbols")
+            d = sym[1:] * np.conj(sym[:-1])
+            ang = np.arctan2(d.imag, d.real)
+        else:
+            ang = np.arctan2(sym.imag, sym.real)
+        m = np.round(ang * (m_ord / _TAU)).astype(np.int64) % m_ord
+        if m_ord == 2:
+            return [int(v) for v in m]
+        out: list[int] = []
+        for v in m:
+            out.extend(_QPSK_GRAY[int(v)])
+        return out
+
+    def demodulate(self, stream: Stream, *, device: torch.device | str) -> tuple[PskEstimate, list[int]]:
+        """Capture to synchronized bits."""
+        est, sym = self.symbols(stream, device=device)
+        return est, self.slice(sym)
+
+
 # --------------------------------------------------------- the front end
 
 
@@ -633,7 +900,8 @@ def _strided_windows_dev(stream: Stream, width: int, stride: int, total: int, po
 
 def _chunked_signal_dev(chan: Stream, c: int, lead: int, post, *, device) -> torch.Tensor:
     """``post`` over the channel in windows of ``c + lead`` samples at
-    offsets stepping ``c``, each giving ``c`` f32 outputs, assembled flat
+    offsets stepping ``c``, each giving ``c`` outputs (with any trailing
+    component axes of ``post``'s), assembled flat
     on ``device``: the analog receivers' shared chunk loop.  A short read
     (EOF) truncates and ends the stream.
 
@@ -654,7 +922,8 @@ def _chunked_signal_dev(chan: Stream, c: int, lead: int, post, *, device) -> tor
         if len(short):
             i = int(short[0])
             m = i * c + max(int(valid[i]) - lead, 0)
-        parts.append(vals.reshape(-1)[:m])
+        # flatten the windows; trailing component axes ride along
+        parts.append(vals.reshape((-1,) + vals.shape[2:])[:m])
         if len(short):
             break
     return torch.from_numpy(np.concatenate(parts)).to(device)

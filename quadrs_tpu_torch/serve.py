@@ -1,10 +1,11 @@
 """The CLI's serving products: ``stream``, ``waterfall``, ``scan``,
-``info``, ``replay`` and the receivers ``ook``, ``fsk``, ``fm``, ``am`` and
-``ssb``.
+``info``, ``replay``, the receivers ``ook``, ``fsk``, ``psk``, ``fm``,
+``am`` and ``ssb``, and ``channelize``.
 
 Their lines and files are the JAX package's (``quadrs_tpu.serve``): a
 ``<cmd> peak [stream=S] window=W bin=B mag=M`` line per stream, the
-survey table of a scan, a ``wrote PATH`` line per output file, and a
+survey table of a scan (``-plot``: a survey PNG a stream), a ``wrote
+PATH`` line per output file, and a
 closing ``<cmd>: N samples, M windows, S.SSs, R.R Msps`` stats line.
 ``-out PREFIX`` streams results to files chunk by chunk: norms as raw
 f32 rows, peaks and survey tables as CSV.  ``-stdin yes`` reads a live
@@ -12,7 +13,9 @@ pipe in place of a file; ``stream -trigger`` records bursts as byte-exact
 slices of the capture; ``replay`` is the pipe's producer side.  The
 receivers print bits, or write audio (``-out PREFIX``: raw mono f32 or,
 with ``-wav yes``, a WAV; ``-out -``: the same bytes to stdout, the meter
-line then to stderr) and print a meter line.
+line then to stderr) and print a meter line; ``psk -plot`` writes the
+constellation.  ``channelize`` writes a file a channel (``-out``) and
+prints an RMS meter.
 """
 
 from __future__ import annotations
@@ -32,21 +35,10 @@ from quadrs_tpu_torch.sources import PipeSource, RawRing, SampleSource, open_cap
 from quadrs_tpu_torch.stream_runner import BurstGate, RunStats, burst_spans
 from quadrs_tpu_torch.utils.sniff import guess_details
 
-_MESH = {"mesh": "-mesh (multi-GPU sharding, ROADMAP A13)"}
-
-# flags whose paths are not ported yet, per command, with the ROADMAP item that ports them
-_NOT_PORTED = {
-    **{cmd: _MESH for cmd in ("ook", "fsk", "fm", "am", "ssb")},
-    "stream": _MESH,
-    "waterfall": _MESH,
-    "scan": {**_MESH, "plot": "-plot (survey plots, ROADMAP A14)"},
-}
-
-
-def _refuse_not_ported(name: str, cmd) -> None:
-    for flag, what in _NOT_PORTED[name].items():
-        if getattr(cmd, flag) not in (None, False):
-            raise NotImplementedError(f"{name} {what} is not yet ported to quadrs_tpu_torch")
+def _refuse_mesh(name: str, cmd) -> None:
+    """``-mesh`` parses but is not ported yet (ROADMAP A13)."""
+    if cmd.mesh is not None:
+        raise NotImplementedError(f"{name} -mesh (multi-GPU sharding, ROADMAP A13) is not yet ported to quadrs_tpu_torch")
 
 
 def _stdin_pipe_source(cmd) -> PipeSource:
@@ -113,7 +105,7 @@ def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
     from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
     from quadrs_tpu_torch.stream_runner import StreamRunner
 
-    _refuse_not_ported("stream", cmd)
+    _refuse_mesh("stream", cmd)
     # live pipe input: rtl_sdr - | python -m quadrs_tpu_torch stream -stdin yes ...
     if cmd.stdin:
         src = _stdin_pipe_source(cmd)
@@ -273,7 +265,7 @@ def _run_stream_trigger_live(cmd: argmod.StreamCmd, src, runner) -> int:
 
 def run_waterfall(cmd: argmod.WaterfallCmd, device: torch.device) -> int:
     """Stream a bank of captures through the waterfall kernels."""
-    _refuse_not_ported("waterfall", cmd)
+    _refuse_mesh("waterfall", cmd)
     sources, _, runner = _open_bank(cmd, device)
     tracker = _PeakTracker(len(sources))
     wrote: list[str] = []
@@ -390,7 +382,7 @@ def run_scan(cmd: argmod.ScanCmd, device: torch.device) -> int:
     occupancy over every window, reduced on the device; prints the
     strongest bins with their frequency offsets, and ``-out`` writes the
     full per-bin table as CSV per stream."""
-    _refuse_not_ported("scan", cmd)
+    _refuse_mesh("scan", cmd)
     sources, model, runner = _open_bank(cmd, device)
     result = runner.run_scan(threshold=cmd.threshold, max_chunks=cmd.chunks)
 
@@ -406,6 +398,12 @@ def run_scan(cmd: argmod.ScanCmd, device: torch.device) -> int:
             with open(path, "w" if cmd.overwrite else "x") as fh:
                 fh.writelines(_scan_csv_lines(result, s, freq))
             wrote.append(path)
+    if cmd.plot:
+        from quadrs_tpu_torch.viz.survey import survey_render_file
+
+        for s in range(len(sources)):
+            path = f"{cmd.out or 'scan'}.s{s}.png"
+            wrote.append(str(survey_render_file(result, s, path, overwrite=cmd.overwrite)))
 
     _print_survey(result, freq, cmd.top, cmd.db, name="scan")
     for path in wrote:
@@ -506,7 +504,7 @@ def run_ook(cmd: argmod.OokCmd, device: torch.device) -> int:
     """Demodulate an OOK capture and print the recovered bits."""
     from quadrs_tpu_torch.models.demod import OokDemod, manchester_decode
 
-    _refuse_not_ported("ook", cmd)
+    _refuse_mesh("ook", cmd)
     src = _cmd_source(cmd)
     demod = OokDemod(width=cmd.width, stride=cmd.stride, threshold=cmd.threshold, samples_per_bit=cmd.bit)
     err, raw_bits = demod.demodulate(src, device=device)
@@ -523,7 +521,7 @@ def run_fsk(cmd: argmod.FskCmd, device: torch.device) -> int:
     (one a window, without ``-bit``) or clock-recovered bits."""
     from quadrs_tpu_torch.models.demod import FskDemod
 
-    _refuse_not_ported("fsk", cmd)
+    _refuse_mesh("fsk", cmd)
     src = _cmd_source(cmd)
     demod = FskDemod(
         center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
@@ -537,6 +535,75 @@ def run_fsk(cmd: argmod.FskCmd, device: torch.device) -> int:
         err, bits = demod.demodulate(src, device=device)
         print("".join("1" if b else "0" for b in bits))
         print(f"fsk: {len(bits)} bits, clock error {err:.3f}")
+    return 0
+
+
+def run_psk(cmd: argmod.PskCmd, device: torch.device) -> int:
+    """Demodulate a BPSK/QPSK capture and print the recovered bits and the
+    estimates; ``-plot`` writes the constellation."""
+    from quadrs_tpu_torch.models.demod import PskDemod
+
+    _refuse_mesh("psk", cmd)
+    src = _cmd_source(cmd)
+    demod = PskDemod(
+        center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size, symbol_rate=cmd.symbol_rate,
+        order=cmd.order, differential=cmd.differential, block=cmd.block,
+    )
+    est, sym = demod.symbols(src, device=device)
+    bits = demod.slice(sym)
+    print("".join(map(str, bits)))
+    print(f"psk: {len(bits)} bits, freq {est.freq_hz:+.1f} Hz, phase {est.phase:+.3f} rad, tau {est.tau:.2f}, sps {est.sps:g}")
+    if cmd.plot is not None:
+        from quadrs_tpu_torch.viz.constellation import constellation_render_file
+
+        path = constellation_render_file(sym, cmd.order, cmd.plot, overwrite=cmd.overwrite)
+        print(f"psk: constellation -> {path}")
+    return 0
+
+
+def channel_center(ch: int, sample_rate: int, k: int) -> int:
+    """Channel ``ch``'s centre in Hz: DFT-bin order, the upper half aliased
+    to negative frequencies (odd K: bins from (K+1)//2 on)."""
+    return ch * sample_rate // k if ch < (k + 1) // 2 else (ch - k) * sample_rate // k
+
+
+def run_channelize(cmd: argmod.ChannelizeCmd, device: torch.device) -> int:
+    """Split a capture into K channels in one polyphase-bank pass: write each
+    selected channel as ``{prefix}.ch{k}.sr{rate}.cf32`` (``-out``), and
+    print a channel RMS meter and the ``channelize: ... Msps`` line."""
+    from quadrs_tpu_torch.models.channelizer import Channelize, run_channelize as run_bank
+
+    _refuse_mesh("channelize", cmd)
+    src = _cmd_source(cmd)
+    chan = Channelize(src, cmd.channels, frequency=cmd.frequency, size=cmd.size)
+    k = chan.channels
+    select = tuple(range(k)) if cmd.select is None else cmd.select
+    rate = chan.sample_rate
+    files = {}
+    sumsq = np.zeros(k, dtype=np.float64)
+    n_out = 0
+    t0 = time.perf_counter()
+    try:
+        if cmd.out is not None:
+            for ch in select:
+                files[ch] = open(f"{cmd.out}.ch{ch}.sr{rate}.cf32", "wb" if cmd.overwrite else "xb")
+        for piece in run_bank(chan, device=device, chunk=cmd.chunk):
+            n_out = piece.start + piece.data.shape[1]
+            sumsq += np.sum(np.square(piece.data.real, dtype=np.float64) + np.square(piece.data.imag, dtype=np.float64), axis=1)
+            for ch, fh in files.items():
+                fh.write(piece.data[ch].astype("<c8").tobytes())  # interleaved re, im f32
+    finally:
+        for fh in files.values():
+            fh.close()
+    secs = time.perf_counter() - t0
+    rms = np.sqrt(sumsq / max(n_out, 1))
+    for ch in select:
+        line = f"channel {ch}: center {channel_center(ch, src.sample_rate, k)} Hz, rms {rms[ch]:.6g}"
+        if cmd.out is not None:
+            line += f", wrote {cmd.out}.ch{ch}.sr{rate}.cf32"
+        print(line)
+    print(f"channelize: {k} channels @ {rate} Hz, {n_out} samples each, {secs:.2f}s, "
+          f"{src.length / max(secs, 1e-9) / 1e6:.1f} Msps")
     return 0
 
 
@@ -591,7 +658,7 @@ def run_fm(cmd: argmod.FmCmd, device: torch.device) -> int:
     print a deviation meter."""
     from quadrs_tpu_torch.models.demod import FmDemod
 
-    _refuse_not_ported("fm", cmd)
+    _refuse_mesh("fm", cmd)
     demod = FmDemod(
         center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size, deviation=cmd.deviation,
         audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
@@ -611,7 +678,7 @@ def run_am(cmd: argmod.AmCmd, device: torch.device) -> int:
     (``-out``) and print a modulation meter."""
     from quadrs_tpu_torch.models.demod import AmDemod
 
-    _refuse_not_ported("am", cmd)
+    _refuse_mesh("am", cmd)
     demod = AmDemod(
         center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
         audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
@@ -629,7 +696,7 @@ def run_ssb(cmd: argmod.SsbCmd, device: torch.device) -> int:
     """Demodulate a single-sideband capture to audio (usb or lsb)."""
     from quadrs_tpu_torch.models.demod import SsbDemod
 
-    _refuse_not_ported("ssb", cmd)
+    _refuse_mesh("ssb", cmd)
     demod = SsbDemod(
         center=cmd.shift, sideband=cmd.sideband, bandwidth=cmd.bandwidth, decimate=cmd.decimate, taps=cmd.size,
         audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,

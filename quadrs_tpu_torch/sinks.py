@@ -1,6 +1,6 @@
 """Sinks: the terminal spectrogram, the frequency bucketer, the writer,
-the pattern search behind ``find``, and the capture statistics behind
-``info``.
+the GUI waterfall's evenly spaced STFT (``take_fft``), the pattern search
+behind ``find``, and the capture statistics behind ``info``.
 
 The counterpart of ``quadrs_tpu.sinks``.  Each sink pulls windows through
 batched device work (:class:`~quadrs_tpu_torch.runtime.Executor`) and
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from quadrs_tpu_torch.formats import FileFormat, decode_plane, encode_cf32, encode_samples
-from quadrs_tpu_torch.ops.stft import stft_norms
+from quadrs_tpu_torch.ops.stft import blackman_harris_window, stft_norms
 from quadrs_tpu_torch.runtime import Executor, root_step_of, window_batches
 from quadrs_tpu_torch.stream import Stream
 
@@ -274,6 +274,81 @@ def _write_sequential(fh, stream: Stream, off: int, encode=encode_cf32, *, devic
             raise RuntimeError(f"short read at offset {off} of {stream.length}")
         fh.write(encode(samples[0][:read]))
         off += read
+
+
+@dataclass
+class FftResult:
+    """Flat magnitude rows, the GUI waterfall's data (``src/ffts.rs:86-108``)."""
+
+    norms: np.ndarray  # (output_len, fft_width) f32, fftshifted
+    fft_width: int
+
+    def get(self, index: int) -> np.ndarray:
+        if not 0 <= index < self.output_len:
+            raise IndexError(f"index out of bounds: {index}")
+        return self.norms[index]
+
+    @property
+    def output_len(self) -> int:
+        return self.norms.shape[0]
+
+    def max(self) -> float:
+        return float(np.max(self.norms, initial=0.0))
+
+    def min(self) -> float:
+        return float(np.min(self.norms, initial=np.inf))
+
+
+def take_fft_offsets(start: int, visible: int, output_len: int) -> np.ndarray:
+    """``output_len`` window positions spread over ``visible`` samples from
+    ``start``: ``start + round(step * i)`` with ``step = visible /
+    output_len`` in f64, rounded half away from zero like Rust's
+    ``f64::round`` (``np.round`` would round half to even)."""
+    step = visible / output_len
+    return start + np.floor(step * np.arange(output_len, dtype=np.float64) + 0.5).astype(np.int64)
+
+
+def take_fft(
+    stream: Stream,
+    slice_: tuple[int, int] | None,
+    width: int,
+    output_len: int,
+    windowing: str = "blackman-harris",
+    *,
+    device: torch.device | str,
+) -> FftResult:
+    """Evenly spaced windowed STFT (reference ``src/ffts.rs:18-85``): the
+    magnitudes of ``output_len`` windows of ``width`` samples across the
+    visible span, optionally Blackman-Harris windowed, computed on the
+    device through the Executor."""
+    if slice_ is not None:
+        start, end = slice_
+    else:
+        start, end = 0, stream.length - width
+
+    if not end > start:
+        raise ValueError(f"Invalid slice: end ({end}) must be greater than start ({start})")
+    if not end < stream.length:
+        raise ValueError(f"Slice end ({end}) exceeds sample length ({stream.length})")
+    visible = end - start
+    if not visible > output_len:
+        raise ValueError(f"Visible samples ({visible}) must be greater than output length ({output_len})")
+    offsets = take_fft_offsets(start, visible, output_len)
+
+    window = None
+    if windowing in ("blackman-harris", "blackmanharris"):
+        window = torch.from_numpy(blackman_harris_window(width)).to(device)
+    elif windowing != "rectangular":
+        raise ValueError(f"unknown windowing: {windowing}")
+
+    batch, batches = window_batches(offsets, width, root_step=root_step_of(stream))
+    ex = Executor(stream, width, device, batch=batch, post=lambda x: stft_norms(x, window=window))
+    rows: list[np.ndarray] = []
+    for _, norms, valid in ex.run_each(batches):
+        if not np.all(valid == width):
+            raise RuntimeError("read-exact messed up in take_fft")
+        rows.append(norms)
+    return FftResult(norms=np.concatenate(rows, axis=0), fft_width=width)
 
 
 # A near-constant score track (a CW-like template over its own carrier)

@@ -94,13 +94,22 @@ def test_gen_write_then_from_bucket(cpu, capsys):
     ],
 )
 def test_not_yet_ported(argv, what, cpu, capsys):
-    """``ui`` and ``eui`` still exit 1 naming their ROADMAP item; the five
-    commands ported since print what ``quadjax`` prints on the same argv
-    (``find`` here the pattern-rate error)."""
+    """Every command here is ported now and prints what ``quadjax`` prints
+    on the same argv (``find`` here the pattern-rate error, ``eui`` the
+    slice too short for its 2048 rows); ``ui``'s printed range is compared
+    as numbers (within 1e-5 of the larger; another FFT's rounding), and its
+    image by ``tests/test_torch_viz.py``."""
     rc, out, err = run(tcli.main, argv, capsys)
-    if what in ("ui", "eui"):
-        assert rc == 1 and f"{what} is not yet ported" in err and "ROADMAP" in err
-        assert "sparkfft sample_rate" not in out
+    if what == "ui":
+        j_rc, j_out, j_err = run(jcli.main, argv, capsys)
+        assert (rc, err) == (j_rc, j_err) == (0, "")
+        (lo, hi), (j_lo, j_hi) = (map(float, o.splitlines()[0].split()) for o in (out, j_out))
+        assert abs(lo - j_lo) <= 1e-5 * j_hi and abs(hi - j_hi) <= 1e-5 * j_hi
+        assert out.splitlines()[1:] == j_out.splitlines()[1:] == ["wrote ui.png"]
+        return
+    if what == "eui":
+        assert (rc, out, err) == run(jcli.main, argv, capsys)
+        assert rc == 1 and "must be greater than output length (2048)" in err
         return
     assert (rc, out, err) == run(jcli.main, argv, capsys)
     assert (rc, err) == ((1, "Error: pattern rate 400 != stream rate 48000: resample one side first\n")

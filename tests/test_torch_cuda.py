@@ -677,3 +677,68 @@ def test_outputs_are_the_callbacks_to_keep(cuda, tmp_path):
     collect(runner.run)
     collect(runner.run_search)
     assert all(a.tobytes() == b.tobytes() for (_, a), b in zip(kept, copies))
+
+
+@pytest.mark.parametrize("fmt,k,size", [(FileFormat.COMPLEX_INT8, 64, 1024), (FileFormat.COMPLEX_UINT8, 8, 40), (FileFormat.COMPLEX_FLOAT32, 7, 50)])
+def test_channelize_matches_cpu(cuda, fmt, k, size):
+    """The channelizer's device program (branch sums, cuFFT over K, the
+    centre phase) on the card against the CPU, within ``2e-6`` of the
+    block's scale (the JAX parity bound), chunk by chunk through the
+    Executor and its ``(B, K, n)`` outputs."""
+    from quadrs_tpu_torch.models.channelizer import Channelize, run_channelize
+    from quadrs_tpu_torch.sources import SampleSource
+
+    raw = synth_planes(fmt, 300_000, seed=k).T.reshape(-1).view(np.uint8)
+    src = SampleSource(np.ascontiguousarray(raw), fmt, 21_000_000)
+    chan = Channelize(src, k, size=size)
+    got = list(run_channelize(chan, device=cuda, chunk=2000))
+    want = list(run_channelize(chan, device="cpu", chunk=2000))
+    assert [(p.start, p.data.shape) for p in got] == [(p.start, p.data.shape) for p in want]
+    scale = max(float(np.abs(p.data).max()) for p in want)
+    assert max(float(np.abs(p.data - q.data).max()) for p, q in zip(got, want)) <= 2e-6 * scale
+
+
+def test_psk_programs_match_cpu(cuda):
+    """PSK's two device programs on the card against the CPU: the peak's
+    ``k0`` equal and its powers within 1e-5, the sums within 1e-5; ``z``
+    within ``8 * log2(npad) * eps * max|c| / mf_len``: the card's ``cumsum``
+    is an f32 scan of depth log2(n) whose partial sums stay within twice the
+    largest prefix ``max|c|`` (the CPU's accumulates in double); then a
+    whole burst's bits."""
+    import math
+
+    from quadrs_tpu_torch.models import demod
+
+    rng = np.random.default_rng(8)
+    n, npad, sps, order = 200_000, 1 << 18, 16.0, 2
+    sym = np.repeat(np.exp(1j * np.pi * np.cumsum(rng.integers(0, 2, n // 16 + 1))), 16)[:n]
+    x = (sym * np.exp(2j * np.pi * 0.0031 * np.arange(n)) + 0.05 * rng.standard_normal(n)).astype(np.complex64)
+    planes, _ = demod._padded_planes(x)
+    got = demod.psk_peak(torch.from_numpy(planes).to(cuda), n, order).cpu().numpy()
+    want = demod.psk_peak(torch.from_numpy(planes), n, order).numpy()
+    assert got[0] == want[0] and np.allclose(got[1:], want[1:], rtol=1e-5)
+    psk = demod.PskDemod(bandwidth=20_000, decimate=1, taps=64, symbol_rate=8_000.0)
+    rot, tim = demod.psk_tables(psk._peak_khat(planes, n, npad, "cpu"), npad, order, sps)
+    args = [torch.from_numpy(a) for a in (planes, rot, tim)]
+    z, se = demod.psk_process(*(a.to(cuda) for a in args), n, order, 16)
+    z_cpu, se_cpu = demod.psk_process(*args, n, order, 16)
+    c = np.abs(np.cumsum((planes[0] + 1j * planes[1]).astype(np.complex128) * (rot[0] + 1j * rot[1]))).max()
+    tol = 8 * math.log2(npad) * float(np.finfo(np.float32).eps) * c / 16
+    assert float((z.cpu() - z_cpu).abs().max()) <= tol
+    assert np.allclose(se.cpu().numpy(), se_cpu.numpy(), rtol=1e-5, atol=1e-5 * float(np.abs(se_cpu.numpy()).max()))
+    rate = 128_000
+    assert psk.slice(psk.analyze(rate, x, device=cuda)[1]) == psk.slice(psk.analyze(rate, x, device="cpu")[1])
+
+
+def test_take_fft_matches_cpu(cuda):
+    """``take_fft`` (eui's GUI defaults: 2048 Blackman-Harris windows of 512
+    over a slice) on the card against the CPU, within ``1e-5 * max``."""
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.sources import SampleSource
+
+    raw = synth_planes(FileFormat.COMPLEX_INT8, 1 << 20, seed=3).T.reshape(-1).view(np.uint8)
+    src = SampleSource(np.ascontiguousarray(raw), FileFormat.COMPLEX_INT8, 2_000_000)
+    got = sinks.take_fft(src, (400_000, 900_000), 512, 2048, device=cuda)
+    want = sinks.take_fft(src, (400_000, 900_000), 512, 2048, device="cpu")
+    assert got.norms.shape == want.norms.shape == (2048, 512)
+    assert float(np.abs(got.norms - want.norms).max()) <= 1e-5 * want.max()

@@ -207,8 +207,10 @@ def test_stream_scan_matches_jax(tmp_path, capsys, monkeypatch):
     ],
 )
 def test_bank_flags_not_yet_ported(cmd, flags, what, tmp_path, capsys, monkeypatch):
-    """``-mesh`` and ``scan -plot`` still wait for their slices; ``-stdin``
-    is ported: the pipe run prints the file run's lines (timing apart)."""
+    """``-mesh`` still waits for its slice; ``-stdin`` and ``scan -plot`` are
+    ported: the pipe run prints the file run's lines (timing apart), the
+    plot run writes ``scan.s0.png`` as quadjax does (its pixels are held by
+    ``tests/test_torch_viz.py``)."""
     monkeypatch.setenv("QUADRS_PLATFORM", "cpu")
     files = write_bank(tmp_path, "cs8", 5_000, 1)
     if what == "-stdin":
@@ -226,7 +228,13 @@ def test_bank_flags_not_yet_ported(cmd, flags, what, tmp_path, capsys, monkeypat
             [ln.rsplit(" windows, ", 1)[0] for ln in file_out.splitlines()]
         assert f"{cmd}: 4096 samples, 4 windows" in out
         return
+    if what == "-plot":
+        monkeypatch.chdir(tmp_path)
     rc, out, err = run(tcli.main, [cmd, *flags, *files], capsys)
+    if what == "-plot":
+        assert (rc, err) == (0, "") and "wrote scan.s0.png" in out
+        assert (tmp_path / "scan.s0.png").exists()
+        return
     assert rc == 1
     assert f"{cmd} {what}" in err and "not yet ported" in err and "ROADMAP" in err
     assert f"{cmd}:" not in out
