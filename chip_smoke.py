@@ -88,7 +88,24 @@ the run.  Phases:
    the CPU's rows and ``replay | eui -live yes -stdin yes -rows 2000``
    against the file run's; the kernels' launch counts must not move across
    these; the bank's ``scan`` again with ``-plot yes`` (64 survey PNGs, its
-   launches counted with the scan's);
+   launches counted with the scan's); then the daemon (``serve``, on a thread
+   of this process, its clients on loopback reading while they send; each
+   session's launches counted from 0, ``frontend_fir`` or the mode's
+   waterfall kernel once a chunk and nothing else): ``-mode stream`` at the
+   bench config over the 2^26-sample capture (norms bit-equal to
+   ``StreamRunner`` over the file; a profiled session's device share;
+   ``-search`` the lines of ``stream -search``), ``-mode waterfall``,
+   ``waterfall -search -stride 256`` and ``scan -stride 256`` over one
+   capture of the bank (the commands' outputs over the file), ``-mode find``
+   with the bank of three templates over the 9-row grid (the lines of
+   ``replay | find -stdin``), ``-mode ook|fsk|psk|fm|am|ssb`` over the
+   receivers' captures (the commands' lines on the card, or their ``-out``
+   audio, byte for byte), ``-parallel 4 -timeout 5`` with eight ``-search``
+   sessions over halves of the capture, half of them trickling, against the
+   sequential daemon's replies and with a stalled client dropped while they
+   run, then the eight sent at once (the aggregate Msps of the eight against
+   the sequential eight), and
+   ``python -m quadrs_tpu_torch serve -once yes`` in a process of its own;
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
@@ -1023,7 +1040,7 @@ def profiled(argv: list[str]) -> tuple[float, float]:
     return wall, device_busy(prof)[0] / 1e3
 
 
-def phase_find_path(card: str, tmp: str, signal: str) -> dict[str, float]:
+def phase_find_path(card: str, tmp: str, signal: str) -> tuple[dict[str, float], str]:
     """Phase 4, ``find`` through the CLI over a 2^26-sample cs8 capture with
     planted templates (over a copy of ``signal``): the single template at
     its 8 offsets (scores above 0.9), the 3-template bank over a 9-row grid
@@ -1031,7 +1048,7 @@ def phase_find_path(card: str, tmp: str, signal: str) -> dict[str, float]:
     the 2^22-sample prefix; ``-write`` slices against the capture's bytes;
     the bank from a pipe (``replay -speed 0 | find -stdin yes``) against the
     file run; the dispatches of each kind (some must take the device scan).
-    Returns walls and device shares."""
+    Returns walls and device shares, and the pipe run's stdout."""
     from quadrs_tpu_torch import sinks
 
     laps = [("start", time.perf_counter())]  # where the phase's own time goes
@@ -1122,7 +1139,7 @@ def phase_find_path(card: str, tmp: str, signal: str) -> dict[str, float]:
               f"device share {100 * busy / wall:.1f}% ({card})")
     laps.append(("profiled runs", time.perf_counter()))
     print("  find phase, its steps: " + ", ".join(f"{name} {t - laps[i][1]:.1f}s" for i, (name, t) in enumerate(laps[1:])))
-    return walls
+    return walls, out
 
 
 def find_breakdown(card: str, cap: str, template: str) -> dict[str, float]:
@@ -2369,6 +2386,375 @@ def phase_bank_path(card: str) -> tuple[dict[str, int], dict[str, tuple[float, f
     return launches, at_main
 
 
+DAEMON_STALL = 5.0  # -timeout of the parallel round (s)
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that also keeps what was written (the daemon's log)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s: str) -> int:
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def serve_client(port: int, payload, pieces: int = 1) -> tuple[bytes, float]:
+    """One client of the daemon: send ``payload`` (in ``pieces`` pieces 50 ms
+    apart), half-close, read to EOF while sending; returns the reply and
+    the wall from connect to the last byte."""
+    import socket
+    import threading
+
+    out: list[bytes] = []
+    view = memoryview(payload)
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        reader = threading.Thread(target=lambda: out.extend(iter(lambda: s.recv(1 << 20), b"")))
+        reader.start()
+        step = -(-len(view) // pieces)
+        for off in range(0, len(view), step):
+            s.sendall(view[off : off + step])
+            if pieces > 1:
+                time.sleep(0.05)
+        s.shutdown(socket.SHUT_WR)
+        reader.join(timeout=300)
+        if reader.is_alive():
+            raise AssertionError("the daemon never closed the connection")
+    return b"".join(out), time.perf_counter() - t0
+
+
+def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin: str) -> dict[str, int]:
+    """Phase 4, the daemon: ``serve`` (``quadrs_tpu_torch.serve.run_serve``)
+    on a thread of this process, on the card, its clients on loopback
+    reading while they send.  ``-mode stream`` at the bench config over the
+    2^26-sample capture (the norms bit-equal to StreamRunner over the file,
+    a profiled session's device share; ``-search`` the lines of ``stream
+    -search``); ``-mode waterfall`` (``-search`` at stride 256) and ``scan
+    -stride 256`` over one capture of the bank, each the command's output
+    over the file; ``-mode find`` with the bank of three templates over the
+    9-row grid, the lines of ``replay | find -stdin`` (``find_stdin``); each
+    receiver over its phase-4 capture, the command's stdout or its ``-out``
+    audio, byte for byte; ``-parallel 4 -timeout 5``: eight ``-search``
+    sessions over slices of the capture, half trickling, each reply the
+    sequential daemon's, and a stalled client dropped while they run; one
+    ``python -m quadrs_tpu_torch serve -once yes`` in a process of its own.
+    Each session runs with the counts at 0 and must launch its kernel once
+    a chunk (and no other).  Returns the sessions' launches by kernel."""
+    import socket
+    import threading
+
+    from quadrs_tpu_torch import args as targs
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops import waterfall as wf
+    from quadrs_tpu_torch.serve import run_serve
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+
+    os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
+    laps = [("start", time.perf_counter())]
+    # frontend_banded is not set to 0 here: its count runs over all of phase 4
+    kernels = {k.__name__: k for k in (fe.frontend_fir, fe.frontend_fir_stft, wf.waterfall_norms, wf.waterfall_search,
+                                       wf.waterfall_scan)}
+    total = dict.fromkeys(kernels, 0)
+    cfg = bench_cfg(FileFormat.COMPLEX_INT8)
+    bench = ["-shift", "280k", "-lowpass", "200k", "-power", "200", "-decimate", "32", "-width", "64",
+             "-chunk", str(CHUNK), "-sr", str(SAMPLE_RATE), "-format", "cs8"]
+    tee = _Tee(sys.stdout)
+
+    def daemon(argv: list[str], max_connections: int):
+        """``serve ARGV -port 0`` on a thread, on the card; returns (thread, port, errors)."""
+        (cmd,) = targs.parse(["serve", "-port", "0", *argv])
+        box, errors, up = [], [], threading.Event()
+
+        def run():
+            try:
+                run_serve(cmd, DEVICE, ready=lambda p: (box.append(p), up.set()), max_connections=max_connections)
+            except BaseException as e:  # raised again by the step
+                errors.append(e)
+                up.set()
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        if not up.wait(600) or errors:
+            raise AssertionError(f"serve {' '.join(argv)} did not come up: {errors}")
+        return th, box[0], errors
+
+    def done(th, errors) -> None:
+        th.join(timeout=120)
+        if th.is_alive() or errors:
+            raise AssertionError(f"the daemon did not end cleanly: {errors}")
+
+    def session(name: str, port: int, payload, want: dict[str, int], samples: int) -> bytes:
+        """One session with every count at 0 before it; the counts after it must be ``want``."""
+        for k in kernels.values():
+            k.launches = 0
+        banded = fe.frontend_banded.launches
+        reply, wall = serve_client(port, payload)
+        got = {n: k.launches for n, k in kernels.items() if k.launches}
+        if fe.frontend_banded.launches != banded:
+            got["frontend_banded"] = fe.frontend_banded.launches - banded
+        print(f"    session {name}: {wall:.3f}s, {samples / wall / 1e6:.1f} Msps, {len(reply)} bytes back; "
+              f"launches {got or 'none'} ({card})")
+        if got != want:
+            raise AssertionError(f"session {name} launched {got}, expected {want}")
+        for n, v in got.items():
+            total[n] += v
+        return reply
+
+    def lines(reply: bytes, trailer: str) -> list[str]:
+        """The reply's lines but its last, which must start with ``trailer``."""
+        text = reply.decode().strip().splitlines()
+        if not text or not text[-1].startswith(trailer):
+            raise AssertionError(f"reply ends {text[-1:]!r}, not {trailer!r}")
+        return text[:-1]
+
+    stdout, sys.stdout = sys.stdout, tee
+    try:
+        with open(cap, "rb") as f:
+            data = f.read()
+        chunks = n_chunks(CAPTURE_SAMPLES, cfg)
+        # -mode stream: the norms against StreamRunner over the file, then a profiled session
+        th, port, errors = daemon(bench, 2)
+        rows = []
+        StreamRunner(open_capture(cap), PipelineModel(cfg), DEVICE, chunk_samples=CHUNK).run(lambda w0, n: rows.append(n))
+        want = np.concatenate(rows).tobytes()
+        reply = session("stream (norms)", port, data, {"frontend_fir": chunks}, CAPTURE_SAMPLES)
+        if reply != want:
+            raise AssertionError("serve -mode stream: the norms differ from StreamRunner's over the file")
+        print(f"  serve -mode stream: {len(want) // 256} norms rows, bit-equal to StreamRunner over the file")
+        from torch.profiler import ProfilerActivity, profile
+
+        from profile_stream import device_busy
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if session("stream (norms, profiled)", port, data, {"frontend_fir": chunks}, CAPTURE_SAMPLES) != want:
+                raise AssertionError("serve -mode stream: the profiled session's norms differ")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = device_busy(prof)[0] / 1e3
+        done(th, errors)
+        print(f"  serve -mode stream, a profiled session: wall {wall:.3f}s, device busy {busy:.3f}s, "
+              f"device share {100 * busy / wall:.1f}% ({card})")
+        laps.append(("stream", time.perf_counter()))
+
+        # -mode stream -search: the whole capture against the command, then the sequential eight
+        # the parallel round's eight payloads: halves of the capture, 1/16 of it apart
+        n_slice = CAPTURE_SAMPLES // 2
+        slices = [memoryview(data)[2 * i * (CAPTURE_SAMPLES // 16) :][: 2 * n_slice] for i in range(8)]
+        per = n_chunks(n_slice, cfg)
+        th, port, errors = daemon([*bench, "-search", "yes"], 9)
+        out = os.path.join(tmp, "dsearch")
+        run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-search", "yes", "-out", out, cap])
+        with open(f"{out}.peaks.csv") as f:
+            want_lines = f.read().strip().splitlines()
+        got = lines(session("stream -search", port, data, {"frontend_fir": chunks}, CAPTURE_SAMPLES), "# stream: ")
+        if got != want_lines:
+            raise AssertionError("serve -mode stream -search: lines differ from stream -search's")
+        print(f"  serve -mode stream -search: {len(got) - 1} lines, those of stream -search -out")
+        t0 = time.perf_counter()
+        sequential = [session(f"sequential {i}", port, s, {"frontend_fir": per}, n_slice) for i, s in enumerate(slices)]
+        seq_wall = time.perf_counter() - t0
+        done(th, errors)
+        laps.append(("stream -search", time.perf_counter()))
+
+        # -parallel 4 -timeout 5: the eight at once, half trickling, and a stalled client
+        th, port, errors = daemon([*bench, "-search", "yes", "-parallel", "4", "-timeout", str(DAEMON_STALL)], 9)
+        for k in kernels.values():
+            k.launches = 0
+        banded = fe.frontend_banded.launches
+        replies: list = [None] * 8
+        walls: list = [None] * 8
+        log0 = len(tee.buf.getvalue())
+
+        def client(i: int) -> None:
+            replies[i], walls[i] = serve_client(port, slices[i], 6 if i % 2 else 1)
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        for c in clients:
+            c.start()
+        stalled = socket.create_connection(("127.0.0.1", port), timeout=60)
+        for c in clients:
+            c.join(timeout=300)
+        par_wall = time.perf_counter() - t0
+        try:
+            # the daemon writes the CSV header, then waits for bytes that never come, then drops the client
+            stalled.settimeout(60)
+            try:
+                dropped = b"".join(iter(lambda: stalled.recv(1024), b""))
+            except OSError:
+                dropped = b""
+            held = time.perf_counter() - t0
+        finally:
+            stalled.close()
+        done(th, errors)
+        log = tee.buf.getvalue()[log0:]
+        got = {n: k.launches for n, k in kernels.items() if k.launches}
+        if fe.frontend_banded.launches != banded:
+            got["frontend_banded"] = fe.frontend_banded.launches - banded
+        if any(c.is_alive() for c in clients) or None in replies:
+            raise AssertionError("a -parallel session did not finish")
+        for i in range(8):
+            print(f"    parallel session {i}{' (trickling)' if i % 2 else ''}: {walls[i]:.3f}s, "
+                  f"{n_slice / walls[i] / 1e6:.1f} Msps ({card})")
+            a, b = replies[i].decode().strip().splitlines(), sequential[i].decode().strip().splitlines()
+            if a[:-1] != b[:-1] or a[-1].split(", ")[:2] != b[-1].split(", ")[:2]:
+                raise AssertionError(f"parallel session {i} differs from its sequential reply")
+        if got != {"frontend_fir": 8 * per}:
+            raise AssertionError(f"the parallel sessions launched {got}, expected {8 * per} frontend_fir")
+        total["frontend_fir"] += got["frontend_fir"]
+        if dropped not in (b"", b"window,bin,mag\n") or log.count(" done: ") != 8 or log.count("failed: TimeoutError") != 1:
+            raise AssertionError(f"-timeout: the stalled client was not dropped alone: {dropped!r} {log}")
+        print(f"  serve -parallel 4: the eight replies equal the sequential ones byte for byte (but for the trailer's "
+              f"time); the stalled client dropped after {held:.2f}s, logged, while the others finished in {par_wall:.3f}s")
+        print(f"  serve -parallel 4, eight sessions of {n_slice} samples, half trickling: "
+              f"{8 * n_slice / par_wall / 1e6:.1f} Msps aggregate ({par_wall:.3f}s), against "
+              f"{8 * n_slice / seq_wall / 1e6:.1f} Msps one after another ({seq_wall:.3f}s) ({card})")
+        # the same eight sent at once, none trickling: what -parallel 4 gains where no client holds it back
+        th, port, errors = daemon([*bench, "-search", "yes", "-parallel", "4"], 8)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=lambda i=i: replies.__setitem__(i, serve_client(port, slices[i])[0]))
+                   for i in range(8)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        burst_wall = time.perf_counter() - t0
+        done(th, errors)
+        got = {n: k.launches for n, k in kernels.items() if k.launches}
+        for i in range(8):
+            a, b = replies[i].decode().strip().splitlines(), sequential[i].decode().strip().splitlines()
+            if a[:-1] != b[:-1]:
+                raise AssertionError(f"parallel session {i} (sent at once) differs from its sequential reply")
+        if got != {"frontend_fir": 8 * per}:
+            raise AssertionError(f"the parallel sessions sent at once launched {got}, expected {8 * per} frontend_fir")
+        total["frontend_fir"] += got["frontend_fir"]
+        print(f"  serve -parallel 4, the eight sent at once: {8 * n_slice / burst_wall / 1e6:.1f} Msps aggregate "
+              f"({burst_wall:.3f}s, {seq_wall / burst_wall:.2f}x the sequential eight), the replies the sequential "
+              f"ones ({card})")
+        laps.append(("-parallel 4", time.perf_counter()))
+
+        # -mode waterfall and scan over one capture of the bank, against the commands over the file
+        (bank,) = write_bank(tmp, 1, BANK_SAMPLES)
+        with open(bank, "rb") as f:
+            bank_data = f.read()
+        out = os.path.join(tmp, "dbank")
+        tiled, over = -(-((BANK_SAMPLES - 1024) // 1024 + 1) // BANK_CHUNK), -(-((BANK_SAMPLES - 1024) // 256 + 1) // BANK_CHUNK)
+        wfall = ["-width", "1024", "-chunk", str(BANK_CHUNK)]
+        srate = ["-sr", str(SAMPLE_RATE), "-format", "cs8"]
+        scan_args = ["-width", "1024", "-stride", "256", "-chunk", str(BANK_CHUNK), "-threshold", "20"]
+        run_cli(["waterfall", *wfall, "-out", out, bank])
+        run_cli(["waterfall", *wfall, "-stride", "256", "-search", "yes", "-out", out, bank])
+        run_cli(["scan", *scan_args, "-top", "3", "-overwrite", "yes", "-out", out, bank])
+        for what, argv, kernel, n, trailer in (
+                ("waterfall", ["-mode", "waterfall", *wfall], "waterfall_norms", tiled, None),
+                ("waterfall -search", ["-mode", "waterfall", *wfall, "-stride", "256", "-search", "yes"], "waterfall_search",
+                 over, "# waterfall: "),
+                ("scan", ["-mode", "scan", *scan_args], "waterfall_scan", over, "# scan: ")):
+            th, port, errors = daemon([*argv, *srate], 1)
+            reply = session(what, port, bank_data, {kernel: n}, BANK_SAMPLES)
+            done(th, errors)
+            if trailer is None:
+                with open(f"{out}.s0.norms.f32", "rb") as f:
+                    same = reply == f.read()
+            elif kernel == "waterfall_search":
+                with open(f"{out}.peaks.csv") as f:
+                    csv = f.read().strip().splitlines()
+                same = lines(reply, trailer) == ["window,bin,mag"] + [ln.split(",", 1)[1] for ln in csv[1:]]
+            else:
+                with open(f"{out}.s0.scan.csv") as f:
+                    same = lines(reply, trailer) == f.read().strip().splitlines()
+            print(f"  serve -mode {what}: {len(reply)} bytes, equal to the command's output over the file: {same}")
+            if not same:
+                raise AssertionError(f"serve -mode {what} differs from the command over the file")
+        laps.append(("bank", time.perf_counter()))
+
+        # -mode find: the bank of three over the 9-row grid, the lines of replay | find -stdin
+        names = [os.path.join(tmp, f"b{k}.sr21M.cs8") for k in range(len(FIND_BANK))]
+        th, port, errors = daemon(["-mode", "find", *[a for b in names for a in ("-pattern", b)], "-freq-tol", FIND_TOL,
+                                   *srate], 1)
+        with open(os.path.join(tmp, "find.sr21M.cs8"), "rb") as f:
+            reply = session("find (bank)", port, f.read(), {}, CAPTURE_SAMPLES)
+        done(th, errors)
+        want_lines = find_stdin.strip().splitlines()
+        got = reply.decode().strip().splitlines()
+        if got != [*want_lines[:-1], f"# {want_lines[-1]}"]:
+            raise AssertionError(f"serve -mode find: {got[-3:]} against find -stdin's {want_lines[-3:]}")
+        print(f"  serve -mode find: {len(got) - 1} matches, the lines of replay | find -stdin")
+        laps.append(("find", time.perf_counter()))
+
+        # the receivers: each against its command on the card over the same capture
+        rx = {"ook": (caps["ook"], RX_ARGV["ook"], "1M"), "fsk": (cap, RX_ARGV["fsk"], str(SAMPLE_RATE)),
+              "psk": (caps["bpsk"], psk_argv("bpsk"), str(PSK_RATE)), "fm": (caps["fm"], RX_ARGV["fm"], "2400k"),
+              "am": (caps["am"], RX_ARGV["am"], "2400k"), "ssb": (caps["ssb"], RX_ARGV["ssb"], str(PSK_RATE))}
+        for mode, (path, argv, rate) in rx.items():
+            fmt = path.rsplit(".", 1)[1]
+            audio = mode in ("fm", "am", "ssb")
+            out = os.path.join(tmp, f"d{mode}")
+            text = run_cli([*argv, *(["-out", out] if audio else []), path])
+            th, port, errors = daemon(["-mode", mode, *argv[1:], "-sr", rate, "-format", fmt], 1)
+            with open(path, "rb") as f:
+                burst = f.read()
+            reply = session(mode, port, burst, {}, len(burst) // 2)
+            done(th, errors)
+            if audio:
+                head, rest = reply.split(b"\n", 1)
+                _, n, r = head.decode().removeprefix("# ").split()
+                with open(f"{out}.sr{r}.f32", "rb") as f:
+                    pcm = f.read()
+                same = rest[: 4 * int(n)] == pcm and rest[4 * int(n) :].decode() == f"\n# {mode}: {n} audio samples @ {r} Hz\n"
+                print(f"  serve -mode {mode}: {n} audio samples at {r} Hz, the bytes of {mode} -out: {same}")
+            else:
+                want_lines = text.strip().splitlines()
+                got = reply.decode().strip().splitlines()
+                same = got == [want_lines[0], f"# {want_lines[1]}"]
+                print(f"  serve -mode {mode}: {len(got[0])} characters, the lines of {mode} on the card: {same}")
+            if not same:
+                raise AssertionError(f"serve -mode {mode} differs from its command on the card")
+        laps.append(("receivers", time.perf_counter()))
+
+        # one daemon in a process of its own, QUADRS_PLATFORM unset: it builds and loads before it listens
+        argv = [sys.executable, "-m", "quadrs_tpu_torch", "serve", "-once", "yes", "-port", "0", "-search", "yes",
+                "-timeout", str(DAEMON_STALL), *bench]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env={k: v for k, v in os.environ.items() if k != "QUADRS_PLATFORM"})
+        try:
+            banner = proc.stdout.readline()
+            up = time.perf_counter() - t0
+            m = re.match(r"serve: listening on 127\.0\.0\.1:(\d+) \(complex_int8, sr 21000000, stream search, "
+                         rf"timeout {DAEMON_STALL:g}s\)$", banner)
+            if not m:
+                raise AssertionError(f"serve in a process: banner {banner!r}; {proc.stderr.read()}")
+            reply, wall = serve_client(int(m[1]), slices[0])
+            log, err = proc.communicate(timeout=120)
+        finally:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != 0 or not re.match(r"serve: conn 1 127\.0\.0\.1:\d+ done: ", log):
+            raise AssertionError(f"serve in a process exited {proc.returncode}: {log} {err}")
+        a, b = reply.decode().strip().splitlines(), sequential[0].decode().strip().splitlines()
+        if a[:-1] != b[:-1]:
+            raise AssertionError("serve in a process: its reply differs from the in-process daemon's")
+        print(f"  python -m quadrs_tpu_torch serve -once yes: banner {up:.2f}s after the start, one session of "
+              f"{wall:.3f}s inside its {DAEMON_STALL:g}s timeout ({log.strip()}); the reply the in-process daemon's")
+        laps.append(("a process", time.perf_counter()))
+    finally:
+        sys.stdout = stdout
+    print("  the daemon, its steps: " + ", ".join(f"{name} {t - laps[i][1]:.1f}s" for i, (name, t) in enumerate(laps[1:])))
+    return {n: v for n, v in total.items() if v}
+
+
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM: peak HBM3 rate
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 
@@ -2763,7 +3149,7 @@ def main() -> int:
         del norms
         phase_chain_path(card, cap, tmp)
         before, t0 = all_launches(), time.perf_counter()
-        walls = phase_find_path(card, tmp, cap)
+        walls, find_stdin = phase_find_path(card, tmp, cap)
         t1 = time.perf_counter()
         walls.update(phase_stage_path(card, cap, tmp))
         if all_launches() != before:
@@ -2791,7 +3177,13 @@ def main() -> int:
         launches.update(bank_launches)
         for name, count in live_launches.items():
             launches[name] += count
-        print(f"  launches over the main paths (the stream runs, the live runs and the bank runs): {launches}")
+        t0 = time.perf_counter()
+        daemon_launches = phase_daemon(card, cap, tmp, {**rx_caps, **new_caps}, find_stdin)
+        print(f"  the daemon: {time.perf_counter() - t0:.1f}s of phase 4; its sessions' launches {daemon_launches}")
+        for name, count in daemon_launches.items():
+            launches[name] += count
+        print(f"  launches over the main paths (the stream runs, the live runs, the bank runs and the daemon's "
+              f"sessions): {launches}")
         # no path of the JAX package runs the v1 function, so no main path of
         # the port may: it is held to its plain version in phases 3 and 5
         launches["frontend_banded"] = fe.frontend_banded.launches

@@ -9,18 +9,18 @@ arguments.
     PREFIX  gen [-cos F]* [-len SECS] RATE  resample UP/DOWN  dcblock
     agc  iqbal  find -pattern FILE ...  stream ...  waterfall ...
     scan ...  info FILE...  replay FILE  ook ...  fsk ...  psk ...  fm ...
-    am ...  ssb ...  channelize ...  ui ...  eui ...
+    am ...  ssb ...  channelize ...  ui ...  eui ...  serve ...
 
 ``-mesh`` parses as in the JAX package; running it raises naming ROADMAP
-A13.  ``serve`` does not parse yet (ROADMAP A12c).
+A13.
 
 Parsing rules preserved from ``read_just_args`` (``src/args.rs:404-445``):
 flags are collected until the first non-flag token; a ``-``-prefixed
 token whose *third* character is a digit is treated as a negative-number
 positional rather than a flag (so ``-500`` is a shift frequency but
 ``-5k`` is read as a flag named ``5k``: the reference's quirk, kept);
-duplicate flags are rejected except for the repeatable ``gen -cos`` and
-``find -pattern``; numbers take SI suffixes.
+duplicate flags are rejected except for the repeatable ``gen -cos``,
+``find -pattern`` and ``serve -pattern``; numbers take SI suffixes.
 """
 
 from __future__ import annotations
@@ -358,6 +358,71 @@ class SsbCmd(Command):
     format: str | None = None
     stdin: bool = False
     mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+
+
+@dataclass
+class ServeCmd(Command):
+    """``serve``: a TCP daemon over one model.  The model and its tables
+    are made once at startup; every accepted connection then streams raw
+    IQ bytes in and gets results back over the same socket: peak CSV lines
+    (``-search yes``), raw f32 norms rows, a survey CSV (``-mode scan``),
+    match lines (``-mode find``), or, in the receiver modes, the bits text
+    or the audio.  ``-sr``/``-format`` are required (a socket carries no
+    filename to sniff)."""
+
+    port: int = 7373
+    host: str = "127.0.0.1"
+    once: bool = False  # handle one connection then exit (tests, scripts)
+    search: bool = False
+    # "stream" = shift -> lowpass -> STFT chain; "waterfall" = the raw
+    # spectrogram (no mixing or decimation), -width/-stride windows; "scan"
+    # = the per-bin survey; "find" = the matched filter; "ook"/"fsk"/"psk"/
+    # "fm"/"am"/"ssb" = the receivers: the connection's whole burst is
+    # buffered (like `ook -stdin`), demodulated, and the answer sent back
+    mode: str = "stream"
+    shift: int = 0
+    lowpass: int = 200_000
+    size: int = 400  # taps (2 * -power)
+    decimate: int = 32
+    fft_width: int = 64
+    stride: int | None = None  # waterfall mode; defaults to width
+    # stream: samples per chunk (default 4M); waterfall: windows per chunk
+    # (default 2k); find: None = find_pattern's auto block (max(4*l, 4096))
+    chunk: int | None = 4_000_000
+    sample_rate: str | None = None
+    format: str | None = None
+    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    # handle up to N connections at once, each on its own CUDA stream
+    parallel: int = 1
+    # per-socket-operation idle timeout in seconds (0 = none): a client
+    # that neither sends nor drains for this long gets its session dropped
+    # (logged, connection closed), so a stalled peer cannot hold a
+    # -parallel slot, or the sequential accept loop, forever.  A trickling
+    # client is never dropped: the clock restarts on every read and write.
+    timeout: float = 0.0
+    # receiver knobs (OokCmd/FskCmd counterparts)
+    threshold: float = 0.001  # ook pulse threshold
+    bit: float | None = None  # ook: windows/bit (default 8); fsk: windows/symbol
+    raw: bool = False  # ook: raw pulse bits instead of Manchester
+    # fm/am/ssb knobs (FmCmd counterparts)
+    deviation: float = 75_000.0
+    audio_lowpass: int | None = None
+    audio_decimate: int = 1
+    audio_size: int = 64
+    audio_rate: int | None = None  # fm/am/ssb: rational resample to this Hz
+    sideband: str = "usb"  # ssb: usb|lsb
+    bandwidth: int = 3_000  # ssb: sideband width (filter at half)
+    # psk knobs (PskCmd counterparts)
+    symbol_rate: float = 0.0  # psk: symbols per second (required)
+    order: int = 2  # psk: 2 = BPSK, 4 = QPSK
+    differential: bool = True  # psk: decode phase transitions
+    block: int = 0  # psk: carrier re-estimate every N baseband samples
+    # find knobs (FindOp counterparts; -pattern repeatable)
+    patterns: tuple[str, ...] = ()
+    top: int = 0
+    distance: int | None = None
+    freq_tol: float = 0.0
+    freq_step: float | None = None
 
 
 def _parse_mesh(spec: str) -> tuple[int, int]:
@@ -1163,6 +1228,133 @@ def _parse_eui(args: _Args, raw_map) -> Command:
     )
 
 
+def _parse_serve(args: _Args, raw_map) -> Command:
+    # serve keeps find's repeatable -pattern (a template bank)
+    map_all = dict(raw_map)
+    patterns = tuple(map_all.pop("pattern", ()))
+    map_ = _no_duplicates(map_all)
+    explicit = set(map_) | ({"pattern"} if patterns else set())
+    port = int(parse_si_uint(map_.pop("port", "7373")))
+    host = map_.pop("host", "127.0.0.1")
+    once = parse_bool(map_.pop("once", "no"))
+    search = parse_bool(map_.pop("search", "no"))
+    shift = parse_si_int(map_.pop("shift", "0"))
+    mode = map_.pop("mode", "stream")
+    if mode not in ("stream", "waterfall", "scan", "ook", "fsk", "psk", "fm", "am", "ssb", "find"):
+        raise ValueError(f"unknown -mode: {mode!r} (stream|waterfall|scan|ook|fsk|psk|fm|am|ssb|find)")
+    # reject flags the chosen mode would silently ignore
+    fm_flags = {"deviation", "audio-lowpass", "audio-decimate", "audio-power", "audio-rate"}
+    ssb_flags = {"sideband", "bandwidth"}
+    psk_flags = {"symbol-rate", "order", "differential", "block"}
+    find_flags = {"pattern", "top", "distance", "freq-tol", "freq-step"}
+    demod_flags = {"width", "stride", "threshold", "bit", "raw", "search", "chunk", "mesh"}
+    inapplicable = {
+        "stream": {"stride", "threshold", "bit", "raw"} | fm_flags | ssb_flags | psk_flags | find_flags,
+        "waterfall": {"shift", "lowpass", "power", "decimate", "threshold", "bit", "raw"}
+        | fm_flags | ssb_flags | psk_flags | find_flags,
+        # scan is the waterfall bank reduced to per-bin stats: the channel
+        # chain's and the receivers' knobs do not apply, nor does -search
+        "scan": {"shift", "lowpass", "power", "decimate", "bit", "raw", "search"}
+        | fm_flags | ssb_flags | psk_flags | find_flags,
+        # the receivers buffer the whole burst: chunking, peak search and
+        # mesh sharding do not apply (and -search would shadow the bits)
+        "ook": {"shift", "lowpass", "power", "decimate", "search", "chunk", "mesh"}
+        | fm_flags | ssb_flags | psk_flags | find_flags,
+        "fsk": {"threshold", "raw", "search", "chunk", "mesh"} | fm_flags | ssb_flags | psk_flags | find_flags,
+        "psk": demod_flags | fm_flags | ssb_flags | find_flags,
+        "fm": demod_flags | ssb_flags | psk_flags | find_flags,
+        "am": demod_flags | {"deviation"} | ssb_flags | psk_flags | find_flags,
+        # ssb: -bandwidth replaces -lowpass (the filter is bandwidth/2)
+        "ssb": demod_flags | {"deviation", "lowpass"} | psk_flags | find_flags,
+        # find searches the raw connection stream: no channel chain, no
+        # receiver knobs; -threshold and -chunk keep their find meanings
+        "find": {"shift", "lowpass", "power", "decimate", "width", "stride", "bit", "raw", "search"}
+        | fm_flags | ssb_flags | psk_flags,
+    }
+    bad = explicit & inapplicable[mode]
+    if bad:
+        raise ValueError(f"-{sorted(bad)[0]} does not apply to -mode {mode}")
+    width_default = {"stream": "64", "waterfall": "1024", "scan": "1024", "ook": "4", "fsk": "64", "psk": "64",
+                     "fm": "64", "am": "64", "ssb": "64", "find": "64"}
+    fft_width = int(parse_si_uint(map_.pop("width", width_default[mode])))
+    # channel-filter defaults match the standalone command of each mode
+    lp_default = {"fm": "100k", "am": "10k"}
+    lowpass = parse_si_uint(map_.pop("lowpass", lp_default.get(mode, "200k")))
+    power = map_.pop("power", None)
+    size = 2 * parse_si_uint(power) if power is not None else 400
+    decimate = parse_si_uint(map_.pop("decimate", "8" if mode in ("fm", "am", "ssb") else "32"))
+    deviation = parse_si_float(map_.pop("deviation", "75k"))
+    if deviation <= 0:
+        raise ValueError("-deviation must be positive")
+    audio_lowpass = map_.pop("audio-lowpass", None)
+    audio_lowpass = None if audio_lowpass is None else parse_si_uint(audio_lowpass)
+    audio_decimate = parse_si_uint(map_.pop("audio-decimate", "1"))
+    audio_power = map_.pop("audio-power", None)
+    audio_size = 2 * parse_si_uint(audio_power) if audio_power is not None else 64
+    audio_rate = map_.pop("audio-rate", None)
+    audio_rate = None if audio_rate is None else int(parse_si_uint(audio_rate))
+    sideband = map_.pop("sideband", "usb")
+    if sideband not in ("usb", "lsb"):
+        raise ValueError(f"unknown -sideband: {sideband!r} (usb|lsb)")
+    bandwidth = int(parse_si_uint(map_.pop("bandwidth", "3k")))
+    symbol_rate = map_.pop("symbol-rate", None)
+    if mode == "psk" and symbol_rate is None:
+        raise ValueError("-mode psk requires -symbol-rate (symbols per second)")
+    symbol_rate = 0.0 if symbol_rate is None else parse_si_float(symbol_rate)
+    if mode == "psk" and symbol_rate <= 0:
+        raise ValueError("-symbol-rate must be positive")
+    order = int(parse_si_uint(map_.pop("order", "2")))
+    if order not in (2, 4):
+        raise ValueError("-order must be 2 (BPSK) or 4 (QPSK)")
+    differential = parse_bool(map_.pop("differential", "yes"))
+    block = int(parse_si_uint(map_.pop("block", "0")))
+    stride = map_.pop("stride", "2" if mode == "ook" else None)
+    stride = None if stride is None else int(parse_si_uint(stride))
+    if mode == "find" and not patterns:
+        raise ValueError("-mode find requires -pattern FILE (repeatable)")
+    top = int(parse_si_uint(map_.pop("top", "0")))
+    distance = map_.pop("distance", None)
+    distance = None if distance is None else int(parse_si_uint(distance))
+    freq_tol = parse_si_float(map_.pop("freq-tol", "0"))
+    if freq_tol < 0:
+        raise ValueError("-freq-tol must be >= 0")
+    freq_step = map_.pop("freq-step", None)
+    freq_step = None if freq_step is None else parse_si_float(freq_step)
+    if freq_step is not None and freq_step <= 0:
+        raise ValueError("-freq-step must be positive")
+    thr_default = {"scan": "0", "find": "0.5"}
+    threshold = parse_si_float(map_.pop("threshold", thr_default.get(mode, "0.001")))
+    bit = map_.pop("bit", "8" if mode == "ook" else None)
+    bit = None if bit is None else parse_si_float(bit)
+    raw_bits = parse_bool(map_.pop("raw", "no"))
+    raw_chunk = map_.pop("chunk", None)
+    if raw_chunk is None and mode == "find":
+        chunk = None  # find_pattern's auto block: max(4*l, 4096)
+    else:
+        chunk = int(parse_si_uint(raw_chunk if raw_chunk is not None else "4M" if mode == "stream" else "2k"))
+    sr = map_.pop("sr", None)
+    fmt = map_.pop("format", None)
+    mesh = map_.pop("mesh", None)
+    parallel = int(parse_si_uint(map_.pop("parallel", "1")))
+    if parallel < 1:
+        raise ValueError("-parallel must be >= 1")
+    timeout = parse_si_float(map_.pop("timeout", "0"))
+    if timeout < 0:
+        raise ValueError("-timeout must be >= 0 seconds (0 = none)")
+    _ensure_empty(map_, "serve")
+    if sr is None or fmt is None:
+        raise ValueError("'serve' requires -sr and -format (a socket has no filename to sniff)")
+    return ServeCmd(
+        port=port, host=host, once=once, search=search, mode=mode, shift=shift, lowpass=lowpass, size=size,
+        decimate=decimate, fft_width=fft_width, stride=stride, chunk=chunk, sample_rate=sr, format=fmt,
+        mesh=None if mesh is None else _parse_mesh(mesh), parallel=parallel, timeout=timeout,
+        threshold=threshold, bit=bit, raw=raw_bits, deviation=deviation, audio_lowpass=audio_lowpass,
+        audio_decimate=audio_decimate, audio_size=audio_size, audio_rate=audio_rate, sideband=sideband,
+        bandwidth=bandwidth, symbol_rate=symbol_rate, order=order, differential=differential, block=block,
+        patterns=patterns, top=top, distance=distance, freq_tol=freq_tol, freq_step=freq_step,
+    )
+
+
 _PARSERS = {
     "from": _parse_from,
     "shift": _parse_shift,
@@ -1190,4 +1382,5 @@ _PARSERS = {
     "am": _parse_am,
     "ssb": _parse_ssb,
     "channelize": _parse_channelize,
+    "serve": _parse_serve,
 }

@@ -65,6 +65,21 @@ waterfall [-width 1024] [-stride =width] [-window rectangular] [-chunk 2k] \\
     info [-chunk 4M] [-limit N (first N samples)] FILENAME...   (capture statistics) \\
   replay [-speed 1 (x real time; 0 = unthrottled)] [-loop 1] [-chunk 64k] FILENAME \\
          (raw bytes to stdout, paced: a recorded capture as a live pipe) \\
+   serve [-port 7373] [-host 127.0.0.1] [-once no] [-search no] [-shift 0] [-lowpass 200k] \\
+         [-power 200] [-decimate 32] [-width 64] [-chunk 4M] -sr R -format F \\
+         [-mode stream|waterfall|scan|ook|fsk|psk|fm|am|ssb|find] [-stride =width] [waterfall: \\
+          the raw spectrogram; scan: the per-bin band-survey CSV, -threshold as in scan; \\
+          find: stream the connection through the matched filter ([-pattern FILE]+, \\
+          -threshold/-top/-distance/-freq-tol as in find; matches back at EOF)] \\
+         [ook/fsk/psk/fm/am/ssb: a receiver as a service: send the burst, read back the bits \\
+          (or, fm/am/ssb: a "# MODE N RATE" header + N f32 audio samples); -threshold/-bit/-raw/ \\
+          -deviation/-audio-*/-sideband/-bandwidth/-symbol-rate/-order as in the matching \\
+          commands] \\
+         [-mesh TxS] [-parallel 1] [-timeout 0 (seconds; drop a connection idle \\
+          that long: stalled peers cannot hold a slot)] [parallel: serve N connections at \\
+          once, each on its own CUDA stream, over the one model] \\
+         [TCP service: the model and its tables made once, then each connection streams \\
+          IQ in, results out] \\
      ook [-width 4] [-stride 2] [-threshold 0.001] [-bit 8] [-raw no] [-stdin no] [-mesh T] FILENAME \\
      fsk [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] [-width 64] [-stride S] [-bit N] [-stdin no] [-mesh T] FILENAME \\
      psk [-shift 0] [-lowpass 200k] [-power 200] [-decimate 32] -symbol-rate HZ \\
@@ -91,8 +106,7 @@ channelize [-channels 8] [-power 20] [-freq =sr/2K] [-chunk 256k] [-select 0,3,.
          [-stdin no] [-mesh T] FILENAME [polyphase filter bank: every channel in \\
           one pass; channel k = shift -k*sr/K + lowpass -decimate K]
 
-(-mesh parses as in quadjax but is not yet ported, ROADMAP A13; serve is not
-yet ported, ROADMAP A12c.)
+(-mesh parses as in quadjax but is not yet ported, ROADMAP A13.)
 
 Formats:
 
@@ -116,6 +130,7 @@ _RUNNERS = {
     argmod.AmCmd: serve.run_am,
     argmod.SsbCmd: serve.run_ssb,
     argmod.ChannelizeCmd: serve.run_channelize,
+    argmod.ServeCmd: serve.run_serve,
 }
 
 

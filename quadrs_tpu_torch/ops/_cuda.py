@@ -126,6 +126,17 @@ def _build(out: pathlib.Path) -> tuple[str, float]:
     return "".join(logs), time.perf_counter() - t0
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: the serve daemon's sessions launch
+    from several threads at once, and ``+=`` on an attribute is no atomic
+    step."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; raises on a failed
     build."""

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from quadrs_tpu_torch.formats import FileFormat, decode_plane
+from quadrs_tpu_torch.ops._cuda import count_launch
 from quadrs_tpu_torch.ops.nco import ExactNCO
 
 _FMT_CODE = {
@@ -374,7 +375,7 @@ def frontend_fir(
     out = torch.empty((2, n_out), dtype=torch.float32, device=planes.device)
     at = out.data_ptr()
     _launch("qt_frontend_fir", planes, bases, tables, spec, n_out, n_ok, None, (at, at + 4 * n_out))
-    frontend_fir.launches += 1
+    count_launch(frontend_fir)
     return out
 
 
@@ -400,7 +401,7 @@ def frontend_fir_stft(
     tw = tables.stft_cos, tables.stft_sin
     out = (*(0 if t is None else t.data_ptr() for t in tw), stft_width, norms.data_ptr())
     _launch("qt_frontend_fir_stft", planes, bases, tables, spec, n_out, n_ok, stft_width, out)
-    frontend_fir_stft.launches += 1
+    count_launch(frontend_fir_stft)
     return norms
 
 
@@ -621,7 +622,7 @@ def frontend_banded(
         _TOUT_V1, plan.bout, plan.groups, plan.threads, n_out, at, at + 4 * n_out,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    frontend_banded.launches += 1
+    count_launch(frontend_banded)
     return out
 
 

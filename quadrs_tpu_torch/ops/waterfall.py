@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from quadrs_tpu_torch.formats import FileFormat, decode_plane
+from quadrs_tpu_torch.ops._cuda import count_launch
 from quadrs_tpu_torch.ops.fir import overlapped_frames
 from quadrs_tpu_torch.ops.frontend import _FMT_CODE
 from quadrs_tpu_torch.ops.stft import blackman_harris_window, stft_norms
@@ -311,7 +312,7 @@ def waterfall_norms(
         *_kernel_args(planes, tables, spec, n_windows, stride),
         out.data_ptr(), _stream(planes),
     )
-    waterfall_norms.launches += 1
+    count_launch(waterfall_norms)
     return out
 
 
@@ -335,7 +336,7 @@ def waterfall_search(
         *_kernel_args(planes, tables, spec, n_windows, stride),
         val.data_ptr(), idx.data_ptr(), _stream(planes),
     )
-    waterfall_search.launches += 1
+    count_launch(waterfall_search)
     return idx, val
 
 
@@ -368,7 +369,7 @@ def waterfall_scan(
         *_kernel_args(planes, tables, spec, n_windows, stride, grid),
         float(threshold), partial.data_ptr(), out.data_ptr(), _stream(planes),
     )
-    waterfall_scan.launches += 1
+    count_launch(waterfall_scan)
     return out[0], out[1], out[2]
 
 

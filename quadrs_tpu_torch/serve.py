@@ -1,6 +1,8 @@
 """The CLI's serving products: ``stream``, ``waterfall``, ``scan``,
 ``info``, ``replay``, the receivers ``ook``, ``fsk``, ``psk``, ``fm``,
-``am`` and ``ssb``, and ``channelize``.
+``am`` and ``ssb``, ``channelize``, and the TCP daemon ``serve``, which
+serves ``stream``, ``waterfall``, ``scan``, ``find`` and the receivers
+over its connections.
 
 Their lines and files are the JAX package's (``quadrs_tpu.serve``): a
 ``<cmd> peak [stream=S] window=W bin=B mag=M`` line per stream, the
@@ -15,7 +17,8 @@ receivers print bits, or write audio (``-out PREFIX``: raw mono f32 or,
 with ``-wav yes``, a WAV; ``-out -``: the same bytes to stdout, the meter
 line then to stderr) and print a meter line; ``psk -plot`` writes the
 constellation.  ``channelize`` writes a file a channel (``-out``) and
-prints an RMS meter.
+prints an RMS meter.  ``serve`` answers each connection with what the
+command of its ``-mode`` prints or writes (:func:`run_serve`).
 """
 
 from __future__ import annotations
@@ -708,3 +711,368 @@ def run_ssb(cmd: argmod.SsbCmd, device: torch.device) -> int:
                 f"peak {float(peak):.3f}, rms {float(rms):.3f}")
 
     return _run_audio(cmd, demod, device, meter)
+
+
+# -- the serve daemon ----------------------------------------------------------
+
+_RECEIVERS = ("ook", "fsk", "psk", "fm", "am", "ssb")  # the modes that buffer a burst and answer with bits or audio
+
+
+def _make_serve_demod(cmd: argmod.ServeCmd):
+    """The receiver behind ``serve -mode ook|fsk|psk|fm|am|ssb``, made once
+    at startup.  The receivers keep no device state between bursts (each
+    burst builds its own channel step), so sessions share them as they are."""
+    from quadrs_tpu_torch.models import demod as dm
+
+    if cmd.mode == "ook":
+        return dm.OokDemod(width=cmd.fft_width, stride=cmd.stride if cmd.stride is not None else 2,
+                           threshold=cmd.threshold, samples_per_bit=cmd.bit if cmd.bit is not None else 8.0)
+    audio = dict(audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
+                 audio_rate=cmd.audio_rate)
+    if cmd.mode == "am":
+        return dm.AmDemod(center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size, **audio)
+    if cmd.mode == "fm":
+        return dm.FmDemod(center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
+                          deviation=cmd.deviation, **audio)
+    if cmd.mode == "ssb":
+        return dm.SsbDemod(center=cmd.shift, sideband=cmd.sideband, bandwidth=cmd.bandwidth, decimate=cmd.decimate,
+                           taps=cmd.size, **audio)
+    if cmd.mode == "psk":
+        return dm.PskDemod(center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
+                           symbol_rate=cmd.symbol_rate, order=cmd.order, differential=cmd.differential, block=cmd.block)
+    return dm.FskDemod(center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
+                       fft_width=cmd.fft_width, stride=cmd.stride,
+                       samples_per_symbol=1.0 if cmd.bit is None else cmd.bit)
+
+
+@contextlib.contextmanager
+def _socket_files(conn):
+    """The connection's read and write files, closed at the end; a client
+    gone before the final flush does not mask a completed session."""
+    rf, wf = conn.makefile("rb"), conn.makefile("wb")
+    try:
+        yield rf, wf
+    finally:
+        try:
+            wf.close()
+        except OSError:
+            pass
+        finally:
+            rf.close()
+
+
+def _demod_connection(conn, demod, cmd: argmod.ServeCmd, fmt, sample_rate: int, device: torch.device) -> RunStats:
+    """One receiver session: the client sends its whole burst and
+    half-closes; the daemon buffers it (the 1 GiB cap of ``ook -stdin``),
+    demodulates it, and answers with exactly the lines the receiver's
+    command prints (or, for audio, :func:`_demod_reply`'s framing)."""
+    with _socket_files(conn) as (rf, wf):
+        data = rf.read(_STDIN_BUFFER_CAP + 1)
+        if len(data) > _STDIN_BUFFER_CAP:
+            msg = ("connection burst exceeds the demod buffer cap (1 GiB); demod modes buffer the whole burst — "
+                   "use -mode stream/waterfall for unbounded streams")
+            try:
+                wf.write(f"# error: {msg}\n".encode())
+                wf.flush()
+            except OSError:
+                pass
+            raise ValueError(msg)
+        src = SampleSource(np.frombuffer(data, dtype=np.uint8), fmt, sample_rate)
+        t0 = time.perf_counter()
+        try:
+            return _demod_reply(wf, demod, cmd, src, t0, device)
+        except ValueError as e:
+            # a bad burst (empty, shorter than the filter or the window) is
+            # the client's mistake, not the daemon's: answer why, and count
+            # the session as served
+            wf.write(f"# error: {e}\n".encode())
+            wf.flush()
+            return RunStats(samples_in=src.length, windows_out=0, seconds=time.perf_counter() - t0)
+
+
+def _demod_reply(wf, demod, cmd: argmod.ServeCmd, src, t0: float, device: torch.device) -> RunStats:
+    """Demodulate one buffered burst and write the answer: the bits or
+    symbols line and a ``# <cmd>: ...`` trailer, or for audio a
+    ``# MODE N RATE`` header, N little-endian f32 samples and a trailer."""
+    if cmd.mode in ("fm", "am", "ssb"):
+        rate, audio = demod.demodulate(src, device=device)
+        wf.write(f"# {cmd.mode} {len(audio)} {rate}\n".encode())
+        wf.write(audio.astype("<f4").tobytes())
+        wf.write(f"\n# {cmd.mode}: {len(audio)} audio samples @ {rate} Hz\n".encode())
+        wf.flush()
+        return RunStats(samples_in=src.length, windows_out=len(audio), seconds=time.perf_counter() - t0)
+    if cmd.mode == "psk":
+        est, bits = demod.demodulate(src, device=device)
+        line, n_out = "".join(map(str, bits)), len(bits)
+        trailer = (f"psk: {len(bits)} bits, freq {est.freq_hz:+.1f} Hz, phase {est.phase:+.3f} rad, "
+                   f"tau {est.tau:.2f}, sps {est.sps:g}")
+    elif cmd.mode == "ook":
+        from quadrs_tpu_torch.models.demod import manchester_decode
+
+        err, raw_bits = demod.demodulate(src, device=device)
+        if cmd.raw:
+            line = "".join("1" if b else "0" for b in raw_bits)
+        else:
+            line = "".join(str(b) for b in manchester_decode(raw_bits))
+        n_out = len(raw_bits)
+        trailer = f"ook: {len(raw_bits)} raw bits, clock error {err:.3f}"
+    elif cmd.bit is None:
+        syms = demod.symbols(src, device=device)
+        line, n_out = "".join(str(int(s)) for s in syms), len(syms)
+        trailer = f"fsk: {len(syms)} symbols"
+    else:
+        err, bits = demod.demodulate(src, device=device)
+        line, n_out = "".join("1" if b else "0" for b in bits), len(bits)
+        trailer = f"fsk: {len(bits)} bits, clock error {err:.3f}"
+    wf.write(f"{line}\n# {trailer}\n".encode())
+    wf.flush()
+    return RunStats(samples_in=src.length, windows_out=n_out, seconds=time.perf_counter() - t0)
+
+
+def _serve_stream(rf, wf, model, cmd: argmod.ServeCmd, sample_rate: int, device: torch.device) -> RunStats:
+    """Run ``stream``, ``waterfall`` or ``scan`` over the byte stream ``rf``
+    (a :class:`PipeSource`) and write the answer to ``wf`` as each chunk
+    completes: ``window,bin,mag`` CSV and a ``# <mode>: ...`` trailer
+    (``-search yes``), raw f32 norms rows, or at EOF the survey CSV
+    (``-mode scan``).  The runner is made here, so its rings record their
+    events on the caller's current CUDA stream."""
+    from quadrs_tpu_torch.stream_runner import StreamRunner, WaterfallRunner
+
+    waterfall = cmd.mode in ("waterfall", "scan")
+    src = PipeSource(rf, model.cfg.fmt, sample_rate)
+    if waterfall:
+        runner = WaterfallRunner([src], model, device, chunk_windows=cmd.chunk)
+    else:
+        runner = StreamRunner(src, model, device, chunk_samples=cmd.chunk)
+    if cmd.mode == "scan":
+        # the reduction streams on the device; the answer is one small CSV at EOF
+        result = runner.run_scan(threshold=cmd.threshold)
+        width = model.cfg.fft_width
+        freq = (np.arange(width) - width // 2) * (sample_rate / width)
+        wf.writelines(ln.encode() for ln in _scan_csv_lines(result, 0, freq))
+        stats = result.stats
+        wf.write(f"# {_stats_line('scan', stats)} ({result.windows} windows, threshold {cmd.threshold:g})\n".encode())
+    elif cmd.search:
+        wf.write(b"window,bin,mag\n")
+
+        def on_peaks(w0, out):
+            idx, val = out
+            if waterfall:  # (1, nw) bank shapes -> flat
+                idx, val = idx[0], val[0]
+            wf.write("".join(f"{w0 + i},{int(idx[i])},{float(val[i]):.9g}\n" for i in range(len(idx))).encode())
+            wf.flush()
+
+        stats = runner.run_search(on_peaks)
+        wf.write(f"# {_stats_line(cmd.mode, stats)}\n".encode())
+    else:
+
+        def on_windows(w0, norms):
+            wf.write(np.ascontiguousarray(norms[0] if waterfall else norms, dtype=np.float32))
+            wf.flush()
+
+        stats = runner.run(on_windows)
+    wf.flush()
+    return stats
+
+
+def _serve_connection(conn, model, cmd: argmod.ServeCmd, sample_rate: int, device: torch.device) -> RunStats:
+    """One ``stream``/``waterfall``/``scan`` session: raw IQ bytes in,
+    results back over the same socket as each chunk completes.
+
+    The client sends its capture, half-closes its write side
+    (``shutdown(SHUT_WR)``) to mark EOF, and reads to the daemon's close;
+    it must read while it sends: results come back chunk by chunk, and a
+    client that does not read them stalls the daemon's write, which stops
+    the daemon reading, a deadlock on both sides."""
+    with _socket_files(conn) as (rf, wf):
+        return _serve_stream(rf, wf, model, cmd, sample_rate, device)
+
+
+def _find_connection(conn, patterns, cmd: argmod.ServeCmd, fmt, sample_rate: int, device: torch.device) -> RunStats:
+    """One matched-filter session: the connection's bytes run through
+    :func:`quadrs_tpu_torch.sinks.find_pattern` as a live pipe (O(chunk)
+    memory, no buffered burst), and the matches come back at EOF as
+    exactly the lines ``find -stdin`` prints.  Each session makes its own
+    template tables, so sessions share nothing on the device."""
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.sources import LivePipeStream
+
+    t0 = time.perf_counter()
+    with _socket_files(conn) as (rf, wf):
+        try:
+            res = sinks.find_pattern(
+                LivePipeStream(PipeSource(rf, fmt, sample_rate)),
+                patterns if len(patterns) > 1 else patterns[0],
+                threshold=cmd.threshold, chunk=cmd.chunk, max_matches=cmd.top if cmd.top else None,
+                min_distance=cmd.distance, freq_tol=cmd.freq_tol, freq_step=cmd.freq_step, device=device,
+            )
+        except ValueError as e:
+            # a bad burst (shorter than the template) answers with the error
+            wf.write(f"# error: {e}\n".encode())
+            wf.flush()
+            return RunStats(samples_in=0, windows_out=0, seconds=time.perf_counter() - t0)
+        bank = len(patterns) > 1
+        for o, s, a, f, w in zip(res.offsets, res.scores, res.scales, res.freqs, res.which):
+            line = f"{int(o)},{float(s):.4f},{float(a):.6g},{float(f):+g}"
+            wf.write((line + (f",{int(w)}" if bank else "") + "\n").encode())
+        wf.write(f"# find: {len(res.offsets)} matches, pattern {res.pattern_len} samples, {res.scanned} scanned\n".encode())
+        wf.flush()
+        return RunStats(samples_in=res.scanned, windows_out=len(res.offsets), seconds=time.perf_counter() - t0)
+
+
+def _log(line: str) -> None:
+    """One line of the daemon's log in one write, so that the lines of
+    sessions on several threads do not interleave."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+def _serve_model(cmd: argmod.ServeCmd, details, device: torch.device):
+    """The mode's model, made once, and everything its sessions will share
+    made with it, before the first connection: the kernel library (nvcc)
+    and the capture loader (g++) built and loaded; TF32 off; for
+    ``stream``, ``waterfall`` and ``scan`` the model on the device and one
+    warm session over a few zero samples, which makes the tables a model
+    makes at its first call (the decode table, the DFT tables) and launches
+    each kernel of the mode once.  On CUDA all of it runs on the default
+    stream and is synchronized, so a session's stream reads finished
+    tables.  A kernel that does not build or launch raises here."""
+    import io
+
+    from quadrs_tpu_torch import native
+
+    native.library()
+    if device.type == "cuda":
+        from quadrs_tpu_torch.ops import _cuda
+        from quadrs_tpu_torch.ops.frontend import no_tf32
+
+        no_tf32()  # embedders call run_serve without cli.main
+        _cuda.library()
+    if cmd.mode in _RECEIVERS:
+        model = _make_serve_demod(cmd)
+    elif cmd.mode == "find":
+        # the template bank, loaded once; each connection streams through it
+        model = []
+        for fname in cmd.patterns:
+            psrc = SampleSource.from_file(fname, guess_details(fname, None, None))
+            if psrc.sample_rate != details.sample_rate:
+                raise ValueError(
+                    f"pattern rate {psrc.sample_rate} != -sr {details.sample_rate}: resample one side first"
+                )
+            pat, valid = psrc.read_at(0, psrc.length, device)
+            if valid != psrc.length:
+                raise RuntimeError("short read loading the pattern capture")
+            model.append(pat)
+    else:
+        if cmd.mode in ("waterfall", "scan"):
+            from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
+
+            model = WaterfallModel(WaterfallConfig(
+                n_streams=1, fft_width=cmd.fft_width,
+                stride=cmd.stride if cmd.stride is not None else cmd.fft_width, fmt=details.format,
+            ))
+            warm = cmd.fft_width  # one window
+        else:
+            from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
+
+            model = PipelineModel(PipelineConfig(
+                sample_rate=details.sample_rate, shift_freq=cmd.shift, lp_freq=cmd.lowpass,
+                decimate=cmd.decimate, taps=cmd.size, fft_width=cmd.fft_width, fmt=details.format,
+            ))
+            warm = model.cfg.window_raw + model.cfg.taps  # one window and its filter span
+        model.to(device)
+        zeros = io.BytesIO(bytes(warm * details.format.pair_bytes))
+        _serve_stream(zeros, io.BytesIO(), model, cmd, details.sample_rate, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return model
+
+
+def run_serve(cmd: argmod.ServeCmd, device: torch.device, ready=None, max_connections=None) -> int:
+    """The TCP daemon: one model made at startup (:func:`_serve_model`),
+    many connections, served one after another, or up to ``-parallel N``
+    at once on a pool of threads, each session inside a CUDA stream of its
+    own.  ``-mode ook|fsk|psk|fm|am|ssb`` serves the receivers: each
+    connection's burst is buffered whole (1 GiB cap) and answered with what
+    the command prints.  ``-timeout S`` arms an idle timeout on every
+    accepted socket: a peer that stops sending before its half-close, or
+    stops draining its results, for S seconds has its session dropped and
+    logged like any failed one; a read that times out on a runner's staging
+    thread reaches the session as its exception.  ``ready(port)`` is called
+    with the bound port once listening (tests bind port 0).  A failed
+    session is logged (``serve: conn N failed: ...``) and the loop goes on;
+    ``-once yes`` exits after one connection (``max_connections``
+    generalizes it for embedders and tests; the CLI runs until killed).
+    ``-mesh`` is refused before the socket binds (ROADMAP A13)."""
+    import socket
+
+    _refuse_mesh("serve", cmd)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # a model's tables are keyed by their tensors' device, which has an index
+        device = torch.device("cuda", torch.cuda.current_device())
+    details = guess_details("-", cmd.sample_rate, cmd.format)
+    demod = cmd.mode in _RECEIVERS
+    model = _serve_model(cmd, details, device)
+
+    srv = socket.create_server((cmd.host, cmd.port))
+    port = srv.getsockname()[1]
+    answer = ("audio" if cmd.mode in ("fm", "am", "ssb") else "bits" if demod else "survey" if cmd.mode == "scan"
+              else "matches" if cmd.mode == "find" else "search" if cmd.search else "norms")
+    _log(
+        f"serve: listening on {cmd.host}:{port} ({details.format.name.lower()}, sr {details.sample_rate}, "
+        f"{cmd.mode} {answer}"
+        + (f", parallel {cmd.parallel}" if cmd.parallel > 1 else "")
+        + (f", timeout {cmd.timeout:g}s" if cmd.timeout > 0 else "")
+        + ")"
+    )
+    if ready is not None:
+        ready(port)
+    if cmd.once:
+        max_connections = 1
+
+    def session(conn) -> RunStats:
+        if demod:
+            return _demod_connection(conn, model, cmd, details.format, details.sample_rate, device)
+        if cmd.mode == "find":
+            return _find_connection(conn, model, cmd, details.format, details.sample_rate, device)
+        return _serve_connection(conn, model, cmd, details.sample_rate, device)
+
+    def handle(n_conn: int, conn, peer) -> None:
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        try:
+            if cmd.timeout > 0:
+                # any single blocked recv or send past this raises
+                # TimeoutError; the clock is per socket operation, so a slow
+                # but flowing client is never dropped
+                conn.settimeout(cmd.timeout)
+            with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+                stats = session(conn)
+            _log(f"serve: conn {n_conn} {peer[0]}:{peer[1]} " + _stats_line("done", stats))
+        except Exception as e:  # a daemon survives any one session: client gone, bad bytes, a timeout
+            _log(f"serve: conn {n_conn} failed: {type(e).__name__}: {e}")
+        finally:
+            if stream is not None:
+                # a failed session's work too ends before the next session
+                stream.synchronize()
+            conn.close()
+
+    n_conn = 0
+    try:
+        if cmd.parallel > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=cmd.parallel) as pool:
+                while max_connections is None or n_conn < max_connections:
+                    conn, peer = srv.accept()
+                    n_conn += 1
+                    pool.submit(handle, n_conn, conn, peer)
+                # leaving the with-block waits for every session
+        else:
+            while max_connections is None or n_conn < max_connections:
+                conn, peer = srv.accept()
+                n_conn += 1
+                handle(n_conn, conn, peer)
+    finally:
+        srv.close()
+    return 0

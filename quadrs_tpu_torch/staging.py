@@ -5,9 +5,12 @@ The runners fill a slot on a staging thread (the capture loader writes
 straight into it), start the slot's host-to-device copy on a copy stream
 with an event the compute stream waits on, and hand the slot back to the
 staging thread only once that event has completed.  Each slot has its own
-device buffer, and the copy stream waits for the work that read a buffer
-before it writes it again, so the allocator never recycles memory that a
-copy still writes.  Outputs cross the other way into page-locked memory
+device buffer, made on the copy stream and marked used by every stream
+that reads it, and the copy stream waits for the work that read a buffer
+before it writes it again.  So the allocator never gives the copy stream
+memory that another stream's work still uses (the compute stream's
+temporaries, freed while its kernels run), and never recycles a slot that
+a kernel still reads.  Outputs cross the other way into page-locked memory
 with a non-blocking copy and an event, so a chunk's ``emit`` runs while
 the next chunk computes.
 
@@ -65,7 +68,13 @@ class UploadRing:
 
     def _dev_of(self, k: int) -> dict[str, torch.Tensor]:
         if self._dev[k] is None:
-            self._dev[k] = {name: torch.empty(n, dtype=dt, device=self.device) for name, (n, dt) in self._buffers.items()}
+            # made on the copy stream, the stream that writes it first: made on
+            # the compute stream, it could be a block that stream freed with
+            # its kernels still running, and the copy would overwrite their
+            # data (the allocator orders a block's reuse within its stream only)
+            with torch.cuda.stream(self.stream):
+                self._dev[k] = {name: torch.empty(n, dtype=dt, device=self.device)
+                                for name, (n, dt) in self._buffers.items()}
         return self._dev[k]
 
     def reset(self) -> None:
@@ -110,6 +119,10 @@ class UploadRing:
                 out[name] = dev[name][:n].view(s)
             self._copied[k].record(self.stream)
         compute.wait_event(self._copied[k])
+        for buf in dev.values():
+            # the slot's memory goes back to the allocator only once the
+            # compute stream's work on it has ended
+            buf.record_stream(compute)
         return out
 
     def consumed(self, k: int) -> None:

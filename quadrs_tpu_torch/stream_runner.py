@@ -299,7 +299,9 @@ def _pipelined(ring: UploadRing, staged, step, emit, device: torch.device, max_c
         ring.close()
         chunks.close()
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        # this run's stream, not the device: the serve daemon's other
+        # sessions run on streams of their own
+        torch.cuda.current_stream(device).synchronize()
 
 
 FRONTENDS = ("auto", "fused", "chain")

@@ -202,6 +202,51 @@ def test_package_imports_no_jax():
     assert res.stdout.startswith("ok")
 
 
+def test_serve_once_loads_no_jax(tmp_path):
+    """``python -m quadrs_tpu_torch serve -once yes`` in a process of its
+    own serves one connection and loads neither jax nor quadrs_tpu: the
+    process reports its modules after the daemon exits."""
+    import os
+    import socket
+    import threading
+
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['quadrs_tpu_torch', 'serve', '-once', 'yes', '-port', '0', '-shift', '1k', '-lowpass', '8k',\n"
+        "            '-power', '20', '-decimate', '4', '-width', '32', '-chunk', '8k', '-sr', '48k', '-format', 'cs8']\n"
+        "try:\n"
+        "    runpy.run_module('quadrs_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'quadrs_tpu'))\n"
+        "print('rc', rc, 'modules', bad, flush=True)\n"
+    )
+    env = dict(os.environ, QUADRS_PLATFORM="cpu")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        banner = proc.stdout.readline()
+        m = re.match(r"serve: listening on 127\.0\.0\.1:(\d+) \(complex_int8, sr 48000, stream norms\)$", banner)
+        assert m, banner + proc.stderr.read()
+        rng = np.random.default_rng(5)
+        data = rng.integers(0, 256, 2 * 20_000, dtype=np.int64).astype(np.uint8).tobytes()
+        chunks: list[bytes] = []
+        with socket.create_connection(("127.0.0.1", int(m[1])), timeout=30) as s:
+            reader = threading.Thread(target=lambda: chunks.extend(iter(lambda: s.recv(1 << 16), b"")))
+            reader.start()
+            s.sendall(data)
+            s.shutdown(socket.SHUT_WR)
+            reader.join(timeout=60)
+            assert not reader.is_alive()
+        out, err = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert re.search(r"^serve: conn 1 127\.0\.0\.1:\d+ done: 19968 samples, 156 windows, ", out, re.M), out + err
+    assert out.strip().splitlines()[-1] == "rc 0 modules []"
+    assert len(b"".join(chunks)) == 156 * 32 * 4
+
+
 def test_module_entry_point():
     res = subprocess.run(
         [sys.executable, "-m", "quadrs_tpu_torch"], cwd=ROOT, capture_output=True, text=True, timeout=300

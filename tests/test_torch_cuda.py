@@ -742,3 +742,348 @@ def test_take_fft_matches_cpu(cuda):
     want = sinks.take_fft(src, (400_000, 900_000), 512, 2048, device="cpu")
     assert got.norms.shape == want.norms.shape == (2048, 512)
     assert float(np.abs(got.norms - want.norms).max()) <= 1e-5 * want.max()
+
+
+# -- the upload ring's streams ---------------------------------------------------------
+
+
+def test_upload_ring_never_writes_memory_in_use(cuda):
+    """A slot's first upload while the compute stream still runs kernels on
+    memory it has already freed: the allocator hands such a block to the
+    compute stream's next allocation at once, so a slot made there would be
+    written by the copy stream under those kernels.  Here the compute stream
+    spins, then fills a freed temporary of the slot's size; the slot must
+    read what was uploaded."""
+    from quadrs_tpu_torch.staging import UploadRing
+
+    n = (1 << 20) + 4099
+    # each kernel launched once first: loading a kernel's module at its first
+    # launch would wait for the spin and hide the hazard
+    float(torch.ones(8, device=cuda).sum())
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # no cached block but the temporary's
+    ring = UploadRing(cuda, 2, x=(n, torch.float32))
+    k = ring.take()
+    ring.host(k, "x", (n,))[:] = 7.0
+    tmp = torch.empty(n, dtype=torch.float32, device=cuda)
+    torch.cuda._sleep(200_000_000)  # the compute stream busy for ~0.1 s
+    tmp.fill_(1.0)
+    del tmp  # back in the compute stream's pool, its fill still queued
+    got = ring.upload(k, x=(n,))["x"]
+    assert not torch.cuda.current_stream(cuda).query()  # the fill still queued behind the spin
+    ring.consumed(k)
+    total = float(got.sum())
+    ring.recycle(k)
+    assert total == 7.0 * n
+
+
+# -- the serve daemon on the card -----------------------------------------------------
+
+
+def _start_daemon(cmd, device, max_connections=None):
+    """``run_serve`` on a thread on ``device``; returns (thread, port, errors)."""
+    import threading
+
+    from quadrs_tpu_torch.serve import run_serve
+
+    box, errors, evt = [], [], threading.Event()
+
+    def ready(p):
+        box.append(p)
+        evt.set()
+
+    def run():
+        try:
+            run_serve(cmd, device, ready=ready, max_connections=max_connections)
+        except BaseException as e:  # reported by the test
+            errors.append(e)
+            evt.set()
+
+    th = threading.Thread(target=run)
+    th.start()
+    assert evt.wait(600), "the daemon never came up"  # the first test builds the kernels
+    assert not errors, errors
+    return th, box[0], errors
+
+
+def _client(port: int, payload: bytes, pieces: int = 1) -> bytes:
+    """Send the payload (in ``pieces`` timed pieces), half-close, read to EOF
+    while sending."""
+    import socket
+    import threading
+    import time
+
+    out: list[bytes] = []
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        rd = threading.Thread(target=lambda: out.extend(iter(lambda: s.recv(1 << 16), b"")))
+        rd.start()
+        step = max(1, -(-len(payload) // pieces))
+        for off in range(0, len(payload), step):
+            s.sendall(payload[off : off + step])
+            if pieces > 1:
+                time.sleep(0.05)
+        s.shutdown(socket.SHUT_WR)
+        rd.join(timeout=120)
+        assert not rd.is_alive()
+    return b"".join(out)
+
+
+def _serve_cmd(**kw):
+    from quadrs_tpu_torch import args as targs
+
+    base = dict(port=0, host="127.0.0.1", once=True, shift=280_000, lowpass=200_000, size=400, decimate=32,
+                fft_width=64, chunk=1 << 18, sample_rate="21M", format="cs8")
+    base.update(kw)
+    return targs.ServeCmd(**base)
+
+
+def _cf32(x: np.ndarray) -> bytes:
+    raw = np.empty(2 * len(x), dtype="<f4")
+    raw[0::2], raw[1::2] = x.real, x.imag
+    return raw.tobytes()
+
+
+def _serve_case(mode: str, tmp_path):
+    """(ServeCmd keywords, payload, the direct run on a device: a function of
+    the device giving the expected reply's bytes or lines) of one mode."""
+    import io
+    import os
+    import sys
+    from types import SimpleNamespace
+
+    from quadrs_tpu_torch import cli as tcli
+    from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
+    from quadrs_tpu_torch.sources import PipeSource, SampleSource
+    from quadrs_tpu_torch.stream_runner import StreamRunner, WaterfallRunner
+
+    rng = np.random.default_rng(SERVE_MODES.index(mode))
+    cs8 = rng.integers(-60, 61, 2 * 600_000).astype(np.int8).tobytes()
+
+    def cli_lines(argv, payload, dev):
+        """The CLI's stdout lines over a pipe of the payload on ``dev``."""
+        import contextlib
+
+        buf = io.StringIO()
+        stdin, env = sys.stdin, os.environ.get("QUADRS_PLATFORM")
+        sys.stdin = SimpleNamespace(buffer=io.BytesIO(payload))
+        os.environ["QUADRS_PLATFORM"] = dev.type
+        try:
+            with contextlib.redirect_stdout(buf):
+                assert tcli.main(argv) == 0
+        finally:
+            sys.stdin = stdin
+            if env is None:
+                os.environ.pop("QUADRS_PLATFORM")
+            else:
+                os.environ["QUADRS_PLATFORM"] = env
+        return buf.getvalue().strip().splitlines()
+
+    if mode in ("stream", "stream-search"):
+        def direct(dev):
+            model = PipelineModel(PipelineConfig(sample_rate=21_000_000, shift_freq=280_000, lp_freq=200_000,
+                                                 decimate=32, taps=400, fft_width=64, fmt=FileFormat.COMPLEX_INT8))
+            runner = StreamRunner(SampleSource(np.frombuffer(cs8, np.uint8), FileFormat.COMPLEX_INT8, 21_000_000),
+                                  model, dev, chunk_samples=1 << 18)
+            rows = []
+            if mode == "stream":
+                runner.run(lambda w0, n: rows.append(n.tobytes()))
+                return b"".join(rows)
+            runner.run_search(lambda w0, o: rows.extend(f"{w0 + i},{int(o[0][i])},{float(o[1][i]):.9g}"
+                                                        for i in range(len(o[0]))))
+            return ["window,bin,mag", *rows]
+        return dict(search=mode == "stream-search"), cs8, direct
+    if mode in ("waterfall", "waterfall-search", "scan"):
+        stride = 1024 if mode == "waterfall" else 256
+
+        def direct(dev):
+            model = WaterfallModel(WaterfallConfig(n_streams=1, fft_width=1024, stride=stride, fmt=FileFormat.COMPLEX_INT8))
+            runner = WaterfallRunner([PipeSource(io.BytesIO(cs8), FileFormat.COMPLEX_INT8, 21_000_000)], model, dev,
+                                     chunk_windows=200)
+            rows = []
+            if mode == "waterfall":
+                runner.run(lambda w0, n: rows.append(n[0].tobytes()))
+                return b"".join(rows)
+            if mode == "scan":
+                from quadrs_tpu_torch.serve import _scan_csv_lines
+
+                freq = (np.arange(1024) - 512) * (21_000_000 / 1024)
+                return [ln.rstrip("\n") for ln in _scan_csv_lines(runner.run_scan(threshold=20.0), 0, freq)]
+            runner.run_search(lambda w0, o: rows.extend(f"{w0 + i},{int(o[0][0, i])},{float(o[1][0, i]):.9g}"
+                                                        for i in range(o[0].shape[1])))
+            return ["window,bin,mag", *rows]
+        kw = dict(mode="scan" if mode == "scan" else "waterfall", fft_width=1024, stride=stride, chunk=200,
+                  search=mode == "waterfall-search")
+        if mode == "scan":
+            kw["threshold"] = 20.0
+        return kw, cs8, direct
+    if mode == "find":
+        x = rng.integers(-40, 41, (400_000, 2)) @ np.array([1, 1j])
+        p = rng.integers(-60, 61, (512, 2)) @ np.array([1, 1j])
+        for o in (1_000, 123_457, 399_488):
+            x[o : o + 512] = p
+        payload = np.clip(np.rint(np.stack([x.real, x.imag], -1)), -127, 127).astype(np.int8).tobytes()
+        pat = tmp_path / "t.sr21M.cs8"
+        pat.write_bytes(np.clip(np.stack([p.real, p.imag], -1), -127, 127).astype(np.int8).tobytes())
+        argv = ["find", "-pattern", str(pat), "-stdin", "yes", "-sr", "21M", "-format", "cs8"]
+
+        def direct(dev):
+            lines = cli_lines(argv, payload, dev)
+            return [*lines[:-1], "# " + lines[-1]]
+        return dict(mode="find", patterns=(str(pat),), threshold=0.5, chunk=None), payload, direct
+    # the receivers: the command's lines (or its audio) over the same burst
+    m = np.arange(1 << 19)
+    if mode == "ook":
+        env = np.repeat(rng.integers(0, 2, (1 << 19) // 64), 64).astype(np.float64)
+        payload = _cf32(0.4 * env * np.exp(2j * np.pi * 0.01 * m))
+        kw, argv = dict(mode="ook", fft_width=4, stride=2, bit=16.0, threshold=0.05, sample_rate="400",
+                        format="cf32"), ["ook", "-bit", "16", "-threshold", "0.05"]
+    elif mode == "fsk":
+        tone = np.repeat(rng.integers(0, 2, (1 << 19) // 4096), 4096) * 2 - 1
+        payload = _cf32(0.5 * np.exp(2j * np.pi * np.cumsum(tone * 3_000.0) / 48_000))
+        kw, argv = dict(mode="fsk", shift=0, lowpass=8_000, size=20, decimate=4, fft_width=64, stride=600,
+                        sample_rate="48k", format="cf32"), \
+            ["fsk", "-lowpass", "8k", "-power", "10", "-decimate", "4", "-width", "64", "-stride", "600"]
+    elif mode == "psk":
+        a = np.cumsum(rng.integers(0, 2, (1 << 19) // 64)) % 2
+        payload = _cf32(np.exp(1j * (np.pi * np.repeat(a, 64) + 0.5 + 2 * np.pi * 60.0 * m / 128_000)))
+        kw, argv = dict(mode="psk", shift=0, lowpass=5_000, size=64, decimate=4, symbol_rate=2_000.0,
+                        sample_rate="128k", format="cf32"), \
+            ["psk", "-lowpass", "5k", "-power", "32", "-decimate", "4", "-symbol-rate", "2k"]
+    else:
+        audio_mod = {"fm": np.exp(1j * 4.0 * np.sin(2 * np.pi * 500.0 * m / 100_000)),
+                     "am": (1.0 + 0.5 * np.cos(2 * np.pi * 250.0 * m / 100_000)).astype(np.complex128),
+                     "ssb": 0.5 * np.exp(2j * np.pi * 700.0 * m / 100_000)}[mode]
+        payload = _cf32(audio_mod)
+        kw = dict(mode=mode, shift=0, lowpass=8_000, size=80, decimate=4, sample_rate="100k", format="cf32")
+
+        def direct(dev):
+            from quadrs_tpu_torch.serve import _make_serve_demod
+
+            src = SampleSource(np.frombuffer(payload, np.uint8), FileFormat.COMPLEX_FLOAT32, 100_000)
+            rate, audio = _make_serve_demod(_serve_cmd(**kw)).demodulate(src, device=dev)
+            return (f"# {mode} {len(audio)} {rate}\n".encode() + audio.astype("<f4").tobytes()
+                    + f"\n# {mode}: {len(audio)} audio samples @ {rate} Hz\n".encode())
+        return kw, payload, direct
+    rate = kw["sample_rate"]
+    argv = [*argv, "-stdin", "yes", "-sr", rate, "-format", "cf32"]
+
+    def direct(dev):
+        lines = cli_lines(argv, payload, dev)
+        return [lines[0], "# " + lines[1]]
+    return kw, payload, direct
+
+
+SERVE_MODES = ["stream", "stream-search", "waterfall", "waterfall-search", "scan", "find",
+               "ook", "fsk", "psk", "fm", "am", "ssb"]
+
+
+@pytest.mark.parametrize("mode", SERVE_MODES)
+def test_serve_sessions_match_runner(cuda, mode, tmp_path):
+    """One session of each ``-mode`` on the card: the reply equals the direct
+    run on the card (the runner, the command's stdout over a pipe of the same
+    bytes, or the receiver's audio), byte for byte but for the trailer's
+    time; ``stream``, ``waterfall`` and ``scan`` sessions launch their
+    kernel once a chunk, the others none."""
+    from quadrs_tpu_torch.ops import waterfall as wf
+
+    kw, payload, direct = _serve_case(mode, tmp_path)
+    th, port, errors = _start_daemon(_serve_cmd(**kw), cuda)
+    counted = (fe.frontend_fir, fe.frontend_fir_stft, fe.frontend_banded, wf.waterfall_norms, wf.waterfall_search,
+               wf.waterfall_scan)
+    for k in counted:
+        k.launches = 0  # the warm run's launches were before ready
+    reply = _client(port, payload)
+    th.join(timeout=120)
+    assert not th.is_alive() and not errors, errors
+    launched = {k.__name__: k.launches for k in counted if k.launches}
+    want = direct(cuda)
+    if isinstance(want, bytes):
+        assert reply == want
+    else:
+        lines = reply.decode().strip().splitlines()
+        if mode in ("stream-search", "waterfall-search", "scan"):
+            assert lines[-1].startswith(f"# {kw.get('mode', 'stream')}: ")
+            lines = lines[:-1]
+        assert lines == want
+    kernel = {"stream": "frontend_fir", "stream-search": "frontend_fir", "waterfall": "waterfall_norms",
+              "waterfall-search": "waterfall_search", "scan": "waterfall_scan"}.get(mode)
+    assert set(launched) == ({kernel} if kernel else set())
+    if mode.startswith("stream"):
+        assert launched[kernel] == -(-(600_000 - 400) // (1 << 18))  # one a chunk (256k-sample chunks)
+
+
+@pytest.mark.parametrize("mode", ["stream", "waterfall"])
+def test_serve_parallel_sessions_match_sequential(cuda, mode, monkeypatch):
+    """-parallel 4 on the card: eight concurrent ``-search`` sessions, half
+    trickling, each on its own CUDA stream over the one model; every reply
+    equals the sequential daemon's byte for byte but for the trailer's
+    time, the launches are the sequential ones, and the model's lazily made
+    tables (the decode table, the DFT tables) are made once, before the
+    daemon listens."""
+    from quadrs_tpu_torch.ops import waterfall as wf
+
+    made = []
+    for mod, name in ((fe, "decode_tensor"), (wf, "waterfall_tables")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _real=real, _name=name, **k: made.append(_name) or _real(*a, **k))
+    rng = np.random.default_rng(7)
+    payloads = [rng.integers(-60, 61, 2 * (400_000 + 10_007 * i)).astype(np.int8).tobytes() for i in range(8)]
+    kw = dict(search=True, once=False) if mode == "stream" else dict(
+        search=True, once=False, mode="waterfall", fft_width=1024, stride=256, chunk=500)
+    kernel = fe.frontend_fir if mode == "stream" else wf.waterfall_search
+    replies, launches = {}, {}
+    for parallel in (1, 4):
+        made.clear()
+        th, port, errors = _start_daemon(_serve_cmd(parallel=parallel, timeout=30.0, **kw), cuda, max_connections=8)
+        assert made == (["decode_tensor"] if mode == "stream" else ["waterfall_tables"])
+        kernel.launches = 0
+        out: list[bytes | None] = [None] * 8
+        if parallel == 1:
+            for i in range(8):
+                out[i] = _client(port, payloads[i])
+        else:
+            import threading
+
+            clients = [threading.Thread(target=lambda i=i: out.__setitem__(i, _client(port, payloads[i], 6 if i % 2 else 1)))
+                       for i in range(8)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=300)
+                assert not c.is_alive()
+        th.join(timeout=120)
+        assert not th.is_alive() and not errors, errors
+        assert len(made) == 1  # no session made a table
+        replies[parallel] = [r.decode().strip().splitlines() for r in out]
+        launches[parallel] = kernel.launches
+    assert launches[4] == launches[1] > 8
+    for i, (seq, par) in enumerate(zip(replies[1], replies[4])):
+        bad = [j for j, (a, b) in enumerate(zip(seq, par)) if a != b]
+        assert par[:-1] == seq[:-1] and len(seq) > 100, (i, len(bad), bad[:3], [(seq[j], par[j]) for j in bad[:3]])
+        assert par[-1].split(", ")[:2] == seq[-1].split(", ")[:2]  # samples and windows; the time differs
+
+
+def test_serve_sequential_sessions_reuse_memory(cuda):
+    """Twelve ``stream -search`` sessions one after another on one daemon,
+    in small chunks, so each session's ring and temporaries take blocks the
+    sessions before freed: every reply equals the runner's run on the card
+    over the same bytes."""
+    from quadrs_tpu_torch.sources import SampleSource
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+
+    rng = np.random.default_rng(11)
+    payloads = [rng.integers(-60, 61, 2 * (300_000 + 7_919 * i)).astype(np.int8).tobytes() for i in range(12)]
+    cfg = PipelineConfig(sample_rate=21_000_000, shift_freq=280_000, lp_freq=200_000, decimate=32, taps=400,
+                         fft_width=64, fmt=FileFormat.COMPLEX_INT8)
+    th, port, errors = _start_daemon(_serve_cmd(search=True, once=False, chunk=1 << 16), cuda, max_connections=12)
+    replies = [_client(port, p).decode().strip().splitlines() for p in payloads]
+    th.join(timeout=120)
+    assert not th.is_alive() and not errors, errors
+    for i, (payload, reply) in enumerate(zip(payloads, replies)):
+        runner = StreamRunner(SampleSource(np.frombuffer(payload, np.uint8), FileFormat.COMPLEX_INT8, 21_000_000),
+                              PipelineModel(cfg), cuda, chunk_samples=1 << 16)
+        rows = ["window,bin,mag"]
+        runner.run_search(lambda w0, o: rows.extend(f"{w0 + j},{int(o[0][j])},{float(o[1][j]):.9g}"
+                                                    for j in range(len(o[0]))))
+        assert reply[-1].startswith("# stream: ") and reply[:-1] == rows, i
