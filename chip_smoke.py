@@ -106,6 +106,20 @@ the run.  Phases:
    run, then the eight sent at once (the aggregate Msps of the eight against
    the sequential eight), and
    ``python -m quadrs_tpu_torch serve -once yes`` in a process of its own;
+   then ``-mesh`` (``phase_mesh_path``): the stream at the bench config over
+   the capture's first 2^24 samples on meshes 1x1, 2x1 and 4x1 that repeat
+   ``cuda:0`` (``run``, ``run_search``, ``run_scan``; walls, Msps and a
+   profiled run's device share beside the single-device run's), ``stream
+   -mesh 1x1`` through the CLI and from ``replay``'s pipe, the bank (8 of
+   the bank's captures, strides 1024 and 256) on a 2x2 mesh, ``find`` and
+   ``channelize -channels 64`` on a 2x1 mesh, each against the
+   single-device run on the card (stream norms within ``1e-5`` of scale,
+   waterfall norms ``2e-5``, peak bins and survey counts equal but at
+   counted near-ties, ``find`` offsets equal and scores within ``2e-4``,
+   channels within ``2e-6`` of scale), every kernel's launches counted
+   from 0 over each run and the current device unchanged after it; with
+   two or more cards the stream and the bank also run over distinct
+   cards;
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
@@ -1179,7 +1193,7 @@ def find_breakdown(card: str, cap: str, template: str) -> dict[str, float]:
         out = post(src.read_batch({"buf": buf, "device": DEVICE}, prep, c), left)
         torch.cuda.synchronize()
         d1 = time.perf_counter()
-        res = Download(out, DEVICE).wait()
+        res = Download(out).wait()
         e = time.perf_counter()
         scan.feed_extract(lo, len(offs) * n_out, res)
         t["staging"] += b - a
@@ -2044,9 +2058,9 @@ def phase_channelize_timing(card: str, cap: str, tmp: str) -> None:
         "branch FIR": time_ms(lambda: chops.branch_sums(x, chan.taps, CH_K, CH_CHUNK), iters=5),
         "DFT": time_ms(lambda: torch.fft.fft(b, dim=-1), iters=5),
         "phase": time_ms(lambda: y * phase, iters=5),
-        "back": time_ms(lambda: Download(channels_first(out), DEVICE).wait(), iters=5),
+        "back": time_ms(lambda: Download(channels_first(out)).wait(), iters=5),
     }
-    rows = Download(channels_first(out), DEVICE).wait()
+    rows = Download(channels_first(out)).wait()
     walls = []
     for k in range(3):
         t0 = time.perf_counter()
@@ -2755,6 +2769,272 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
     return {n: v for n, v in total.items() if v}
 
 
+MESH_SAMPLES = 1 << 24  # phase 4's mesh runs: the stream over the main capture's first 2^24 samples
+MESH_BANK = 8  # ... and the bank over the first 8 captures of the bank phase (2^21 samples each)
+MESH_TOL = 1e-5  # a mesh run against the single-device run: stream norms, of scale
+
+
+def _near_ties(norms: np.ndarray, tol: float) -> np.ndarray:
+    """Windows whose top two norms lie within ``tol``: a peak bin there may
+    flip with the last bits of the norms."""
+    top2 = np.sort(norms, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0] <= tol
+
+
+def _zero_launches() -> None:
+    from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops import waterfall as wf
+
+    for k in (fe.frontend_fir, fe.frontend_fir_stft, wf.waterfall_norms, wf.waterfall_search, wf.waterfall_scan):
+        k.launches = 0
+
+
+def _launched() -> dict[str, int]:
+    return {k: v for k, v in all_launches().items() if v and k != "frontend_banded"}
+
+
+def _profiled_call(fn) -> tuple[float, float]:
+    """(wall s, device busy s) of ``fn()`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_stream import device_busy
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, device_busy(prof)[0] / 1e3
+
+
+def _collect(run, **kw):
+    """A runner run's outputs, joined along the window axis, its stats and wall."""
+    parts = []
+    t0 = time.perf_counter()
+    stats = run(lambda w0, out: parts.append(out), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if parts and isinstance(parts[0], tuple):
+        return tuple(np.concatenate(p, axis=-1) for p in zip(*parts)), stats, wall
+    return np.concatenate(parts, axis=-2), stats, wall
+
+
+def _check_peaks(name: str, idx: np.ndarray, want_idx: np.ndarray, norms: np.ndarray, tol: float) -> int:
+    """Peak bins of a mesh run against the single-device run's: every
+    differing bin must sit on a near-tie of the single run's norms."""
+    diff = idx != want_idx
+    ties = _near_ties(norms, tol)
+    print(f"    {name}: {int(diff.sum())} of {diff.size} peak bins differ, all inside near-ties: "
+          f"{bool((~diff | ties).all())} ({int(ties.sum())} near-ties)")
+    if (diff & ~ties).any():
+        raise AssertionError(f"{name}: peak bins differ outside near-ties")
+    return int(diff.sum())
+
+
+def _check_counts(name: str, above: np.ndarray, want: np.ndarray, norms: np.ndarray, thr: float, tol: float) -> None:
+    """Survey counts against the single run's: equal but for norms within
+    ``tol`` of the threshold."""
+    near = (np.abs(norms - np.float32(thr)) <= tol).sum(axis=-2)
+    off = np.abs(above - want)
+    print(f"    {name}: counts differ in {int((off > 0).sum())} bins, each by at most its near-threshold norms: "
+          f"{bool((off <= near).all())}")
+    if (off > near).any():
+        raise AssertionError(f"{name}: survey counts differ outside the threshold's noise band")
+
+
+def phase_mesh_path(card: str, cap: str, tmp: str, band: str) -> dict[str, int]:
+    """Phase 4, ``-mesh``: the stream and the bank over meshes that repeat
+    the first card (a one-card machine stands for a mesh so), ``find`` and
+    ``channelize`` on a 2x1 mesh, each held to the single-device run on the
+    card, each kernel's launches counted from 0 over every mesh run; with
+    two or more cards, the stream and the bank over distinct cards too.
+    The current device must be what it was after every run.  Returns the
+    kernels' launches over the mesh runs."""
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch import args as targs
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.models.channelizer import Channelize, run_channelize
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream_runner import StreamRunner, WaterfallRunner
+
+    os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
+    t_phase = time.perf_counter()
+    current = torch.cuda.current_device()
+    card0 = torch.device("cuda", 0) if DEVICE.type == "cuda" else DEVICE  # the CPU in a rehearsal
+    launches: dict[str, int] = {}
+
+    def mesh_run(name: str, fn):
+        """``fn()`` with every count set to 0 just before and read just
+        after; the current device unchanged."""
+        _zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _launched()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if torch.cuda.current_device() != current:
+            raise AssertionError(f"{name} left device {torch.cuda.current_device()} current, not {current}")
+        return out, got
+
+    # -- the stream: the bench config over 2^24 samples ---------------------
+    stream_cap = os.path.join(tmp, "mesh.sr21M.cs8")
+    with open(cap, "rb") as f, open(stream_cap, "wb") as g:
+        g.write(f.read(MESH_SAMPLES * 2))
+    cfg = bench_cfg(FileFormat.COMPLEX_INT8)
+    model = PipelineModel(cfg)
+    single = StreamRunner(open_capture(stream_cap), model, DEVICE, chunk_samples=CHUNK)
+    single.run()  # a warm run: the ring's page-locked slots made, each kernel loaded
+    norms, st, wall = _collect(single.run)
+    (idx, _), _, wall_s = _collect(single.run_search)
+    thr = float(np.median(norms))
+    scan = single.run_scan(thr)
+    scale = float(norms.max())
+    busy = _profiled_call(lambda: single.run())
+    print(f"  stream, single device: {norms.shape[0]} windows, {wall:.3f}s ({MESH_SAMPLES / wall / 1e6:.1f} Msps), "
+          f"-search {wall_s:.3f}s; profiled {busy[0]:.3f}s, device busy {100 * busy[1] / busy[0]:.1f}% ({card})")
+    meshes = [("1x1", [card0]), ("2x1", [card0] * 2), ("4x1", [card0] * 4)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("2x1 distinct", [torch.device("cuda", 0), torch.device("cuda", 1)]))
+    for name, devices in meshes:
+        mesh = make_mesh(len(devices), 1, devices=devices)
+        runner = StreamRunner(open_capture(stream_cap), model, DEVICE, chunk_samples=CHUNK, mesh=mesh)
+        t0 = time.perf_counter()
+        _, warm = mesh_run(f"stream {name} (warm run)", runner.run)
+        cold = time.perf_counter() - t0
+        (got, stats, mwall), counts = mesh_run(f"stream {name}", lambda: _collect(runner.run))
+        counts = {k: counts.get(k, 0) + warm.get(k, 0) for k in {**counts, **warm}}
+        err = float(np.abs(got - norms).max()) if got.shape == norms.shape else float("inf")
+        ((gidx, _), _, swall), _ = mesh_run(f"stream {name} -search", lambda: _collect(runner.run_search))
+        gscan, _ = mesh_run(f"stream {name} -scan", lambda: runner.run_scan(thr))
+        pwall, pbusy = _profiled_call(lambda: mesh_run(f"stream {name} profiled", runner.run))
+        print(f"  stream -mesh {name} ({runner.chunk_samples}-sample chunks): the first run {cold:.3f}s, then {mwall:.3f}s "
+              f"({MESH_SAMPLES / mwall / 1e6:.1f} Msps; {mwall / wall:.2f}x the single-device wall), -search "
+              f"{swall:.3f}s; profiled {pwall:.3f}s, device busy {100 * pbusy / pwall:.1f}%; launches {counts}; "
+              f"norms max_abs_err {err:.3e} of scale {scale:.4g} ({card})")
+        if err > MESH_TOL * scale or stats.windows_out != st.windows_out or not counts.get("frontend_fir"):
+            raise AssertionError(f"stream -mesh {name}: norms off by {err} or {stats.windows_out} windows or no launch")
+        _check_peaks(f"stream -mesh {name} -search", gidx, idx, norms, MESH_TOL * scale)
+        sum_err = float(np.abs(gscan.sum_norms - scan.sum_norms).max())
+        print(f"    stream -mesh {name} -scan: {gscan.windows} windows, sums max |diff| {sum_err:.4g} "
+              f"(bound {gscan.windows * MESH_TOL * scale:.4g})")
+        if gscan.windows != scan.windows or sum_err > gscan.windows * MESH_TOL * scale:
+            raise AssertionError(f"stream -mesh {name} -scan: the survey disagrees")
+        _check_counts(f"stream -mesh {name} -scan", gscan.above[0], scan.above[0], norms, thr, MESH_TOL * scale)
+    if torch.cuda.device_count() < 2:
+        print(f"  the distinct-card runs: skipped, this machine has {torch.cuda.device_count()} card "
+              "(the meshes above repeat cuda:0)")
+
+    # through the CLI: stream -mesh 1x1 from the file, and from replay's pipe
+    prefix = os.path.join(tmp, "mesh")
+    argv = ["stream", "-shift", "280k", "-chunk", str(CHUNK), "-mesh", "1x1"]
+    mesh_run("stream -mesh 1x1 (CLI)", lambda: run_cli([*argv, "-out", prefix, stream_cap]))
+    cli = np.fromfile(f"{prefix}.norms.f32", dtype=np.float32).reshape(-1, cfg.fft_width)
+    err = float(np.abs(cli - norms).max()) if cli.shape == norms.shape else float("inf")
+    print(f"    stream -mesh 1x1 (CLI) norms max_abs_err {err:.3e} against the single-device runner ({card})")
+    if err > MESH_TOL * scale:
+        raise AssertionError("stream -mesh 1x1 through the CLI disagrees")
+    mesh_run("replay | stream -stdin -mesh 1x1", lambda: piped(
+        [*argv, "-stdin", "yes", "-sr", "21M", "-format", "cs8", "-out", prefix + "pipe"], stream_cap))
+    if np.fromfile(f"{prefix}pipe.norms.f32", dtype=np.float32).tobytes() != cli.tobytes():
+        raise AssertionError("replay | stream -stdin -mesh 1x1: norms differ from the file run's")
+    print("    replay | stream -stdin yes -mesh 1x1: norms byte for byte the file run's")
+
+    # -- the bank: 8 captures of 2^21 cs8 samples on a 2x2 mesh ---------------
+    files = write_bank(tmp, MESH_BANK, BANK_SAMPLES)
+    for stride in (1024, 256):
+        bank = WaterfallModel(WaterfallConfig(n_streams=MESH_BANK, fft_width=1024, stride=stride))
+        one = WaterfallRunner([open_capture(p) for p in files], bank, DEVICE, chunk_windows=BANK_CHUNK)
+        one.run()  # a warm run
+        want, _, wall = _collect(one.run)
+        (widx, _), _, _ = _collect(one.run_search)
+        wthr = 20.0
+        wscan = one.run_scan(wthr)
+        wscale = float(want.max())
+        bank_meshes = [("2x2", [card0] * 4)]
+        if torch.cuda.device_count() >= 2:
+            bank_meshes.append(("2x2 distinct", [torch.device("cuda", i % 2) for i in range(4)]))
+        for name, devices in bank_meshes:
+            runner = WaterfallRunner([open_capture(p) for p in files], bank, DEVICE, chunk_windows=BANK_CHUNK,
+                                     mesh=make_mesh(2, 2, devices=devices))
+            _, warm = mesh_run(f"waterfall {name} (warm run)", runner.run)
+            (got, _, mwall), counts = mesh_run(f"waterfall {name}", lambda: _collect(runner.run))
+            counts = {k: counts.get(k, 0) + warm.get(k, 0) for k in {**counts, **warm}}
+            ((gidx, _), _, _), c2 = mesh_run(f"waterfall {name} -search", lambda: _collect(runner.run_search))
+            gscan, c3 = mesh_run(f"scan {name}", lambda: runner.run_scan(wthr))
+            err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+            print(f"  waterfall -stride {stride} -mesh {name} over {MESH_BANK} captures: {mwall:.3f}s (single device "
+                  f"{wall:.3f}s); norms max_abs_err {err:.3e} of scale {wscale:.4g}; launches {counts}, -search {c2}, "
+                  f"scan {c3} ({card})")
+            if err > WF_RTOL * wscale or not counts.get("waterfall_norms") or not c2.get("waterfall_search"):
+                raise AssertionError(f"waterfall -mesh {name}: norms off by {err} or a kernel not launched")
+            _check_peaks(f"waterfall -stride {stride} -mesh {name} -search", gidx, widx, want, WF_RTOL * wscale)
+            sum_err = float(np.abs(gscan.sum_norms - wscan.sum_norms).max())
+            print(f"    scan -stride {stride} -mesh {name}: {gscan.windows} windows, sums max |diff| {sum_err:.4g} "
+                  f"(bound {gscan.windows * WF_RTOL * wscale:.4g})")
+            if gscan.windows != wscan.windows or sum_err > gscan.windows * WF_RTOL * wscale:
+                raise AssertionError(f"scan -mesh {name}: the survey disagrees")
+            _check_counts(f"scan -stride {stride} -mesh {name}", gscan.above, wscan.above, want, wthr, WF_RTOL * wscale)
+        del want
+
+    # -- find and channelize on a 2x1 mesh of the repeated card ----------------
+    find_cap, template = os.path.join(tmp, "find.sr21M.cs8"), os.path.join(tmp, "t.sr21M.cs8")
+    code = np.fromfile(template, dtype=np.int8).reshape(-1, 2).astype(np.float32) / np.float32(127.0)
+    pattern = (code[:, 0] + 1j * code[:, 1]).astype(np.complex64)
+    t0 = time.perf_counter()
+    want = sinks.find_pattern(open_capture(find_cap), pattern, device=DEVICE)
+    fwall = time.perf_counter() - t0
+    mesh2 = make_mesh(2, 1, devices=[card0] * 2)
+    mesh_run("find -mesh 2 (warm run)", lambda: sinks.find_pattern(open_capture(find_cap), pattern, mesh=mesh2,
+                                                                   device=DEVICE))
+    t0 = time.perf_counter()
+    got, _ = mesh_run("find -mesh 2", lambda: sinks.find_pattern(open_capture(find_cap), pattern, mesh=mesh2,
+                                                                 device=DEVICE))
+    mwall = time.perf_counter() - t0
+    score_err = float(np.abs(got.scores - want.scores).max()) if len(got.scores) == len(want.scores) else float("inf")
+    print(f"  find -mesh 2 over {CAPTURE_SAMPLES} samples: {len(got.offsets)} matches, {mwall:.3f}s (single device "
+          f"{fwall:.3f}s); offsets equal: {np.array_equal(got.offsets, want.offsets)}, scores max |diff| "
+          f"{score_err:.3g} (bound 2e-4) ({card})")
+    if not (np.array_equal(got.offsets, want.offsets) and np.array_equal(got.which, want.which)
+            and score_err <= 2e-4 and len(got.offsets) > 0):
+        raise AssertionError("find -mesh 2 disagrees with the single-device run")
+
+    # every shard pulls a whole -chunk here, so the per-read truncation at
+    # each pull's end falls where the single-device run's does
+    (cmd,) = targs.parse(["channelize", "-channels", str(CH_K), "-power", str(CH_POWER), "-chunk", str(CH_CHUNK), band])
+
+    def channels(mesh):
+        src = open_capture(band)
+        return run_channelize(Channelize(src, cmd.channels, frequency=cmd.frequency, size=cmd.size), device=DEVICE,
+                              chunk=cmd.chunk, mesh=mesh)
+
+    mesh_run("channelize -mesh 2 (warm run)", lambda: list(run_channelize(
+        Channelize(open_capture(band), cmd.channels, frequency=cmd.frequency, size=cmd.size), device=DEVICE,
+        chunk=cmd.chunk, max_out=2 * cmd.chunk, mesh=mesh2)))
+    t0 = time.perf_counter()
+    pieces, _ = mesh_run("channelize -mesh 2", lambda: list(channels(mesh2)))
+    mwall = time.perf_counter() - t0
+    got = np.concatenate([p.data for p in pieces], axis=1)
+    del pieces
+    t0, at, err, scale = time.perf_counter(), 0, 0.0, 0.0
+    for piece in channels(None):
+        w = piece.data
+        err = max(err, float(np.abs(got[:, at : at + w.shape[1]] - w).max()))
+        scale = max(scale, float(np.abs(w).max()))
+        at += w.shape[1]
+    cwall = time.perf_counter() - t0
+    print(f"  channelize -channels {CH_K} -mesh 2: {got.shape[1]} samples a channel, {mwall:.3f}s (single device "
+          f"{cwall:.3f}s); channels max |diff| {err:.3g} of scale {scale:.4g} (bound 2e-6 of it) ({card})")
+    if at != got.shape[1] or err > 2e-6 * scale:
+        raise AssertionError("channelize -mesh 2 disagrees with the single-device run")
+    del got
+    print(f"  the mesh runs: {time.perf_counter() - t_phase:.1f}s of phase 4; kernel launches {launches}; "
+          f"current device {torch.cuda.current_device()} throughout")
+    return launches
+
+
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM: peak HBM3 rate
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 
@@ -3182,8 +3462,10 @@ def main() -> int:
         print(f"  the daemon: {time.perf_counter() - t0:.1f}s of phase 4; its sessions' launches {daemon_launches}")
         for name, count in daemon_launches.items():
             launches[name] += count
-        print(f"  launches over the main paths (the stream runs, the live runs, the bank runs and the daemon's "
-              f"sessions): {launches}")
+        for name, count in phase_mesh_path(card, cap, tmp, new_caps["band"]).items():
+            launches[name] += count
+        print(f"  launches over the main paths (the stream runs, the live runs, the bank runs, the daemon's "
+              f"sessions and the mesh runs): {launches}")
         # no path of the JAX package runs the v1 function, so no main path of
         # the port may: it is held to its plain version in phases 3 and 5
         launches["frontend_banded"] = fe.frontend_banded.launches

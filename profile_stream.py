@@ -21,6 +21,10 @@ the same 2^26-sample cs8 capture as ``chip_smoke.py`` (21 Msps, D 32,
 4. the same warm runs and profile for the live path: the capture through
    ``replay -speed 0`` in another process, read by a ``PipeSource``.
 
+``python3 profile_stream.py mesh`` profiles the mesh runs alone
+(:func:`profile_mesh`): the stream on a 4x1 mesh and the bank on a 2x2
+mesh of the repeated card, each beside its single-device run.
+
 Stage 2 runs the runner's own staging generator and ring one stage at a
 time, so its total is longer than a run's wall time; it says what each
 stage costs, not how they overlap.  Stage 3 says how they overlap.
@@ -74,7 +78,7 @@ def stage_breakdown(ring, staged, step, sink, dev) -> dict[str, float]:
             ring.consumed(k)
             torch.cuda.synchronize(dev)
             d = time.perf_counter()
-            host = Download(out, dev).wait()
+            host = Download(out).wait()
             e = time.perf_counter()
             sink(w0, host)
             ring.recycle(k)
@@ -237,7 +241,7 @@ def profile_chain(card: str, path: str) -> None:
         norms = stft_norms(stream.read_batch(ctx, prep, width))
         torch.cuda.synchronize()
         d = time.perf_counter()
-        rows = Download(norms, cs.DEVICE).wait()
+        rows = Download(norms).wait()
         e = time.perf_counter()
         print(sinks.glyph_lines(rows, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX), file=out)
         t["staging"] += b - a
@@ -332,10 +336,71 @@ def profile_pipe(card: str, path: str, cfg, sink) -> None:
           f"copies and kernels at once {both:.2f} ms ({card})")
 
 
+def profile_mesh(card: str) -> None:
+    """The mesh runs of ``chip_smoke.py``'s phase 4 against their
+    single-device runs, warm: the stream (2^24 samples, 4M-sample chunks)
+    on a 4x1 mesh of the repeated card, the bank (8 captures of 2^21, 2000
+    windows a chunk) at strides 1024 and 256 on a 2x2 mesh; each run's
+    wall, the device's busy time under ``torch.profiler``, and the host
+    functions that took the most of the run under ``cProfile`` (its own
+    time, callees excluded)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream_runner import StreamRunner, WaterfallRunner
+
+    card0 = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.sr21M.cs8")
+        cs.write_capture(path, cs.MESH_SAMPLES)
+        files = cs.write_bank(tmp, cs.MESH_BANK, cs.BANK_SAMPLES)
+        model = PipelineModel(cs.bench_cfg(FileFormat.COMPLEX_INT8))
+        runs = {}
+        for name, mesh in (("single", None), ("4x1", make_mesh(4, 1, devices=[card0] * 4))):
+            runs[f"stream {name}"] = StreamRunner(open_capture(path), model, cs.DEVICE, chunk_samples=cs.CHUNK, mesh=mesh)
+        for stride in (1024, 256):
+            bank = WaterfallModel(WaterfallConfig(n_streams=cs.MESH_BANK, fft_width=1024, stride=stride))
+            for name, mesh in (("single", None), ("2x2", make_mesh(2, 2, devices=[card0] * 4))):
+                runs[f"bank -stride {stride} {name}"] = WaterfallRunner(
+                    [open_capture(f) for f in files], bank, cs.DEVICE, chunk_windows=cs.BANK_CHUNK, mesh=mesh)
+        for name, runner in runs.items():
+            rows = []
+            runner.run(lambda w0, out: rows.append(out))  # warm-up: rings, tables, kernels
+            walls = []
+            for _ in range(3):
+                rows.clear()
+                t0 = time.perf_counter()
+                runner.run(lambda w0, out: rows.append(out))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                runner.run(lambda w0, out: rows.append(out))
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = device_busy(prof)[0]
+            host = cProfile.Profile()
+            host.runcall(runner.run, lambda w0, out: rows.append(out))
+            top = pstats.Stats(host).sort_stats("tottime")
+            funcs = sorted(top.stats.items(), key=lambda kv: -kv[1][2])[:6]
+            print(f"{name}: warm walls {', '.join(f'{w:.2f}' for w in walls)} ms; profiled {wall:.2f} ms, device busy "
+                  f"{busy:.2f} ms ({100 * busy / wall:.1f}%) ({card})")
+            for (file, line, fn), (_, calls, tottime, *_rest) in funcs:
+                print(f"  {tottime * 1e3:9.2f} ms  {calls:6d}x  {os.path.basename(file)}:{line} {fn}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_stream: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["mesh"]:
+        profile_mesh(cs.card_line())
+        return 0
     from torch.profiler import ProfilerActivity, profile
 
     from quadrs_tpu_torch.formats import FileFormat

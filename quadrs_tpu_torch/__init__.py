@@ -36,6 +36,11 @@ input comes from a pipe (``-stdin yes``: :class:`.sources.PipeSource`),
 ``stream -trigger`` records bursts, ``info`` prints capture statistics
 and ``replay`` turns a recorded capture into a live pipe.
 
+A device mesh (``-mesh TxS``, :mod:`.parallel.sharding`) shards ``stream``,
+``waterfall``, ``scan``, ``find`` and ``channelize`` over a ``(stream,
+time)`` grid of devices: each shard is staged with its halo and runs the
+single-device program on its device.
+
 Every kernel has a plain PyTorch version, which CPU tensors take.  The
 package imports ``torch`` and numpy, and never ``jax`` or
 ``quadrs_tpu``; the JAX package is the reference the tests hold it to.

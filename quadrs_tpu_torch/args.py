@@ -11,8 +11,9 @@ arguments.
     scan ...  info FILE...  replay FILE  ook ...  fsk ...  psk ...  fm ...
     am ...  ssb ...  channelize ...  ui ...  eui ...  serve ...
 
-``-mesh`` parses as in the JAX package; running it raises naming ROADMAP
-A13.
+``-mesh`` parses as in the JAX package; ``stream``, ``waterfall``,
+``scan``, ``find`` and ``channelize`` run it, the receivers and ``serve``
+raise naming ROADMAP A13.
 
 Parsing rules preserved from ``read_just_args`` (``src/args.rs:404-445``):
 flags are collected until the first non-flag token; a ``-``-prefixed
@@ -281,7 +282,7 @@ class ChannelizeCmd(Command):
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh T: time-shard the capture over the device mesh
 
 
 @dataclass

@@ -106,7 +106,8 @@ channelize [-channels 8] [-power 20] [-freq =sr/2K] [-chunk 256k] [-select 0,3,.
          [-stdin no] [-mesh T] FILENAME [polyphase filter bank: every channel in \\
           one pass; channel k = shift -k*sr/K + lowpass -decimate K]
 
-(-mesh parses as in quadjax but is not yet ported, ROADMAP A13.)
+(-mesh runs for stream, waterfall, scan, find and channelize; the receivers' and serve's
+-mesh parse as in quadjax but are not yet ported, ROADMAP A13.)
 
 Formats:
 

@@ -112,6 +112,7 @@
 #include <stdint.h>
 
 #include "decode.cuh"
+#include "device.cuh"
 #include "fft.cuh"
 
 namespace {
@@ -566,9 +567,8 @@ int launch(int device, const void* re, const void* im, long long n_ok, const flo
            const float* tab_sin, const float* h, const float* dtab, int d, int m_sub, int tout, int bout, int nch,
            int threads, long long n_out, float* out_re, float* out_im, const float* tw_cos, const float* tw_sin, int width,
            float* norms, void* stream) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const qt::DeviceScope scope(device);
+  cudaError_t err = scope.status();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int workers = 2 * (bout / kR) * nch;
   const int m_pad = (m_sub + kMC - 1) / kMC * kMC;

@@ -94,6 +94,7 @@
 #include <stdint.h>
 
 #include "decode.cuh"
+#include "device.cuh"
 #include "fft.cuh"
 
 namespace {
@@ -565,7 +566,8 @@ int launch(int device, const void* planes, long long stride_s, long long stride_
            long long n_windows, long long hop, int width, int tiles_per_block, int groups, const float* tables,
            const float* dtab, const float* window, float threshold, float* out_f, int* out_i, float* scan_out,
            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const qt::DeviceScope scope(device);
+  cudaError_t err = scope.status();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int wt = tile_of(width);
   const int threads = (wt * (width / kPoints) + 31) / 32 * 32;

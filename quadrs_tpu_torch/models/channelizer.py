@@ -90,18 +90,62 @@ def run_channelize(
     chunk: int = 1 << 18,
     max_out: int | None = None,
     progress: Callable[[int], None] | None = None,
+    mesh=None,
 ) -> Iterator[ChannelChunk]:
     """Stream the whole capture through the bank in executor chunks.
 
     Pull boundaries fall every ``chunk`` output samples, so edge truncation
     matches a reference chain pulled at the same size (only the capture
     tail differs from a single-shot run, as LowPass's per-read truncation
-    does).  Each batch is computed while the one before it is consumed."""
+    does).  Each batch is computed while the one before it is consumed.
+
+    ``mesh``: an optional Tx1 mesh
+    (:func:`quadrs_tpu_torch.parallel.sharding.make_mesh`).  The capture's
+    sample axis time-shards over it, each shard staged with its
+    ``size``-sample FIR halo
+    (:func:`~quadrs_tpu_torch.parallel.sharding.make_sharded_channelize_step`);
+    the bank must sit directly on a raw capture, and the unaligned tail of
+    the capture runs single-device on ``device``.  The per-shard slice is
+    the "read" of the per-read truncation above, so when every shard pulls
+    a full ``chunk`` the output is the single-device run's at the same
+    ``chunk``; on a short capture the shard pull shrinks to fit."""
     total = chan.length if max_out is None else min(chan.length, max_out)
     if total <= 0:
         return
     done = 0
-    offsets = np.arange(0, total, chunk, dtype=np.int64)
+    lag0 = 0
+    if mesh is not None:
+        from quadrs_tpu_torch.parallel.sharding import gather, make_sharded_channelize_step, shard_span
+
+        src = chan.inner
+        if src.root() is not src or not getattr(src, "has_staging", False):
+            raise ValueError(
+                "channelize -mesh shards a raw capture's sample axis; drop the intermediate stages or drop -mesh"
+            )
+        k, size = chan.channels, chan.size
+        n_time = int(mesh.shape["time"])
+        # per-shard outputs a dispatch: the executor chunk, cut so that a
+        # short capture still runs on the mesh (a shard's slice must cover
+        # the size-sample halo)
+        avail = (src.length - size) // (n_time * k)
+        per_shard = max(-(-size // k), min(chunk, avail))
+        step_out = n_time * per_shard
+        step = make_sharded_channelize_step(chan.taps, k, src.format, mesh)
+        o = 0
+        while o + step_out <= total and (o + step_out) * k + size <= src.length:
+            outs = step(shard_span(src.stage(o * k, (o + step_out) * k + size), mesh, size))
+            # each shard's (n, K) block channels-first on its device: the
+            # channels come back as rows, joined shard after shard
+            data = gather([[channels_first(y[None])[0] for y in row] for row in outs], axis=1)
+            yield ChannelChunk(start=o, data=data)
+            done += step_out
+            if progress is not None:
+                progress(done)
+            o += step_out
+        lag0 = o
+    if lag0 >= total:
+        return
+    offsets = np.arange(lag0, total, chunk, dtype=np.int64)
     batch, batches = window_batches(offsets, chunk, root_step=root_step_of(chan))
     ex = Executor(chan, chunk, device, batch=batch, post=channels_first)
     for offs, out, valid in ex.run_each(batches):  # out: (b, K, chunk)

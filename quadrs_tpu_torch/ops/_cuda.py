@@ -27,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SOURCES = (_PKG / "csrc" / "frontend.cu", _PKG / "csrc" / "waterfall.cu")
-_HEADERS = (_PKG / "csrc" / "decode.cuh", _PKG / "csrc" / "fft.cuh")
+_HEADERS = (_PKG / "csrc" / "decode.cuh", _PKG / "csrc" / "device.cuh", _PKG / "csrc" / "fft.cuh")
 BUILD_DIR = _PKG.parent / "build" / "quadrs_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

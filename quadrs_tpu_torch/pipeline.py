@@ -198,6 +198,8 @@ def _find(op: FindOp, stream: Stream, emit: Callable[[str], None], device) -> No
         if valid != psrc.length:
             raise RuntimeError("short read loading the pattern capture")
         pats.append(pat)
+    from quadrs_tpu_torch.parallel.sharding import mesh_of
+
     res = sinks.find_pattern(
         stream,
         pats if len(pats) > 1 else pats[0],
@@ -206,7 +208,7 @@ def _find(op: FindOp, stream: Stream, emit: Callable[[str], None], device) -> No
         min_distance=op.distance,
         freq_tol=op.freq_tol,
         freq_step=op.freq_step,
-        mesh=op.mesh,
+        mesh=mesh_of(op.mesh),
         device=device,
     )
     bank = len(pats) > 1

@@ -154,7 +154,7 @@ class Executor:
         elif self.post is not None:
             out = self.post(out)
         # back through page-locked memory on a CUDA device
-        return Download(out, self.device), plan.valid
+        return Download(out), plan.valid
 
     def run(self, offs: np.ndarray, aux=None) -> tuple[Any, np.ndarray]:
         """Execute one batch of window offsets.

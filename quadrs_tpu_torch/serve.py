@@ -34,12 +34,14 @@ import numpy as np
 import torch
 
 from quadrs_tpu_torch import args as argmod
+from quadrs_tpu_torch.parallel.sharding import mesh_of
 from quadrs_tpu_torch.sources import PipeSource, RawRing, SampleSource, open_capture
 from quadrs_tpu_torch.stream_runner import BurstGate, RunStats, burst_spans
 from quadrs_tpu_torch.utils.sniff import guess_details
 
 def _refuse_mesh(name: str, cmd) -> None:
-    """``-mesh`` parses but is not ported yet (ROADMAP A13)."""
+    """The receivers' and the daemon's ``-mesh`` parses but is not ported
+    yet (ROADMAP A13)."""
     if cmd.mesh is not None:
         raise NotImplementedError(f"{name} -mesh (multi-GPU sharding, ROADMAP A13) is not yet ported to quadrs_tpu_torch")
 
@@ -108,7 +110,6 @@ def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
     from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
     from quadrs_tpu_torch.stream_runner import StreamRunner
 
-    _refuse_mesh("stream", cmd)
     # live pipe input: rtl_sdr - | python -m quadrs_tpu_torch stream -stdin yes ...
     if cmd.stdin:
         src = _stdin_pipe_source(cmd)
@@ -123,7 +124,7 @@ def run_stream(cmd: argmod.StreamCmd, device: torch.device) -> int:
         fft_width=cmd.fft_width,
         fmt=src.format,
     )
-    runner = StreamRunner(src, PipelineModel(cfg), device, chunk_samples=cmd.chunk)
+    runner = StreamRunner(src, PipelineModel(cfg), device, chunk_samples=cmd.chunk, mesh=mesh_of(cmd.mesh))
     if cmd.trigger is not None:
         return _run_stream_trigger(cmd, src, runner)
     if cmd.scan:
@@ -268,7 +269,6 @@ def _run_stream_trigger_live(cmd: argmod.StreamCmd, src, runner) -> int:
 
 def run_waterfall(cmd: argmod.WaterfallCmd, device: torch.device) -> int:
     """Stream a bank of captures through the waterfall kernels."""
-    _refuse_mesh("waterfall", cmd)
     sources, _, runner = _open_bank(cmd, device)
     tracker = _PeakTracker(len(sources))
     wrote: list[str] = []
@@ -338,7 +338,7 @@ def _open_bank(cmd, device: torch.device):
         windowing=cmd.windowing,
     )
     model = WaterfallModel(cfg)
-    runner = WaterfallRunner(sources, model, device, chunk_windows=cmd.chunk_windows)
+    runner = WaterfallRunner(sources, model, device, chunk_windows=cmd.chunk_windows, mesh=mesh_of(cmd.mesh))
     return sources, model, runner
 
 
@@ -385,7 +385,6 @@ def run_scan(cmd: argmod.ScanCmd, device: torch.device) -> int:
     occupancy over every window, reduced on the device; prints the
     strongest bins with their frequency offsets, and ``-out`` writes the
     full per-bin table as CSV per stream."""
-    _refuse_mesh("scan", cmd)
     sources, model, runner = _open_bank(cmd, device)
     result = runner.run_scan(threshold=cmd.threshold, max_chunks=cmd.chunks)
 
@@ -576,7 +575,6 @@ def run_channelize(cmd: argmod.ChannelizeCmd, device: torch.device) -> int:
     print a channel RMS meter and the ``channelize: ... Msps`` line."""
     from quadrs_tpu_torch.models.channelizer import Channelize, run_channelize as run_bank
 
-    _refuse_mesh("channelize", cmd)
     src = _cmd_source(cmd)
     chan = Channelize(src, cmd.channels, frequency=cmd.frequency, size=cmd.size)
     k = chan.channels
@@ -590,7 +588,7 @@ def run_channelize(cmd: argmod.ChannelizeCmd, device: torch.device) -> int:
         if cmd.out is not None:
             for ch in select:
                 files[ch] = open(f"{cmd.out}.ch{ch}.sr{rate}.cf32", "wb" if cmd.overwrite else "xb")
-        for piece in run_bank(chan, device=device, chunk=cmd.chunk):
+        for piece in run_bank(chan, device=device, chunk=cmd.chunk, mesh=mesh_of(cmd.mesh)):
             n_out = piece.start + piece.data.shape[1]
             sumsq += np.sum(np.square(piece.data.real, dtype=np.float64) + np.square(piece.data.imag, dtype=np.float64), axis=1)
             for ch, fh in files.items():

@@ -442,11 +442,19 @@ def find_pattern(
     bridges the two exactly.  ``find_pattern.dispatches`` counts them:
     ``extract`` the dispatches the device scan decided, ``overflow`` those
     it gave back to the full-score path, ``full`` the full-score ones.
-    ``mesh`` (multi-device sharding) is not ported yet."""
+    ``mesh``: an optional Tx1 mesh
+    (:func:`quadrs_tpu_torch.parallel.sharding.make_mesh`).  The capture's
+    sample axis time-shards over it, each shard staged with its ``l-1``
+    sample halo (:func:`~quadrs_tpu_torch.parallel.sharding.make_sharded_find_step`),
+    over the same window partition as the single-device program, so
+    offsets and ``which`` are exact and scores agree to f32 summation
+    order; each shard's candidate scan runs on its device, as a
+    single-device dispatch's does (a shard whose candidates overflow the
+    top-k gives its full scores); the unaligned tail of the capture runs through the
+    single-device path on ``device``, and the candidate scan bridges the
+    two exactly.  It needs a raw capture stream."""
     from quadrs_tpu_torch.ops.correlate import PeakScan, make_xcorr_post, suppress
 
-    if mesh is not None:
-        raise NotImplementedError("find -mesh (multi-GPU sharding) is not yet ported to quadrs_tpu_torch (ROADMAP A13)")
     pats = [np.asarray(q) for q in pattern] if isinstance(pattern, (list, tuple)) else [np.asarray(pattern)]
     lens = [len(q) for q in pats]
     l = max(lens)  # the common lag range uses the longest template
@@ -524,7 +532,50 @@ def find_pattern(
             o += b * n_out
     else:
         n_lags = stream.length - l + 1
-        offsets = np.arange(0, n_lags, n_out, dtype=np.int64)
+        lag0 = 0
+        if mesh is not None:
+            # time-shard the aligned prefix over the mesh; the rest goes on
+            # through the single-device path below (the candidate scan's
+            # pending element bridges the two exactly)
+            from quadrs_tpu_torch.ops.correlate import XCorr
+            from quadrs_tpu_torch.parallel.sharding import make_sharded_find_step, shard_span
+            from quadrs_tpu_torch.staging import Download
+
+            if stream.root() is not stream or not getattr(stream, "has_staging", False):
+                raise ValueError(
+                    "find -mesh shards a raw capture's sample axis; "
+                    "shift/lowpass the result instead, or drop -mesh "
+                    "(chained stages shard via the stream runner)"
+                )
+            n_time = int(mesh.shape["time"])
+            # windows a shard per dispatch: the fat-dispatch budget, cut to
+            # what the capture holds (a short capture still runs on the mesh)
+            avail = (stream.length - (l - 1)) // (n_time * n_out)
+            b_shard = max(1, min(FIND_DISPATCH_BUDGET // (n_time * c), avail))
+            step_lags = n_time * b_shard * n_out
+            step = make_sharded_find_step(pats, c, stream.format, mesh, grid)
+            n_loc = step_lags // n_time
+            o = 0
+            while o + step_lags + l - 1 <= stream.length:
+                outs = step(shard_span(stream.stage(o, o + step_lags + l - 1), mesh, l - 1))[0]
+                # each shard's candidate scan on its device, as a dispatch of
+                # the single-device path: its left neighbour is the score
+                # before it (the carried pending score for the first shard)
+                lefts = [torch.tensor(scan.carry, dtype=torch.float32, device=outs[0][0].device)]
+                lefts += [prev[0][-1].to(cur[0].device) for prev, cur in zip(outs, outs[1:])]
+                found = Download(tuple(a for out, left in zip(outs, lefts)
+                                       for a in XCorr.extract(*out, left, threshold, FIND_TOPK))).wait()
+                for t, out in enumerate(outs):
+                    if not scan.feed_extract(o + t * n_loc, n_loc, found[10 * t : 10 * t + 10]):
+                        # more candidates than the top-k holds: this shard's
+                        # full scores, fed as the full-score path feeds them
+                        score, scale, ridx = Download(out).wait()
+                        scan.feed(o + t * n_loc, score, np.stack([scale, ridx], axis=-1))
+                    if len(scan.offsets) > cand_cap:
+                        raise _too_many(cand_cap, threshold, o + (t + 1) * n_loc)
+                o += step_lags
+            lag0 = o
+        offsets = np.arange(lag0, n_lags, n_out, dtype=np.int64)
         batch, batches = window_batches(offsets, c, budget=budget, root_step=root_step_of(stream))
         ex_x = Executor(
             stream, c, device, batch=batch,

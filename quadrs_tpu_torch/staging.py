@@ -14,6 +14,9 @@ a kernel still reads.  Outputs cross the other way into page-locked memory
 with a non-blocking copy and an event, so a chunk's ``emit`` runs while
 the next chunk computes.
 
+A mesh's runner stages through a :class:`RingSet`: one ring a shard, each
+on its shard's device, taken and recycled together.
+
 On a CPU device the same code runs with plain memory and no copies: a
 slot's host view is what the model reads (``pin_memory`` is refused
 without CUDA).
@@ -143,26 +146,70 @@ class UploadRing:
         self._closed.set()
 
 
-class Download:
-    """A chunk's device output (a tensor or a tuple of them) on its way to
-    page-locked host memory; :meth:`wait` gives it as numpy.  Every call
-    gets memory of its own from PyTorch's caching host allocator, so a
-    callback may keep what it was given, and what it drops is reused."""
+class RingSet:
+    """One :class:`UploadRing` per shard of a mesh, used as one ring: a
+    slot of the set is a slot of each ring (``k`` a tuple of indices),
+    taken, uploaded, marked consumed and recycled together.  Each ring
+    copies on a copy stream of its own shard's device, and
+    :meth:`upload` gives the shards' buffers in ring order."""
 
-    def __init__(self, out, device: torch.device):
+    def __init__(self, devices, n_slots: int = 4, **buffers: tuple[int, torch.dtype]):
+        self.rings = [UploadRing(d, n_slots, **buffers) for d in devices]
+
+    def reset(self) -> None:
+        for ring in self.rings:
+            ring.reset()
+
+    def take(self) -> tuple[int, ...]:
+        return tuple(ring.take() for ring in self.rings)
+
+    def host(self, k: tuple[int, ...], i: int, name: str, shape: tuple[int, ...]) -> np.ndarray:
+        """Shard ``i``'s buffer ``name`` of slot ``k``."""
+        return self.rings[i].host(k[i], name, shape)
+
+    def upload(self, k: tuple[int, ...], **shapes: tuple[int, ...]) -> list[dict[str, torch.Tensor]]:
+        return [ring.upload(j, **shapes) for ring, j in zip(self.rings, k)]
+
+    def consumed(self, k: tuple[int, ...]) -> None:
+        for ring, j in zip(self.rings, k):
+            ring.consumed(j)
+
+    def recycle(self, k: tuple[int, ...]) -> None:
+        for ring, j in zip(self.rings, k):
+            ring.recycle(j)
+
+    def close(self) -> None:
+        for ring in self.rings:
+            ring.close()
+
+
+class Download:
+    """A chunk's device output (a tensor or a tuple of them, on one device
+    or several) on its way to page-locked host memory; :meth:`wait` gives
+    it as numpy.  Each CUDA tensor crosses on its own device's current
+    stream, with an event there.  Every call gets memory of its own from
+    PyTorch's caching host allocator, so a callback may keep what it was
+    given, and what it drops is reused."""
+
+    def __init__(self, out):
         self._tuple = isinstance(out, tuple)
         parts = out if self._tuple else (out,)
-        if device.type != "cuda":
-            self._host, self._event = [t.cpu() for t in parts], None
-            return
-        self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts]
-        for h, t in zip(self._host, parts):
-            h.copy_(t, non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record(torch.cuda.current_stream(device))
+        self._host = []
+        for t in parts:
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+            else:
+                h = t.cpu()
+            self._host.append(h)
+        self._events = []
+        for dev in dict.fromkeys(t.device for t in parts if t.is_cuda):
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            self._events.append(event)
 
     def wait(self):
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         arrays = tuple(h.numpy() for h in self._host)
         return arrays if self._tuple else arrays[0]

@@ -14,6 +14,11 @@ in the output.
 live pipe) through the waterfall model, a whole number of window starts
 per chunk.
 
+Either runner takes a ``(stream, time)`` device mesh
+(:mod:`quadrs_tpu_torch.parallel.sharding`): each chunk's sample axis
+shards over the mesh's ``time`` devices, each shard staged with the halo
+its last windows read, and a bank's sources over its ``stream`` rows.
+
 Both stage through :mod:`quadrs_tpu_torch.staging`: a staging thread
 fills page-locked slots (a file through the C++ loader's ring
 prefetcher, which re-reads the lookahead in C; a bank file by file
@@ -40,8 +45,18 @@ import torch
 
 from quadrs_tpu_torch.models.receiver import PipelineModel
 from quadrs_tpu_torch.models.waterfall import WaterfallModel
-from quadrs_tpu_torch.sources import SampleSource
-from quadrs_tpu_torch.staging import Download, RingClosed, UploadRing
+from quadrs_tpu_torch.ops.waterfall import scan_of
+from quadrs_tpu_torch.parallel.sharding import (
+    FRONTENDS,
+    gather,
+    halo_samples,
+    join,
+    make_sharded_stream_step,
+    make_sharded_waterfall_step,
+    waterfall_halo,
+)
+from quadrs_tpu_torch.sources import LivePipeStream, SampleSource
+from quadrs_tpu_torch.staging import Download, RingClosed, RingSet, UploadRing
 
 
 @dataclass
@@ -269,14 +284,16 @@ def _check_pipe_sources(sources) -> None:
         raise ValueError("a pipe source cannot be part of a bank")
 
 
-def _pipelined(ring: UploadRing, staged, step, emit, device: torch.device, max_chunks: int | None) -> None:
+def _pipelined(ring, staged, step, emit, devices, max_chunks: int | None) -> None:
     """The runners' consumer loop.  ``staged`` yields ``(slot, first
     window, shapes, account)`` for slots the staging thread has filled;
     each slot is uploaded, ``step(first window, buffers)`` launches its
     work, its output starts back to the host, and only then is the
     previous chunk's output awaited and handed to ``emit``: a chunk's
     ``emit`` runs while the next one computes.  ``account()`` runs as the
-    chunk is launched.  ``max_chunks`` stops after that many."""
+    chunk is launched.  ``max_chunks`` stops after that many.  ``ring``:
+    an :class:`UploadRing`, or a :class:`RingSet` of a mesh's shards;
+    ``devices``: the devices the work runs on."""
     chunks = _background(staged)
     pending = None
     done = 0
@@ -285,7 +302,7 @@ def _pipelined(ring: UploadRing, staged, step, emit, device: torch.device, max_c
             out = step(w0, ring.upload(k, **shapes))
             ring.consumed(k)
             account()
-            result = (w0, Download(out, device)) if emit is not None else None
+            result = (w0, Download(out)) if emit is not None else None
             if pending is not None:
                 emit(pending[0], pending[1].wait())
             pending = result
@@ -298,24 +315,57 @@ def _pipelined(ring: UploadRing, staged, step, emit, device: torch.device, max_c
     finally:
         ring.close()
         chunks.close()
-    if device.type == "cuda":
-        # this run's stream, not the device: the serve daemon's other
-        # sessions run on streams of their own
-        torch.cuda.current_stream(device).synchronize()
+    for device in devices:
+        if device.type == "cuda":
+            # this run's streams, not the devices: the serve daemon's other
+            # sessions run on streams of their own
+            torch.cuda.current_stream(device).synchronize()
 
 
-FRONTENDS = ("auto", "fused", "chain")
+def _stack_streams(mode: str, outs: list):
+    """Per-stream outputs of one chunk (each in a single stream's layout)
+    as the bank's: norms and peaks stacked on a leading stream axis, scan
+    statistics (already (1, width)) concatenated on it."""
+    if mode == "scan":
+        return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
+    if mode == "search":
+        return tuple(np.stack(parts) for parts in zip(*outs))
+    return np.stack(outs)
+
+
+def _shard_scan(norms: torch.Tensor, n_valid: int, threshold) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(S, windows, W) norms of one shard -> per (stream, bin) the f32
+    sum, max and count above ``threshold`` of its first ``n_valid``
+    windows (a shard wholly past the end gives 0, -inf and 0)."""
+    valid = (torch.arange(norms.shape[1], device=norms.device) < n_valid)[None, :, None]
+    thr = torch.tensor(float(threshold), dtype=torch.float32, device=norms.device)
+    return (torch.where(valid, norms, 0.0).sum(dim=1), torch.where(valid, norms, -torch.inf).amax(dim=1),
+            (valid & (norms > thr)).sum(dim=1).to(torch.float32))
+
+
+def _join_scan(parts, n_rows: int, n_time: int):
+    """Shard scan statistics ((sum, max, count) per shard, in (row, time)
+    order) as the chunk's (S, W) sum in f64, max and count."""
+    rows = []
+    for r in range(n_rows):
+        mine = parts[r * n_time : (r + 1) * n_time]
+        rows.append((sum(m[0].astype(np.float64) for m in mine), np.max([m[1] for m in mine], axis=0),
+                     sum(m[2].astype(np.int64) for m in mine)))
+    return tuple(np.concatenate(parts, axis=0) for parts in zip(*rows))
 
 
 class StreamRunner:
-    """Drive one capture through the receiver chain on ``device``.
+    """Drive one capture (or a bank of them over a mesh) through the
+    receiver chain on ``device``.
 
     ``source``: a :class:`~quadrs_tpu_torch.sources.SampleSource` (a file
     reads through the loader's ring prefetcher, a byte buffer through
-    ``stage``) or a :class:`~quadrs_tpu_torch.sources.PipeSource`.
-    ``chunk_samples`` is rounded down to a whole number of STFT windows.
-    ``on_windows(first_window_index, norms)`` receives (windows,
-    fft_width) f32 rows per chunk.
+    ``stage``) or a :class:`~quadrs_tpu_torch.sources.PipeSource`; or a
+    sequence of sources of equal length and format, a bank, which needs a
+    mesh with one ``stream`` row a source.  ``chunk_samples`` is rounded
+    down to a whole number of STFT windows.  ``on_windows(first_window_index,
+    norms)`` receives (windows, fft_width) f32 rows per chunk of one
+    source, (n_stream, windows, fft_width) of a bank.
 
     ``frontend``: ``auto`` (what the CLI uses) takes the fused frontend
     inside its envelope and the chain of torch ops outside it (decimate
@@ -323,6 +373,15 @@ class StreamRunner:
     force one route, as the JAX runner's knob does, so that tests can
     hold the two routes against each other; ``fused`` outside the
     envelope is refused.
+
+    ``mesh``: a ``(stream, time)`` mesh
+    (:func:`quadrs_tpu_torch.parallel.sharding.make_mesh`).  Each chunk's
+    time axis is sharded over the mesh's ``time`` devices, each shard
+    staged with its halo (the true continuation for the last), so every
+    window is exact and chunks advance by their full length; the ragged
+    tail runs on ``device``, stream by stream.  A pipe is wrapped in a
+    :class:`~quadrs_tpu_torch.sources.LivePipeStream`, whose forward reads
+    serve the sharded staging.
     """
 
     def __init__(
@@ -332,11 +391,12 @@ class StreamRunner:
         device: torch.device | str,
         chunk_samples: int = 1 << 22,
         frontend: str = "auto",
+        mesh=None,
     ):
-        if source.format is not model.cfg.fmt:
-            raise ValueError(
-                f"source format {source.format} != model format {model.cfg.fmt}"
-            )
+        sources = list(source) if isinstance(source, (list, tuple)) else [source]
+        for src in sources:
+            if src.format is not model.cfg.fmt:
+                raise ValueError(f"source format {src.format} != model format {model.cfg.fmt}")
         if frontend not in FRONTENDS:
             raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
         if frontend == "fused" and not model.fused_supported():
@@ -344,11 +404,21 @@ class StreamRunner:
                 f"decimate {model.cfg.decimate} with {model.cfg.taps} taps is outside the fused "
                 "frontend's envelope: use frontend='chain' or 'auto'"
             )
+        _check_pipe_sources(sources)
+        if mesh is not None and getattr(sources[0], "is_pipe", False):
+            # a live pipe shards over time: the sharded staging reads
+            # strictly forward, which the sliding facade serves; EOF turns
+            # its sentinel length real and the ragged tail runs as on files
+            sources = [LivePipeStream(sources[0])]
+        if len({src.length for src in sources}) != 1:
+            raise ValueError("bank sources must have equal lengths")
         self.fused = frontend == "fused" or (frontend == "auto" and model.fused_supported())
         cfg = model.cfg
-        self.source = source
+        self.sources = sources
+        self.source = sources[0]
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        self.mesh = mesh
         self._win_raw = cfg.decimate * cfg.fft_width
         # lookahead: the last FIR output of a chunk reads ceil(taps/2) +
         # taps past its decimation point (group delay), and the window
@@ -356,22 +426,34 @@ class StreamRunner:
         self._lookahead = cfg.taps + (cfg.taps - cfg.taps // 2)
         if cfg.taps // 2 // cfg.decimate >= cfg.fft_width:
             raise ValueError("fft window shorter than the FIR group delay span")
-        self.chunk_samples = max(self._win_raw, chunk_samples // self._win_raw * self._win_raw)
+        quantum = self._win_raw
+        if mesh is not None:
+            if mesh.shape["stream"] != len(sources):
+                raise ValueError(f"mesh has {mesh.shape['stream']} stream shards for {len(sources)} sources")
+            self._halo = halo_samples(cfg)
+            # each time shard's slice must cover the halo it reads past it
+            quantum = mesh.shape["time"] * -(-self._halo // self._win_raw) * self._win_raw
+        elif len(sources) != 1:
+            raise ValueError("a source bank needs a mesh with a 'stream' axis")
+        self.chunk_samples = max(quantum, chunk_samples // quantum * quantum)
         self._ring: UploadRing | None = None
+        self._shard_rings: RingSet | None = None
 
-    def _chunks(self, start_off: int = 0, out=None) -> Iterator[tuple[int, np.ndarray, int]]:
-        """(offset, (2, chunk+lookahead) planes, real samples) per chunk,
-        staged with ``source.stage``.  ``out``: a callable giving the
-        array each chunk is staged into (a slot); by default a new one."""
+    def _chunks(self, start_off: int = 0, out=None, source=None) -> Iterator[tuple[int, np.ndarray, int]]:
+        """(offset, (2, chunk+lookahead) planes, real samples) per chunk of
+        ``source`` (by default the runner's), staged with ``source.stage``.
+        ``out``: a callable giving the array each chunk is staged into (a
+        slot); by default a new one."""
+        source = self.source if source is None else source
         la = self._lookahead
-        length = self.source.length
+        length = source.length
         off = start_off
         while off < length - self.model.cfg.taps:
             n = min(self.chunk_samples, (length - off) // self._win_raw * self._win_raw)
             if n <= 0:
                 return
             if out is None:
-                planes = self.source.stage(off, off + n + la)
+                planes = source.stage(off, off + n + la)
                 valid = planes.shape[1]
                 if valid < n + la:
                     # raw zero bytes decode to nonzero values for cu8/cs16,
@@ -379,20 +461,21 @@ class StreamRunner:
                     planes = np.pad(planes, ((0, 0), (0, n + la - valid)))
             else:
                 buf = out()
-                valid = self.source.stage(off, off + n + la, out=buf).shape[1]
+                valid = source.stage(off, off + n + la, out=buf).shape[1]
                 planes = buf[:, : n + la]
                 planes[:, valid:] = 0  # a reused slot holds an earlier chunk's bytes
             yield off, planes, valid
             off += n
 
-    def _chunks_native(self, start_off: int, out) -> Iterator[tuple[int, np.ndarray, int]]:
+    def _chunks_native(self, start_off: int, out, source=None) -> Iterator[tuple[int, np.ndarray, int]]:
         """Chunks through the loader's ring prefetcher: its reader threads
         pread and deinterleave upcoming chunks while the current one
         computes, each delivered into the array ``out()`` gives (a slot),
         the lookahead re-read in C.  The same ``(off, planes, valid)``
         triples as :meth:`_chunks`."""
+        source = self.source if source is None else source
         la = self._lookahead
-        length = self.source.length
+        length = source.length
         slots: collections.deque[np.ndarray] = collections.deque()  # lent to the loader, in stream order
 
         def lend():
@@ -400,7 +483,7 @@ class StreamRunner:
             return slots[-1]
 
         # the loader holds two slots while a third is on its way to the device
-        it = self.source.native.prefetch(self.chunk_samples, n_buffers=3, start_off=start_off, overlap=la, out=lend)
+        it = source.native.prefetch(self.chunk_samples, n_buffers=3, start_off=start_off, overlap=la, out=lend)
         try:
             for off, full in it:
                 slot = slots.popleft()
@@ -474,13 +557,14 @@ class StreamRunner:
             buffers["bases"] = (bases.size, torch.from_numpy(bases).dtype)
         return buffers
 
-    def _staged(self, ring: UploadRing, start_off: int, account):
+    def _staged(self, ring: UploadRing, start_off: int, account, source=None):
         """The staging thread's generator: fill a free slot with each
-        chunk (and, on the fused route, its NCO bases, planned here from
-        the chunk's absolute offset) and yield what :func:`_pipelined`
-        takes."""
+        chunk of ``source`` (by default the runner's; and, on the fused
+        route, its NCO bases, planned here from the chunk's absolute
+        offset) and yield what :func:`_pipelined` takes."""
+        source = self.source if source is None else source
         width = self.chunk_samples + self._lookahead
-        pipe = getattr(self.source, "is_pipe", False)
+        pipe = getattr(source, "is_pipe", False)
         taken: collections.deque[int] = collections.deque()  # slots handed out, in stream order
 
         def slot():
@@ -489,10 +573,10 @@ class StreamRunner:
 
         if pipe:
             chunks = self._chunks_pipe(start_off)
-        elif getattr(self.source, "native", None) is not None:
-            chunks = self._chunks_native(start_off, slot)
+        elif getattr(source, "native", None) is not None:
+            chunks = self._chunks_native(start_off, slot, source)
         else:
-            chunks = self._chunks(start_off, slot)
+            chunks = self._chunks(start_off, slot, source)
         try:
             for off, planes, valid in chunks:
                 cols = planes.shape[1]
@@ -516,7 +600,9 @@ class StreamRunner:
     ) -> RunStats:
         """Process the capture from ``start_window`` onward; resuming is
         exact, since NCO phases are planned from absolute offsets.
-        ``max_chunks`` stops after that many chunks."""
+        ``max_chunks`` stops after that many chunks (on a mesh, before the
+        ragged tail); to resume later, pass ``start_window + windows_out //
+        n_stream``."""
         return self._run("norms", on_windows, start_window, max_chunks)
 
     def run_search(
@@ -528,7 +614,8 @@ class StreamRunner:
         """Like :meth:`run` but through the per-window peak reduction:
         ``on_peaks(first_window_index, (idx, val))`` receives per chunk
         the (windows,) int32 fftshifted peak bins and f32 magnitudes —
-        ``argmax``/``max`` over :meth:`run`'s rows."""
+        ``argmax``/``max`` over :meth:`run`'s rows ((n_stream, windows)
+        each for a bank).  On a mesh each shard reduces its own windows."""
         return self._run("search", on_peaks, start_window, max_chunks)
 
     def run_scan(
@@ -539,12 +626,14 @@ class StreamRunner:
     ) -> ScanResult:
         """Band survey of the decimated channel: per fftshifted bin, the
         average and maximum window power and the count of windows above
-        ``threshold``.  Each chunk's norms reduce on the device; only
-        ``3 * width`` values per chunk cross to the host.  Bin ``width//2``
-        is the channel centre, the frequency at minus the shift."""
-        totals = _ScanTotals(1, self.model.cfg.fft_width)
+        ``threshold``.  Each chunk's norms reduce on the device (each
+        shard's on its own, on a mesh); only ``3 * width`` values per
+        chunk and shard cross to the host.  Bin ``width//2`` is the
+        channel centre, the frequency at minus the shift."""
+        n_s = len(self.sources)
+        totals = _ScanTotals(n_s, self.model.cfg.fft_width)
         stats = self._run("scan", totals.add, start_window, max_chunks, threshold)
-        return totals.result(threshold, stats, stats.windows_out)
+        return totals.result(threshold, stats, stats.windows_out // n_s)
 
     def _step(self, mode: str, off: int, raw: torch.Tensor, head, valid: int, threshold: float):
         """One chunk through the runner's route: its ``norms``, its
@@ -564,16 +653,26 @@ class StreamRunner:
         norms = norms_of(raw, head, nv)
         if mode == "norms":
             return norms
-        from quadrs_tpu_torch.ops.waterfall import scan_of
-
         return scan_of(norms[None], threshold)
 
     def _run(self, mode: str, emit, start_window: int, max_chunks, threshold: float = 0.0) -> RunStats:
-        """Drive the chunks through :meth:`_step`; ``emit`` receives its
-        output on the host."""
-        cfg = self.model.cfg
+        """Drive the chunks through the device programs; ``emit`` receives
+        each chunk's output on the host."""
         stats = RunStats()
         t0 = time.perf_counter()
+        start_off = start_window * self._win_raw
+        if self.mesh is None:
+            self._run_single(mode, emit, self.source, start_off, max_chunks, threshold, stats)
+        else:
+            self._run_sharded(mode, emit, start_off, max_chunks, threshold, stats)
+        stats.seconds = time.perf_counter() - t0
+        return stats
+
+    def _run_single(self, mode: str, emit, source, start_off: int, max_chunks, threshold: float,
+                    stats: RunStats) -> None:
+        """``source`` from ``start_off`` through :meth:`_step` on the
+        runner's device, chunk by chunk through its ring."""
+        cfg = self.model.cfg
         if self._ring is None:
             self._ring = UploadRing(self.device, 4, **self._slot_buffers())
         ring = self._ring
@@ -590,10 +689,132 @@ class StreamRunner:
         def emit_at(at, out):
             emit(at[0] // self._win_raw, out)
 
-        _pipelined(ring, self._staged(ring, start_window * self._win_raw, account), step,
-                   None if emit is None else emit_at, self.device, max_chunks)
-        stats.seconds = time.perf_counter() - t0
-        return stats
+        _pipelined(ring, self._staged(ring, start_off, account, source), step,
+                   None if emit is None else emit_at, [self.device], max_chunks)
+
+    def _run_sharded(self, mode: str, emit, start_off: int, max_chunks, threshold: float, stats: RunStats) -> None:
+        """Time-sharded chunks over the mesh, then the ragged tail.
+
+        The staging thread stages each shard's block (its slice and its
+        halo: the next ``halo`` samples of the stream) straight from the
+        source into the shard's ring, with its NCO bases on the fused
+        route, planned from the shard's absolute offset; every shard runs
+        the single-device route on its device's current stream, and the
+        shards' outputs come back to the host and are joined there.
+        Chunks run while a whole chunk and its continuation lie inside
+        the capture; the rest (where the continuation would cross EOF)
+        runs single-device on the runner's device, stream by stream and
+        emitted in lockstep.  A ``max_chunks``-bounded run stops before
+        the tail."""
+        model, mesh = self.model, self.mesh
+        n_time, n_stream = mesh.shape["time"], mesh.shape["stream"]
+        n = self.chunk_samples
+        n_local = n // n_time
+        halo = self._halo
+        cols = n_local + halo
+        step = make_sharded_stream_step(model, mesh, search=mode == "search",
+                                        frontend="fused" if self.fused else "chain")
+        shards = [(s, t) for s in range(n_stream) for t in range(n_time)]
+        one_device = len(mesh.distinct) == 1  # the shards' outputs join on it
+        n_bases = model.stream_bases(0, cols).size if self.fused else 0
+        if self._shard_rings is None:
+            buffers = {"planes": (2 * cols, model.cfg.fmt.torch_dtype)}
+            if self.fused:
+                buffers["bases"] = (n_bases, torch.float32)
+            self._shard_rings = RingSet([mesh.devices[s][t] for s, t in shards], 4, **buffers)
+        rings = self._shard_rings
+        rings.reset()
+        live = getattr(self.source, "is_live", False)
+        shapes = {"planes": (2, cols)}
+        if self.fused:
+            shapes["bases"] = (n_bases,)
+        done = [0]
+
+        def account() -> None:
+            stats.samples_in += n * n_stream
+            stats.windows_out += n_stream * (n // self._win_raw)
+            done[0] += 1
+
+        def staged():
+            off = start_off
+            count = 0
+            with ThreadPoolExecutor(min(4, len(shards))) as pool:
+                while max_chunks is None or count < max_chunks:
+                    if live:
+                        # one forward read a chunk; a short one is EOF (the
+                        # facade's sentinel length turns real), and what it
+                        # read feeds the ragged tail
+                        buf = self.source.stage(off, off + n + halo)
+                        if buf.shape[1] < n + halo:
+                            return
+                    elif off + n + halo > self.source.length:
+                        return
+                    k = rings.take()
+                    slots = [rings.host(k, i, "planes", (2, cols)) for i in range(len(shards))]
+                    heads = [rings.host(k, i, "bases", (n_bases,)) for i in range(len(shards))] if self.fused else None
+
+                    def fill(i, off=off, slots=slots, heads=heads):
+                        s, t = shards[i]
+                        lo = off + t * n_local
+                        if live:
+                            slots[i][...] = buf[:, t * n_local : t * n_local + cols]
+                        else:
+                            self.sources[s].stage(lo, lo + cols, out=slots[i])
+                        if heads is not None:
+                            heads[i][...] = model.stream_bases(lo, cols)
+
+                    list(pool.map(fill, range(len(shards))))
+                    count += 1
+                    yield k, off, shapes, account
+                    off += n
+
+        def run_chunk(off, bufs):
+            blocks = [[bufs[s * n_time + t]["planes"] for t in range(n_time)] for s in range(n_stream)]
+            bases = ([[bufs[s * n_time + t]["bases"] for t in range(n_time)] for s in range(n_stream)]
+                     if self.fused else None)
+            outs = step(blocks, off, bases)
+            if mode == "scan":
+                return tuple(a for row in outs for out in row for a in scan_of(out, threshold))
+            if one_device:
+                return join(outs, 1)
+            return tuple(a for row in outs for out in row for a in (out if mode == "search" else (out,)))
+
+        def joined(out):
+            """A chunk's output in the single-device layout, with a stream
+            axis for a bank; from several devices the shards came back one
+            by one (flat, in (stream, time) order) and are joined here."""
+            if mode == "scan":
+                parts = [out[3 * i : 3 * i + 3] for i in range(len(shards))]
+                return _join_scan(parts, n_stream, n_time)
+            k = 2 if mode == "search" else 1
+            if not one_device:
+                out = tuple(gather([[out[k * (s * n_time + t) + c] for t in range(n_time)] for s in range(n_stream)], 1)
+                            for c in range(k))
+                out = out if k == 2 else out[0]
+            if n_stream > 1:
+                return out
+            return tuple(o[0] for o in out) if k == 2 else out[0]
+
+        def emit_at(off, out):
+            emit(off // self._win_raw, joined(out))
+
+        _pipelined(rings, staged(), run_chunk, None if emit is None else emit_at, mesh.distinct, max_chunks)
+        if max_chunks is not None and done[0] >= max_chunks:
+            return  # a bounded run stops before the ragged tail
+        # the ragged tail, single-device stream by stream (a live pipe's
+        # length is real now: its staging ended on the short read)
+        off = start_off + done[0] * n
+        if n_stream == 1:
+            self._run_single(mode, emit, self.source, off, None, threshold, stats)
+            return
+        got = []
+        for src in self.sources:
+            got.append([])
+            self._run_single(mode, None if emit is None else (lambda w0, out, mine=got[-1]: mine.append((w0, out))),
+                             src, off, None, threshold, stats)
+        if emit is not None:
+            for j, (w0, _) in enumerate(got[0]):
+                emit(w0, _stack_streams(mode, [mine[j][1] for mine in got]))
 
 
 class WaterfallRunner:
@@ -610,6 +831,15 @@ class WaterfallRunner:
     :meth:`run` hands ``on_norms(first_window_index, norms)`` the
     (S, windows, width) f32 rows of each chunk; :meth:`run_search` the
     per-window peaks; :meth:`run_scan` returns the per-bin survey.
+
+    With ``mesh`` (a ``(stream, time)`` mesh), the sources shard over the
+    mesh's ``stream`` rows (a multiple of them) and each chunk's sample
+    axis over its ``time`` devices: a fixed advance of whole stride cells
+    a shard, each shard staged with its ``width - stride`` window halo
+    (the true continuation for the last, zeros past EOF, whose windows
+    are dropped), so chunking and sharding are both invisible in the
+    output.  A pipe is wrapped in a
+    :class:`~quadrs_tpu_torch.sources.LivePipeStream`.
     """
 
     def __init__(
@@ -618,6 +848,7 @@ class WaterfallRunner:
         model: WaterfallModel,
         device: torch.device | str,
         chunk_windows: int = 1 << 11,
+        mesh=None,
     ):
         sources = list(sources) if isinstance(sources, (list, tuple)) else [sources]
         cfg = model.cfg
@@ -627,13 +858,29 @@ class WaterfallRunner:
             if src.format is not cfg.fmt:
                 raise ValueError(f"source format {src.format} != bank format {cfg.fmt}")
         _check_pipe_sources(sources)
+        if mesh is not None and getattr(sources[0], "is_pipe", False):
+            # a live pipe shards like a file bank of one: the sharded
+            # staging reads strictly forward (whole stride cells, then the
+            # halo), which the sliding facade serves; EOF turns its
+            # sentinel length real mid-staging
+            sources = [LivePipeStream(sources[0])]
         if len({src.length for src in sources}) != 1:
             raise ValueError("bank sources must have equal lengths")
         self.sources = sources
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.chunk_windows = max(1, chunk_windows)
+        self.mesh = mesh
+        if mesh is not None:
+            if len(sources) % mesh.shape["stream"]:
+                raise ValueError(f"{len(sources)} sources do not shard over {mesh.shape['stream']} 'stream' mesh rows")
+            self._halo = waterfall_halo(cfg)
+            # each time shard needs whole stride cells and must cover the
+            # halo its last windows read
+            quantum = mesh.shape["time"] * max(1, -(-self._halo // cfg.stride))
+            self.chunk_windows = max(quantum, self.chunk_windows // quantum * quantum)
         self._ring: UploadRing | None = None
+        self._shard_rings: RingSet | None = None
 
     def _total_windows(self) -> int:
         cfg = self.model.cfg
@@ -768,30 +1015,47 @@ class WaterfallRunner:
                 yield item(k, w, n_w, new, hi - lo)
 
     def run(self, on_norms=None, start_window: int = 0, max_chunks=None) -> RunStats:
-        return self._run(self.model.step, on_norms, start_window, max_chunks)
+        return self._run("norms", on_norms, start_window, max_chunks)
 
     def run_search(self, on_peaks=None, start_window: int = 0, max_chunks=None) -> RunStats:
         """Like :meth:`run` but through the peak search:
         ``on_peaks(first_window_index, (idx, val))`` receives per chunk
         the (S, windows) int32 fftshifted peak bins and f32 magnitudes;
-        through the kernel the spectrogram never reaches device memory."""
-        return self._run(self.model.search, on_peaks, start_window, max_chunks)
+        through the kernel the spectrogram never reaches device memory.
+        On a mesh each shard runs the search on its own windows."""
+        return self._run("search", on_peaks, start_window, max_chunks)
 
     def run_scan(self, threshold: float = 0.0, start_window: int = 0, max_chunks=None) -> ScanResult:
         """Band survey (the rtl_power product): per fftshifted bin, the
         average and maximum window power and the count of windows above
         ``threshold``, over every valid window of the run.  Each chunk
-        reduces on the device; only ``3 * S * width`` values per chunk
-        cross to the host."""
+        reduces on the device (in the scan kernel; on a mesh, each shard's
+        norms masked to the chunk's valid windows, as the JAX package's
+        mesh path reduces); only ``3 * S * width`` values per chunk and
+        shard cross to the host."""
         n_s = len(self.sources)
         totals = _ScanTotals(n_s, self.model.cfg.fft_width)
-        stats = self._run(lambda raw: self.model.scan(raw, threshold), totals.add, start_window, max_chunks)
+        stats = self._run("scan", totals.add, start_window, max_chunks, threshold)
         return totals.result(threshold, stats, stats.windows_out // n_s)
 
-    def _run(self, step, emit, start_window: int, max_chunks) -> RunStats:
-        cfg = self.model.cfg
+    def _run(self, mode: str, emit, start_window: int, max_chunks, threshold: float = 0.0) -> RunStats:
         stats = RunStats()
         t0 = time.perf_counter()
+        n_s = len(self.sources)
+
+        def account(n_valid: int, new_samples: int) -> None:
+            stats.samples_in += new_samples * n_s
+            stats.windows_out += n_s * n_valid
+
+        if self.mesh is not None:
+            self._run_sharded(mode, emit, start_window, max_chunks, threshold, account)
+        else:
+            self._run_single(mode, emit, start_window, max_chunks, threshold, account)
+        stats.seconds = time.perf_counter() - t0
+        return stats
+
+    def _run_single(self, mode: str, emit, start_window: int, max_chunks, threshold: float, account) -> None:
+        cfg = self.model.cfg
         n_s = len(self.sources)
         if self._ring is None:
             span = (self.chunk_windows - 1) * cfg.stride + cfg.fft_width
@@ -801,12 +1065,109 @@ class WaterfallRunner:
             self._ring = UploadRing(self.device, 2, planes=(n_s * 2 * span, cfg.fmt.torch_dtype))
         ring = self._ring
         ring.reset()
-
-        def account(n_valid: int, new_samples: int) -> None:
-            stats.samples_in += new_samples * n_s
-            stats.windows_out += n_s * n_valid
-
+        model = self.model
+        step = {"norms": model.step, "search": model.search, "scan": lambda raw: model.scan(raw, threshold)}[mode]
         _pipelined(ring, self._staged(ring, start_window, max_chunks, account),
-                   lambda _w, bufs: step(bufs["planes"]), emit, self.device, max_chunks)
-        stats.seconds = time.perf_counter() - t0
-        return stats
+                   lambda _w, bufs: step(bufs["planes"]), emit, [self.device], max_chunks)
+
+    def _run_sharded(self, mode: str, emit, start_window: int, max_chunks, threshold: float, account) -> None:
+        """Mesh chunks: a fixed advance of ``chunk_windows`` windows, whole
+        stride cells a shard; the staging thread stages each shard's
+        block (its slice and its halo, zeros past EOF) from every source
+        of its mesh row straight into the shard's ring, and each chunk's
+        outputs are joined on the host and cut to its valid windows.
+
+        Accounting is the single-device path's (new real samples up to the
+        last valid window's end), so ``RunStats.msps`` compares between
+        the two; for skipping strides the mesh path stages whole stride
+        cells, gaps included, which are not counted as input."""
+        cfg, mesh = self.model.cfg, self.mesh
+        n_time, n_rows = mesh.shape["time"], mesh.shape["stream"]
+        per = len(self.sources) // n_rows
+        n_w = self.chunk_windows
+        n_local = n_w * cfg.stride // n_time
+        cols = n_local + self._halo
+        nw_local = n_local // cfg.stride
+        step = make_sharded_waterfall_step(self.model, mesh, search=mode == "search")
+        shards = [(r, t) for r in range(n_rows) for t in range(n_time)]
+        one_device = len(mesh.distinct) == 1  # the shards' outputs join on it
+        if self._shard_rings is None:
+            self._shard_rings = RingSet([mesh.devices[r][t] for r, t in shards], 2,
+                                        planes=(per * 2 * cols, cfg.fmt.torch_dtype))
+        rings = self._shard_rings
+        rings.reset()
+        shapes = {"planes": (per, 2, cols)}
+        live = getattr(self.sources[0], "is_live", False)
+
+        def staged():
+            # a live pipe's length is a sentinel until EOF: stage forward
+            # (shard after shard, as the facade reads strictly forward),
+            # then read it again; the chunk where the short read lands
+            # recomputes the window total before it is yielded
+            total = self._total_windows()
+            w = start_window
+            prev_hi = None
+            count = 0
+            with ThreadPoolExecutor(min(4, len(shards) * per)) as pool:
+                while (live or w < total) and (max_chunks is None or count < max_chunks):
+                    lo = w * cfg.stride
+                    k = rings.take()
+                    # each shard's slot made here, on this thread, before
+                    # the readers fill its rows
+                    hosts = [rings.host(k, i, "planes", (per, 2, cols)) for i in range(len(shards))]
+
+                    def fill(job, lo=lo, hosts=hosts):
+                        i, j = divmod(job, per)
+                        r, t = shards[i]
+                        row = hosts[i][j]
+                        a = lo + t * n_local
+                        got = self.sources[r * per + j].stage(a, a + cols, out=row).shape[1]
+                        row[:, got:] = 0  # past EOF, and a reused slot's older bytes
+
+                    jobs = range(len(shards) * per)
+                    list(map(fill, jobs) if live else pool.map(fill, jobs))
+                    if live:
+                        total = self._total_windows()
+                        if w >= total:
+                            return
+                    count += 1
+                    length = self.sources[0].length
+                    n_valid = min(n_w, total - w)
+                    # the single-device formula: the last valid window's end,
+                    # capped at EOF, the overlap with the previous chunk once
+                    acc_hi = min((w + n_valid - 1) * cfg.stride + cfg.fft_width, length)
+                    new = max(0, acc_hi - (lo if prev_hi is None else max(lo, prev_hi)))
+                    prev_hi = max(acc_hi, prev_hi or 0)
+                    yield k, (w, n_valid), shapes, lambda n_valid=n_valid, new=new: account(n_valid, new)
+                    w += n_w
+
+        def run_chunk(at, bufs):
+            blocks = [[bufs[r * n_time + t]["planes"] for t in range(n_time)] for r in range(n_rows)]
+            outs = step(blocks)
+            if mode == "scan":
+                n_valid = at[1]
+                return tuple(a for row in outs for t, out in enumerate(row)
+                             for a in _shard_scan(out, n_valid - t * nw_local, threshold))
+            if one_device:
+                # joined on the device, the windows past the chunk's valid
+                # ones (those reading the zeros past EOF) left there
+                out = join(outs, 1)
+                return tuple(o[:, : at[1]] for o in out) if mode == "search" else out[:, : at[1]]
+            return tuple(a for row in outs for out in row for a in (out if mode == "search" else (out,)))
+
+        def emit_at(at, out):
+            w, n_valid = at
+            if mode == "scan":
+                emit(w, _join_scan([out[3 * i : 3 * i + 3] for i in range(len(shards))], n_rows, n_time))
+                return
+            if one_device:
+                emit(w, out)
+                return
+            # each shard's valid windows only, joined here
+            keep = [max(0, min(nw_local, n_valid - t * nw_local)) for t in range(n_time)]
+            k = 2 if mode == "search" else 1
+            got = tuple(gather([[out[k * (r * n_time + t) + c][:, : keep[t]] for t in range(n_time)]
+                                for r in range(n_rows)], 1) for c in range(k))
+            emit(w, got if k == 2 else got[0])
+
+        _pipelined(rings, staged(), run_chunk, None if emit is None else emit_at, mesh.distinct, max_chunks)

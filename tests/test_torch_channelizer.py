@@ -255,10 +255,24 @@ def test_cli_stdin(cpu, capsys, monkeypatch):
 
 
 def test_cli_mesh_refused_and_parse_errors_match_jax(cpu, capsys):
+    """``channelize -mesh 4`` (ROADMAP A13, ported; the CPU platform's mesh
+    is the CPU repeated): with every shard pulling the full ``-chunk``,
+    channel files byte for byte the single-device run's and quadjax's,
+    meter lines equal; then the parse errors, as quadjax's."""
     cap = cpu / "band.sr48k.cf32"
-    capture_bytes("cf32", 2000, seed=1).tofile(cap)
-    rc, out, err = run(tcli.main, ["channelize", "-mesh", "2", str(cap)], capsys)
-    assert rc == 1 and "channelize -mesh" in err and "ROADMAP A13" in err and out == ""
+    capture_bytes("cf32", 20_000, seed=1).tofile(cap)
+    outs = {}
+    for tag, main, mesh in (("mesh", tcli.main, ["-mesh", "4"]), ("single", tcli.main, []), ("jax", jcli.main, ["-mesh", "4"])):
+        argv = ["channelize", "-channels", "4", "-chunk", "256", "-select", "0,3", "-out", tag, *mesh, str(cap)]
+        rc, out, err = run(main, argv, capsys)
+        assert (rc, err) == (0, ""), tag
+        outs[tag] = out.replace(tag, "P").splitlines()[:-1]
+    assert outs["mesh"] == outs["single"] == outs["jax"] and len(outs["mesh"]) == 2
+    for ch in (0, 3):
+        got = (cpu / f"mesh.ch{ch}.sr12000.cf32").read_bytes()
+        assert got == (cpu / f"single.ch{ch}.sr12000.cf32").read_bytes()
+        want = np.frombuffer((cpu / f"jax.ch{ch}.sr12000.cf32").read_bytes(), dtype="<f4")
+        np.testing.assert_allclose(np.frombuffer(got, dtype="<f4"), want, rtol=0, atol=2e-6 * np.abs(want).max())
     for argv in (["channelize", "-channels", "1", "cap.sr8k.cf32"], ["channelize", "-select", "9", "cap.sr8k.cf32"],
                  ["channelize", "-select", ",", "cap.sr8k.cf32"], ["channelize"], ["channelize", "-mesh", "2x2", "c.sr8k.cf32"],
                  ["channelize", "-mesh", "2", "-stdin", "yes", "-sr", "8k", "-format", "cf32"],

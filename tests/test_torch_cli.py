@@ -132,20 +132,47 @@ def test_cuda_is_required_unless_cpu_is_asked(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize(
     "flags,what",
     [
-        (["-mesh", "2"], "-mesh"),
-        (["-mesh", "1x1", "-scan", "yes"], "-mesh"),
+        (["-mesh", "2", "-chunk", "8k"], "-mesh"),
+        (["-mesh", "1x1", "-scan", "yes", "-chunk", "8k"], "-mesh"),
         (["-trigger", "0.5", "-out", "burst"], "-trigger"),
         (["-stdin", "yes", "-sr", "21M", "-format", "cs8"], "-stdin"),
     ],
 )
 def test_flags_not_yet_ported(flags, what, tmp_path, capsys, monkeypatch):
-    """``-mesh`` still waits for its slice.  ``-stdin`` and ``-trigger``
-    are ported: the pipe run prints the file run's lines (timing apart),
-    and the burst recorder writes slices of the capture under ``-out``."""
+    """The flags that came after the first slice, each a parity case
+    now: ``-mesh`` (the CPU platform's mesh: the CPU repeated) prints the
+    single-device run's lines and quadjax's on the same argv (the peak's
+    window and bin, its magnitude and the survey within the chain's
+    tolerance); ``-stdin`` prints the file run's lines (timing apart); the
+    burst recorder writes slices of the capture under ``-out``."""
     monkeypatch.setenv("QUADRS_PLATFORM", "cpu")
     monkeypatch.chdir(tmp_path)
     path = tmp_path / "cap.sr21M.cs8"
     write_capture(path, "cs8", 50_000, seed=2)
+    if what == "-mesh":
+        argv = ["stream", "-shift", "280k", *flags, str(path)]
+        single = [f for i, f in enumerate(flags) if "-mesh" not in flags[max(0, i - 1) : i + 1]]
+        outs = {}
+        for tag, main, args in (("mesh", tcli.main, argv), ("jax", jcli.main, argv),
+                                ("single", tcli.main, ["stream", "-shift", "280k", *single, str(path)])):
+            rc, outs[tag], err = run(main, args, capsys)
+            assert rc == 0, (tag, err)
+        assert stats_counts(outs["mesh"]) == stats_counts(outs["single"]) == stats_counts(outs["jax"])
+        if "-scan" in flags:
+            def survey(out):
+                return [ln.split() for ln in out.splitlines() if re.match(r"^\s+\d+\s+[+-]\d", ln)]
+
+            for other in ("single", "jax"):
+                got, want = survey(outs["mesh"]), survey(outs[other])
+                assert len(got) == len(want) > 0
+                for g, w in zip(got, want):
+                    assert g[1] == w[1] and g[4] == w[4]  # frequency, occupancy
+                    np.testing.assert_allclose([float(g[2]), float(g[3])], [float(w[2]), float(w[3])], rtol=1e-5)
+            return
+        for other in ("single", "jax"):
+            (gw, gb, gm), (ww, wb, wm) = peak_line(outs["mesh"]), peak_line(outs[other])
+            assert (gw, gb) == (ww, wb) and abs(gm - wm) <= TOL * wm + 1e-5 * wm
+        return
     if what == "-stdin":
         import io
         from types import SimpleNamespace
@@ -168,11 +195,7 @@ def test_flags_not_yet_ported(flags, what, tmp_path, capsys, monkeypatch):
             s0 = int(b.name.split(".s")[1].split(".")[0])
             assert b.name.startswith(f"burst.b{k}.s") and b.read_bytes() == data[2 * s0 : 2 * s0 + b.stat().st_size]
         return
-    argv = ["stream", *flags, str(path)]
-    rc, out, err = run(tcli.main, argv, capsys)
-    assert rc == 1
-    assert f"stream {what}" in err and "not yet ported" in err and "ROADMAP" in err
-    assert "stream:" not in out
+    raise AssertionError(f"no case for {what}")
 
 
 def test_parse_errors_match_jax(capsys):

@@ -1087,3 +1087,137 @@ def test_serve_sequential_sessions_reuse_memory(cuda):
         runner.run_search(lambda w0, o: rows.extend(f"{w0 + j},{int(o[0][j])},{float(o[1][j]):.9g}"
                                                     for j in range(len(o[0]))))
         assert reply[-1].startswith("# stream: ") and reply[:-1] == rows, i
+
+
+# -- the mesh on the card ---------------------------------------------------------
+
+
+def _mesh_devices(kind: str, n: int) -> list[torch.device]:
+    """``n`` shards' devices: the first card repeated, or the cards in
+    turn (which needs two)."""
+    if kind == "repeated":
+        return [torch.device("cuda", 0)] * n
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+
+
+def test_launches_leave_the_current_device(cuda):
+    """A launch on an explicitly indexed card leaves the calling thread's
+    current device as it was (the launchers restore it): on the last card,
+    so that with two cards the launch is on ``cuda:1`` while ``cuda:0`` is
+    current."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    model, planes, bases, n_out, n_ok = inputs(FileFormat.COMPLEX_INT8, 32, 400, 64, 1 << 16, dev)
+    got = fe.fused_frontend_t(planes, bases, model.frontend_spec, n_out, n_valid=n_ok, tables=model.frontend_tables())
+    assert torch.cuda.current_device() == 0
+    from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
+
+    wm = WaterfallModel(WaterfallConfig(n_streams=2, fft_width=1024, stride=256)).to(dev)
+    raw = torch.from_numpy(wm.synth_raw(1024 * 8, seed=1)).to(dev)
+    wm.step(raw), wm.search(raw), wm.scan(raw, 1.0)
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    assert got.device == dev
+
+
+@pytest.mark.parametrize("kind", ["repeated", "distinct"])
+@pytest.mark.parametrize("n_time", [2, 4])
+@pytest.mark.parametrize("fmt", list(FileFormat))
+def test_sharded_stream_step_matches_single_device(cuda, fmt, n_time, kind):
+    """The sharded fused route against the single-device fused route over
+    the same span, at an absolute offset near 1e9, so that every shard's
+    bases are planned far from zero: each shard launches kernel 1 once,
+    and the current device is unchanged."""
+    from quadrs_tpu_torch.parallel.sharding import gather, halo_samples, make_mesh, make_sharded_stream_step, shard_chunk
+
+    mesh = make_mesh(n_time, 1, devices=_mesh_devices(kind, n_time))
+    model = PipelineModel(PipelineConfig(sample_rate=21_000_000, shift_freq=280_000, lp_freq=200_000,
+                                         decimate=32, taps=400, fft_width=64, fmt=fmt)).to(cuda)
+    halo = halo_samples(model.cfg)
+    n_local = 32 * 64 * 40
+    total = n_time * n_local
+    raw = synth_planes(fmt, total + halo, seed=n_time)
+    off = 999_999_937
+    torch.cuda.set_device(0)
+    before = fe.frontend_fir.launches
+    step = make_sharded_stream_step(model, mesh)
+    got = gather(step(shard_chunk(raw[:, :total], mesh, tail=raw[:, total:]), off), 1)[0]
+    assert fe.frontend_fir.launches == before + n_time
+    assert torch.cuda.current_device() == 0
+    full = torch.from_numpy(raw).to(cuda)
+    want = model.step_stream_fused(full, torch.from_numpy(model.stream_bases(off, total + halo)).to(cuda)).cpu().numpy()
+    assert got.shape == want.shape == (n_time * 40, 64)
+    assert float(np.abs(got - want).max()) <= TOL * float(want.max())
+
+
+@pytest.mark.parametrize("kind", ["repeated", "distinct"])
+@pytest.mark.parametrize("stride", [1024, 256, 1])
+def test_sharded_waterfall_matches_single_device(cuda, stride, kind):
+    """The sharded waterfall norms and search (a 2x2 mesh, two streams a
+    row) against the single-device kernels over the same span: norms to
+    the bank's rtol, peak bins equal but where the top two norms are
+    within it."""
+    from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
+    from quadrs_tpu_torch.parallel.sharding import gather, make_mesh, make_sharded_waterfall_step, shard_chunk, waterfall_halo
+
+    mesh = make_mesh(2, 2, devices=_mesh_devices(kind, 4))
+    model = WaterfallModel(WaterfallConfig(n_streams=4, fft_width=1024, stride=stride)).to(cuda)
+    halo = waterfall_halo(model.cfg)
+    n_local = stride * (3000 if stride == 1 else 40)
+    n = 2 * n_local
+    full = model.synth_raw(n + halo, seed=stride)
+    torch.cuda.set_device(0)
+    before = (wf.waterfall_norms.launches, wf.waterfall_search.launches)
+    norms = gather(make_sharded_waterfall_step(model, mesh)(shard_chunk(full[:, :, :n], mesh, tail=full[:, :, n:])), 1)
+    idx, val = gather(make_sharded_waterfall_step(model, mesh, search=True)(
+        shard_chunk(full[:, :, :n], mesh, tail=full[:, :, n:])), 1)
+    assert (wf.waterfall_norms.launches, wf.waterfall_search.launches) == (before[0] + 4, before[1] + 4)
+    assert torch.cuda.current_device() == 0
+    raw = torch.from_numpy(full).to(cuda)
+    want = model.step(raw).cpu().numpy()[:, : n // stride]
+    assert norms.shape == want.shape
+    np.testing.assert_allclose(norms, want, rtol=2e-5, atol=2e-5 * want.max())
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 2e-5 * top2[..., 1]
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(idx[clear], np.argmax(want, axis=-1)[clear])
+    np.testing.assert_allclose(val, want.max(axis=-1), rtol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["repeated", "distinct"])
+def test_mesh_runners_match_single_device_on_the_card(cuda, kind, tmp_path):
+    """``StreamRunner`` and ``WaterfallRunner`` over a 2x1 mesh from a
+    file against their single-device runs on the card: rows within the
+    kernels' tolerances, survey counts equal but at the threshold's
+    noise band, and the current device unchanged after every run."""
+    from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream_runner import StreamRunner, WaterfallRunner
+
+    fmt, win = FileFormat.COMPLEX_INT8, 32 * 64
+    path, _ = write_raw(tmp_path, fmt, 64 * 10 * win + 777, seed=5)
+    mesh = make_mesh(2, 1, devices=_mesh_devices(kind, 2))
+    torch.cuda.set_device(0)
+    model = PipelineModel(PipelineConfig(sample_rate=21_000_000, shift_freq=280_000, lp_freq=200_000,
+                                         decimate=32, taps=400, fft_width=64, fmt=fmt))
+    single = np.concatenate([r for _, r in collect(StreamRunner(open_capture(path), model, cuda,
+                                                               chunk_samples=10 * win).run)[0]])
+    sharded = np.concatenate([r for _, r in collect(StreamRunner(open_capture(path), model, cuda,
+                                                                chunk_samples=20 * win, mesh=mesh).run)[0]])
+    assert torch.cuda.current_device() == 0
+    assert sharded.shape == single.shape
+    assert float(np.abs(sharded - single).max()) <= TOL * float(single.max())
+    thr = float(np.median(single))
+    a = StreamRunner(open_capture(path), model, cuda, chunk_samples=10 * win).run_scan(thr)
+    b = StreamRunner(open_capture(path), model, cuda, chunk_samples=20 * win, mesh=mesh).run_scan(thr)
+    assert a.windows == b.windows and np.abs(a.above - b.above).max() <= 1
+    bank = WaterfallModel(WaterfallConfig(n_streams=1, fft_width=1024, stride=256, fmt=fmt))
+    one = np.concatenate([r for _, r in collect(WaterfallRunner([open_capture(path)], bank, cuda,
+                                                               chunk_windows=500).run)[0]], axis=1)
+    two = np.concatenate([r for _, r in collect(WaterfallRunner([open_capture(path)], bank, cuda,
+                                                               chunk_windows=500, mesh=mesh).run)[0]], axis=1)
+    assert torch.cuda.current_device() == 0
+    np.testing.assert_allclose(two, one, rtol=2e-5, atol=2e-5 * one.max())

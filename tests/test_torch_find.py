@@ -411,9 +411,19 @@ def test_error_texts_match_jax(monkeypatch):
 
 
 def test_mesh_names_roadmap_a13():
-    x, p = planted(1, 5_000, 64, [100])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tsinks.find_pattern(sources(x)[1], p, mesh=(2, 1), device=CPU)
+    """``mesh=`` (ROADMAP A13, ported): a 2x1 mesh of the CPU repeated
+    finds the single-device run's matches and the JAX package's 2-device
+    mesh's."""
+    from quadrs_tpu.parallel.sharding import make_mesh as jmake_mesh
+
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+
+    x, p = planted(1, 5_000, 64, [100, 2_345, 4_936])
+    j_src, t_src = sources(x)
+    got = tsinks.find_pattern(t_src, p, mesh=make_mesh(2, devices=[torch.device(CPU)] * 2), device=CPU)
+    assert list(got.offsets) == [100, 2_345, 4_936]
+    assert_same(got, tsinks.find_pattern(t_src, p, device=CPU))
+    assert_same(got, jsinks.find_pattern(j_src, p, mesh=jmake_mesh(2)))
 
 
 # -- the CLI -----------------------------------------------------------------
@@ -548,6 +558,12 @@ def test_cli_errors_match_jax(argv, cpu, capsys):
 
 
 def test_cli_mesh_names_roadmap_a13(cpu, capsys):
+    """``find -mesh 2`` (ROADMAP A13, ported): the single-device run's
+    lines and quadjax's on the same argv."""
     cap, p0, _ = files(cpu)
-    rc, out, err = run(tcli.main, ["from", cap, "find", "-pattern", p0, "-mesh", "2"], capsys)
-    assert rc == 1 and "ROADMAP A13" in err and "find:" not in out
+    argv = ["from", cap, "find", "-pattern", p0, "-threshold", "0.8", "-mesh", "2"]
+    rc, out, err = run(tcli.main, argv, capsys)
+    assert (rc, err) == (0, "") and out.splitlines()[-1].startswith("find: ")
+    assert len(out.splitlines()) > 2
+    same_lines(out, run(tcli.main, argv[:-2], capsys)[1])
+    same_lines(out, run(jcli.main, argv, capsys)[1])

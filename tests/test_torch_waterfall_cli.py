@@ -207,12 +207,29 @@ def test_stream_scan_matches_jax(tmp_path, capsys, monkeypatch):
     ],
 )
 def test_bank_flags_not_yet_ported(cmd, flags, what, tmp_path, capsys, monkeypatch):
-    """``-mesh`` still waits for its slice; ``-stdin`` and ``scan -plot`` are
-    ported: the pipe run prints the file run's lines (timing apart), the
-    plot run writes ``scan.s0.png`` as quadjax does (its pixels are held by
-    ``tests/test_torch_viz.py``)."""
+    """The flags that came after the bank's first slice, each a parity case
+    now: ``-mesh`` over a two-file bank (the CPU platform's mesh: the CPU
+    repeated) prints the single-device run's lines, and quadjax's on the
+    same argv within the bank's tolerance; ``-stdin`` prints the file
+    run's lines (timing apart); the plot run writes ``scan.s0.png`` as
+    quadjax does (its pixels are held by ``tests/test_torch_viz.py``)."""
     monkeypatch.setenv("QUADRS_PLATFORM", "cpu")
-    files = write_bank(tmp_path, "cs8", 5_000, 1)
+    files = write_bank(tmp_path, "cs8", 5_000, 2 if what == "-mesh" else 1)
+    if what == "-mesh":
+        outs = {}
+        for tag, main, argv in (("mesh", tcli.main, [cmd, *flags, *files]), ("jax", jcli.main, [cmd, *flags, *files]),
+                                ("single", tcli.main, [cmd, *files])):
+            rc, out, err = run(main, argv, capsys)
+            assert rc == 0, (tag, err)
+            outs[tag] = [ln for ln in out.splitlines() if not ln.startswith(f"{cmd}: ")]
+            assert stats_counts(out, cmd) == (8_192, 8)  # two streams of four 1024-sample windows
+        assert outs["mesh"] == outs["single"] and len(outs["mesh"]) > 1
+        for g, w in zip(outs["mesh"], outs["jax"]):
+            num = r"[-+]?\d+(?:\.\d*)?(?:e[-+]?\d+)?%?"
+            gn, wn = re.findall(num, g), re.findall(num, w)
+            assert len(gn) == len(wn)
+            np.testing.assert_allclose([float(x.rstrip("%")) for x in gn], [float(x.rstrip("%")) for x in wn], rtol=1e-5)
+        return
     if what == "-stdin":
         import io
         import sys
@@ -235,9 +252,7 @@ def test_bank_flags_not_yet_ported(cmd, flags, what, tmp_path, capsys, monkeypat
         assert (rc, err) == (0, "") and "wrote scan.s0.png" in out
         assert (tmp_path / "scan.s0.png").exists()
         return
-    assert rc == 1
-    assert f"{cmd} {what}" in err and "not yet ported" in err and "ROADMAP" in err
-    assert f"{cmd}:" not in out
+    raise AssertionError(f"no case for {what}")
 
 
 def test_bank_parse_errors_match_jax(capsys):
