@@ -336,14 +336,94 @@ def profile_pipe(card: str, path: str, cfg, sink) -> None:
           f"copies and kernels at once {both:.2f} ms ({card})")
 
 
+def host_split(run) -> tuple[float, dict[str, float]]:
+    """One call of ``run()`` (a runner's run, whose outputs its sink
+    drops) timed by host step: (wall ms, {step: ms}).  The consumer's
+    steps: awaiting the staging thread's next chunk, the uploads, the
+    launches (the runner's ``step``), the downloads started and awaited,
+    the sink.  The staging thread's: its time producing chunks, of which
+    waiting for a free slot and for its pool of reader threads; the file
+    reads (summed over the reader threads, or the loader's prefetcher as
+    the staging thread waits on it) and the NCO bases' planning."""
+    import threading
+    from unittest import mock
+
+    from quadrs_tpu_torch import stream_runner as sr
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.native.loader import NativeCapture
+    from quadrs_tpu_torch.sources import SampleSource
+    from quadrs_tpu_torch.staging import UploadRing
+
+    ms: dict[str, float] = {}
+    lock = threading.Lock()
+
+    def add(key, seconds):
+        with lock:
+            ms[key] = ms.get(key, 0.0) + seconds * 1e3
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                add(key, time.perf_counter() - t0)
+
+        return call
+
+    def timed_gen(gen, key):
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    return
+                finally:
+                    add(key, time.perf_counter() - t0)
+                yield item
+        finally:
+            gen.close()
+
+    background, pipelined, prefetch = sr._background, sr._pipelined, NativeCapture.prefetch
+
+    class Pool(sr.ThreadPoolExecutor):
+        def map(self, fn, *iterables, **k):
+            return list(timed(super().map, "reader pool")(fn, *iterables, **k))
+
+    class Download(sr.Download):
+        __init__ = timed(sr.Download.__init__, "downloads started")
+        wait = timed(sr.Download.wait, "downloads awaited")
+
+    def pipelined_timed(ring, staged, step, emit, devices, max_chunks):
+        return pipelined(ring, staged, timed(step, "launches"), None if emit is None else timed(emit, "sink"),
+                         devices, max_chunks)
+
+    with mock.patch.object(sr, "_background", lambda gen, depth=2: timed_gen(
+            background(timed_gen(gen, "staging thread"), depth), "awaiting staged chunks")), \
+            mock.patch.object(sr, "_pipelined", pipelined_timed), mock.patch.object(sr, "Download", Download), \
+            mock.patch.object(sr, "ThreadPoolExecutor", Pool), \
+            mock.patch.object(UploadRing, "upload", timed(UploadRing.upload, "uploads")), \
+            mock.patch.object(UploadRing, "take", timed(UploadRing.take, "slot waits")), \
+            mock.patch.object(SampleSource, "stage", timed(SampleSource.stage, "reads")), \
+            mock.patch.object(NativeCapture, "prefetch", lambda self, *a, **k: timed_gen(prefetch(self, *a, **k), "reads")), \
+            mock.patch.object(PipelineModel, "stream_bases", timed(PipelineModel.stream_bases, "bases")):
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, ms
+
+
 def profile_mesh(card: str) -> None:
     """The mesh runs of ``chip_smoke.py``'s phase 4 against their
     single-device runs, warm: the stream (2^24 samples, 4M-sample chunks)
     on a 4x1 mesh of the repeated card, the bank (8 captures of 2^21, 2000
     windows a chunk) at strides 1024 and 256 on a 2x2 mesh; each run's
-    wall, the device's busy time under ``torch.profiler``, and the host
-    functions that took the most of the run under ``cProfile`` (its own
-    time, callees excluded)."""
+    wall, the device's busy time under ``torch.profiler``, one run split
+    by host step (:func:`host_split`), and the host functions that took
+    the most of the run under ``cProfile`` (its own time, callees
+    excluded; the consumer's thread only).  The sinks drop each output,
+    as the CLI's file sinks do once written."""
     import cProfile
     import pstats
 
@@ -370,26 +450,29 @@ def profile_mesh(card: str) -> None:
             for name, mesh in (("single", None), ("2x2", make_mesh(2, 2, devices=[card0] * 4))):
                 runs[f"bank -stride {stride} {name}"] = WaterfallRunner(
                     [open_capture(f) for f in files], bank, cs.DEVICE, chunk_windows=cs.BANK_CHUNK, mesh=mesh)
+        def sink(w0, out):
+            pass
+
         for name, runner in runs.items():
-            rows = []
-            runner.run(lambda w0, out: rows.append(out))  # warm-up: rings, tables, kernels
+            runner.run(sink)  # warm-up: rings, tables, kernels
             walls = []
             for _ in range(3):
-                rows.clear()
                 t0 = time.perf_counter()
-                runner.run(lambda w0, out: rows.append(out))
+                runner.run(sink)
                 walls.append((time.perf_counter() - t0) * 1e3)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                runner.run(lambda w0, out: rows.append(out))
+                runner.run(sink)
                 wall = (time.perf_counter() - t0) * 1e3
             busy = device_busy(prof)[0]
+            split_wall, split = host_split(lambda: runner.run(sink))
             host = cProfile.Profile()
-            host.runcall(runner.run, lambda w0, out: rows.append(out))
+            host.runcall(runner.run, sink)
             top = pstats.Stats(host).sort_stats("tottime")
             funcs = sorted(top.stats.items(), key=lambda kv: -kv[1][2])[:6]
             print(f"{name}: warm walls {', '.join(f'{w:.2f}' for w in walls)} ms; profiled {wall:.2f} ms, device busy "
                   f"{busy:.2f} ms ({100 * busy / wall:.1f}%) ({card})")
+            print(f"  host split ({split_wall:.2f} ms): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " ms")
             for (file, line, fn), (_, calls, tottime, *_rest) in funcs:
                 print(f"  {tottime * 1e3:9.2f} ms  {calls:6d}x  {os.path.basename(file)}:{line} {fn}")
 

@@ -115,7 +115,7 @@ def run_channelize(
     done = 0
     lag0 = 0
     if mesh is not None:
-        from quadrs_tpu_torch.parallel.sharding import gather, make_sharded_channelize_step, shard_span
+        from quadrs_tpu_torch.parallel.sharding import join, make_sharded_channelize_step, shard_span
 
         src = chan.inner
         if src.root() is not src or not getattr(src, "has_staging", False):
@@ -136,7 +136,7 @@ def run_channelize(
             outs = step(shard_span(src.stage(o * k, (o + step_out) * k + size), mesh, size))
             # each shard's (n, K) block channels-first on its device: the
             # channels come back as rows, joined shard after shard
-            data = gather([[channels_first(y[None])[0] for y in row] for row in outs], axis=1)
+            data = join([[channels_first(y[None])[0] for y in row] for row in outs], axis=1).cpu().numpy()
             yield ChannelChunk(start=o, data=data)
             done += step_out
             if progress is not None:

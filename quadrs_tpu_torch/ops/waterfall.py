@@ -212,9 +212,17 @@ def fused_waterfall_search_reference(
     return peaks_of(fused_waterfall_reference(planes, spec, n_windows, stride=stride, window=window))
 
 
-def scan_of(norms: torch.Tensor, threshold) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def scan_of(
+    norms: torch.Tensor, threshold, n_valid: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(S, windows, W) norms -> per (stream, bin) the f32 sum, max and
-    count of norms above ``threshold`` (compared in f32)."""
+    count of norms above ``threshold`` (compared in f32), over the first
+    ``n_valid`` windows (by default all; none gives 0, -inf and 0)."""
+    if n_valid is not None:
+        norms = norms[:, : max(0, n_valid)]
+    if not norms.shape[1]:
+        zero = norms.new_zeros(norms.shape[0], norms.shape[2])
+        return zero, torch.full_like(zero, -torch.inf), zero
     thr = torch.tensor(float(threshold), dtype=torch.float32, device=norms.device)
     return norms.sum(dim=1), torch.amax(norms, dim=1), (norms > thr).sum(dim=1).to(torch.float32)
 

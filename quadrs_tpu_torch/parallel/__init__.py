@@ -7,9 +7,10 @@ host, stream banks, the sharded matched filter and channelizer.
 
 from quadrs_tpu_torch.parallel.sharding import (  # noqa: F401
     Mesh,
-    gather,
     halo_samples,
+    join,
     make_mesh,
     make_sharded_stream_step,
-    shard_chunk,
+    shard_bases,
+    shard_span,
 )

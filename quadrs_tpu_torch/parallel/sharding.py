@@ -140,18 +140,19 @@ def make_sharded_stream_step(model, mesh: Mesh, search: bool = False, frontend: 
     """The multi-device streaming step: ``step(blocks, off, bases=None)``.
 
     ``blocks[s][t]``: shard ``(s, t)``'s native planes, (2, n_local +
-    halo) (or (1, 2, n_local + halo), as :func:`shard_chunk` places a
+    halo) (or (1, 2, n_local + halo), as :func:`shard_span` places a
     bank's) on ``mesh.devices[s][t]``: stream ``s``'s samples from ``off +
     t * n_local``, its slice and then its :func:`halo_samples` halo (the
     next shard's head, or the chunk's true continuation for the last
     shard; zeros at EOF).  Every stream of a bank starts at ``off``.
-    ``bases``: optionally each shard's per-tile NCO bases on its device
-    (the runner stages them beside the planes); by default planned here
-    from each shard's absolute offset.
+    ``bases``: on the fused route, ``bases[s][t]`` is shard ``(s, t)``'s
+    per-tile NCO bases on its device, from :func:`shard_bases` (the
+    runner plans them on its staging thread and stages them beside the
+    planes); the chain plans its first-sample phase here.
 
     Returns ``out[s][t]``: shard ``(s, t)``'s (1, windows, fft_width)
     f32 norms, or with ``search`` its peak bins and magnitudes, each
-    (1, windows); :func:`gather` assembles them in (stream, time) order.
+    (1, windows); :func:`join` assembles them in (stream, time) order.
     Each shard runs the single-device route of ``frontend`` (``auto``:
     the fused frontend inside its envelope, the chain of torch ops
     outside it) on its device's current stream.
@@ -187,14 +188,13 @@ def make_sharded_stream_step(model, mesh: Mesh, search: bool = False, frontend: 
                             f"per-shard slice of {n_local} samples is shorter than the {halo}-sample "
                             f"halo; use chunks of at least {halo} samples per time-shard"
                         )
-                    shard_off = int(off) + t * n_local
                     m = on(block.device)
                     if fused:
-                        head = bases[s][t] if bases is not None else torch.as_tensor(
-                            m.stream_bases(shard_off, block.shape[-1]), device=block.device)
-                        out = (m.step_stream_fused_search if search else m.step_stream_fused)(block, head)
+                        if bases is None:
+                            raise ValueError("the fused route takes each shard's NCO bases (shard_bases)")
+                        out = (m.step_stream_fused_search if search else m.step_stream_fused)(block, bases[s][t])
                     else:
-                        theta0 = m.theta0(np.asarray([shard_off]))[0]
+                        theta0 = m.theta0(np.asarray([int(off) + t * n_local]))[0]
                         out = (m.step_stream_search if search else m.step_stream)(block, theta0)
                     outs[s].append(tuple(o[None] for o in out) if search else out[None])
             return outs
@@ -202,6 +202,15 @@ def make_sharded_stream_step(model, mesh: Mesh, search: bool = False, frontend: 
         return step
 
     return _memo(model, ("stream", mesh, search, frontend), build)
+
+
+def shard_bases(model, off: int, n_local: int, cols: int, t: int) -> np.ndarray:
+    """Time shard ``t``'s per-tile NCO bases on the fused route, for a
+    block of ``cols`` samples (its slice and halo) of a chunk that starts
+    at sample ``off`` and gives each shard ``n_local``: planned on the
+    host from the shard's absolute offset, exact at any offset, so no
+    phase passes between shards."""
+    return model.stream_bases(off + t * n_local, cols)
 
 
 def waterfall_halo(cfg) -> int:
@@ -387,50 +396,15 @@ def shard_span(span: np.ndarray, mesh: Mesh, halo: int) -> list[list[torch.Tenso
     ]
 
 
-def shard_chunk(raw: np.ndarray, mesh: Mesh, tail: np.ndarray | None = None) -> list[list[torch.Tensor]]:
-    """:func:`shard_span` of a chunk ``raw`` and its continuation ``tail``
-    (the JAX package's ``shard_chunk`` and ``replicate_tail`` in one: the
-    last shard's halo is ``tail``; no tail, no halo)."""
-    if tail is None:
-        return shard_span(raw, mesh, 0)
-    return shard_span(np.concatenate([raw, tail], axis=-1), mesh, tail.shape[-1])
-
-
-def gather(outs, axis: int = 0):
-    """Shard outputs (``out[s][t]``, each a tensor or a tuple of them) as
-    host numpy in (stream, time) order: each mesh row's shards
-    concatenated along ``axis``, the rows then along axis 0; one copy of
-    each element into the result."""
-
-    def host(x):
-        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-    first = outs[0][0]
-    if isinstance(first, tuple):
-        return tuple(gather([[o[i] for o in row] for row in outs], axis) for i in range(len(first)))
-    rows = [[host(o) for o in row] for row in outs]
-    if axis == 0:
-        return np.concatenate([o for row in rows for o in row], axis=0)
-    shape = list(rows[0][0].shape)
-    shape[0] *= len(rows)
-    shape[axis] = sum(o.shape[axis] for o in rows[0])
-    out = np.empty(shape, dtype=rows[0][0].dtype)
-    height = rows[0][0].shape[0]
-    for s, row in enumerate(rows):
-        at = 0
-        for o in row:
-            index = [slice(s * height, (s + 1) * height)] + [slice(None)] * (out.ndim - 1)
-            index[axis] = slice(at, at + o.shape[axis])
-            out[tuple(index)] = o
-            at += o.shape[axis]
-    return out
-
-
 def join(outs, axis: int = 0):
-    """Shard outputs that all lie on one device, joined there in
-    :func:`gather`'s layout: one tensor (or a tuple of them) to bring
-    back, so the host copies nothing more than a single-device run."""
+    """Shard outputs (``out[s][t]``, each a tensor or a tuple of them)
+    joined on the first shard's device in (stream, time) order: each mesh
+    row's shards concatenated along ``axis``, the rows then along axis 0.
+    An output on another device crosses to it first (after the work
+    queued on its own device's stream); so one tensor (or tuple) comes
+    back to the host, as from a single-device run."""
     first = outs[0][0]
     if isinstance(first, tuple):
         return tuple(join([[o[i] for o in row] for row in outs], axis) for i in range(len(first)))
-    return torch.cat([torch.cat(row, dim=axis) for row in outs], dim=0)
+    dev = first.device
+    return torch.cat([torch.cat([o.to(dev, non_blocking=True) for o in row], dim=axis) for row in outs], dim=0)

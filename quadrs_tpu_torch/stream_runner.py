@@ -48,11 +48,11 @@ from quadrs_tpu_torch.models.waterfall import WaterfallModel
 from quadrs_tpu_torch.ops.waterfall import scan_of
 from quadrs_tpu_torch.parallel.sharding import (
     FRONTENDS,
-    gather,
     halo_samples,
     join,
     make_sharded_stream_step,
     make_sharded_waterfall_step,
+    shard_bases,
     waterfall_halo,
 )
 from quadrs_tpu_torch.sources import LivePipeStream, SampleSource
@@ -333,25 +333,22 @@ def _stack_streams(mode: str, outs: list):
     return np.stack(outs)
 
 
-def _shard_scan(norms: torch.Tensor, n_valid: int, threshold) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(S, windows, W) norms of one shard -> per (stream, bin) the f32
-    sum, max and count above ``threshold`` of its first ``n_valid``
-    windows (a shard wholly past the end gives 0, -inf and 0)."""
-    valid = (torch.arange(norms.shape[1], device=norms.device) < n_valid)[None, :, None]
-    thr = torch.tensor(float(threshold), dtype=torch.float32, device=norms.device)
-    return (torch.where(valid, norms, 0.0).sum(dim=1), torch.where(valid, norms, -torch.inf).amax(dim=1),
-            (valid & (norms > thr)).sum(dim=1).to(torch.float32))
+def _shard_stats(outs, threshold, n_valid=None):
+    """Each shard's scan statistics (``scan_of`` over its norms, its first
+    ``n_valid(t)`` windows where given) joined on the first shard's
+    device: sum, max and count, each (n_rows * n_time, S_l, W) in (row,
+    time) order."""
+    return join([[tuple(a[None] for a in scan_of(out, threshold, None if n_valid is None else n_valid(t)))
+                  for t, out in enumerate(row)] for row in outs])
 
 
-def _join_scan(parts, n_rows: int, n_time: int):
-    """Shard scan statistics ((sum, max, count) per shard, in (row, time)
-    order) as the chunk's (S, W) sum in f64, max and count."""
-    rows = []
-    for r in range(n_rows):
-        mine = parts[r * n_time : (r + 1) * n_time]
-        rows.append((sum(m[0].astype(np.float64) for m in mine), np.max([m[1] for m in mine], axis=0),
-                     sum(m[2].astype(np.int64) for m in mine)))
-    return tuple(np.concatenate(parts, axis=0) for parts in zip(*rows))
+def _join_scan(stats, n_rows: int, n_time: int):
+    """:func:`_shard_stats` on the host as the chunk's (S, W) sum in f64,
+    max and count: each stream's shards summed over time."""
+    total, peak, count = (a.reshape(n_rows, n_time, *a.shape[1:]) for a in stats)
+    width = total.shape[-1]
+    return (total.astype(np.float64).sum(axis=1).reshape(-1, width), peak.max(axis=1).reshape(-1, width),
+            count.astype(np.int64).sum(axis=1).reshape(-1, width))
 
 
 class StreamRunner:
@@ -700,7 +697,8 @@ class StreamRunner:
         source into the shard's ring, with its NCO bases on the fused
         route, planned from the shard's absolute offset; every shard runs
         the single-device route on its device's current stream, and the
-        shards' outputs come back to the host and are joined there.
+        shards' outputs are joined on the first shard's device and come
+        back to the host as one.
         Chunks run while a whole chunk and its continuation lie inside
         the capture; the rest (where the continuation would cross EOF)
         runs single-device on the runner's device, stream by stream and
@@ -715,7 +713,6 @@ class StreamRunner:
         step = make_sharded_stream_step(model, mesh, search=mode == "search",
                                         frontend="fused" if self.fused else "chain")
         shards = [(s, t) for s in range(n_stream) for t in range(n_time)]
-        one_device = len(mesh.distinct) == 1  # the shards' outputs join on it
         n_bases = model.stream_bases(0, cols).size if self.fused else 0
         if self._shard_rings is None:
             buffers = {"planes": (2 * cols, model.cfg.fmt.torch_dtype)}
@@ -761,7 +758,7 @@ class StreamRunner:
                         else:
                             self.sources[s].stage(lo, lo + cols, out=slots[i])
                         if heads is not None:
-                            heads[i][...] = model.stream_bases(lo, cols)
+                            heads[i][...] = shard_bases(model, off, n_local, cols, t)
 
                     list(pool.map(fill, range(len(shards))))
                     count += 1
@@ -773,30 +770,15 @@ class StreamRunner:
             bases = ([[bufs[s * n_time + t]["bases"] for t in range(n_time)] for s in range(n_stream)]
                      if self.fused else None)
             outs = step(blocks, off, bases)
-            if mode == "scan":
-                return tuple(a for row in outs for out in row for a in scan_of(out, threshold))
-            if one_device:
-                return join(outs, 1)
-            return tuple(a for row in outs for out in row for a in (out if mode == "search" else (out,)))
-
-        def joined(out):
-            """A chunk's output in the single-device layout, with a stream
-            axis for a bank; from several devices the shards came back one
-            by one (flat, in (stream, time) order) and are joined here."""
-            if mode == "scan":
-                parts = [out[3 * i : 3 * i + 3] for i in range(len(shards))]
-                return _join_scan(parts, n_stream, n_time)
-            k = 2 if mode == "search" else 1
-            if not one_device:
-                out = tuple(gather([[out[k * (s * n_time + t) + c] for t in range(n_time)] for s in range(n_stream)], 1)
-                            for c in range(k))
-                out = out if k == 2 else out[0]
-            if n_stream > 1:
-                return out
-            return tuple(o[0] for o in out) if k == 2 else out[0]
+            return _shard_stats(outs, threshold) if mode == "scan" else join(outs, 1)
 
         def emit_at(off, out):
-            emit(off // self._win_raw, joined(out))
+            # the single-device layout, with a stream axis for a bank
+            if mode == "scan":
+                out = _join_scan(out, n_stream, n_time)
+            elif n_stream == 1:
+                out = tuple(o[0] for o in out) if mode == "search" else out[0]
+            emit(off // self._win_raw, out)
 
         _pipelined(rings, staged(), run_chunk, None if emit is None else emit_at, mesh.distinct, max_chunks)
         if max_chunks is not None and done[0] >= max_chunks:
@@ -1075,7 +1057,8 @@ class WaterfallRunner:
         stride cells a shard; the staging thread stages each shard's
         block (its slice and its halo, zeros past EOF) from every source
         of its mesh row straight into the shard's ring, and each chunk's
-        outputs are joined on the host and cut to its valid windows.
+        outputs are joined on the first shard's device and cut to its
+        valid windows there.
 
         Accounting is the single-device path's (new real samples up to the
         last valid window's end), so ``RunStats.msps`` compares between
@@ -1090,7 +1073,6 @@ class WaterfallRunner:
         nw_local = n_local // cfg.stride
         step = make_sharded_waterfall_step(self.model, mesh, search=mode == "search")
         shards = [(r, t) for r in range(n_rows) for t in range(n_time)]
-        one_device = len(mesh.distinct) == 1  # the shards' outputs join on it
         if self._shard_rings is None:
             self._shard_rings = RingSet([mesh.devices[r][t] for r, t in shards], 2,
                                         planes=(per * 2 * cols, cfg.fmt.torch_dtype))
@@ -1142,32 +1124,17 @@ class WaterfallRunner:
                     w += n_w
 
         def run_chunk(at, bufs):
+            n_valid = at[1]
             blocks = [[bufs[r * n_time + t]["planes"] for t in range(n_time)] for r in range(n_rows)]
             outs = step(blocks)
             if mode == "scan":
-                n_valid = at[1]
-                return tuple(a for row in outs for t, out in enumerate(row)
-                             for a in _shard_scan(out, n_valid - t * nw_local, threshold))
-            if one_device:
-                # joined on the device, the windows past the chunk's valid
-                # ones (those reading the zeros past EOF) left there
-                out = join(outs, 1)
-                return tuple(o[:, : at[1]] for o in out) if mode == "search" else out[:, : at[1]]
-            return tuple(a for row in outs for out in row for a in (out if mode == "search" else (out,)))
+                return _shard_stats(outs, threshold, lambda t: n_valid - t * nw_local)
+            # the windows past the chunk's valid ones (those reading the
+            # zeros past EOF) are left on the device
+            out = join(outs, 1)
+            return tuple(o[:, :n_valid] for o in out) if mode == "search" else out[:, :n_valid]
 
         def emit_at(at, out):
-            w, n_valid = at
-            if mode == "scan":
-                emit(w, _join_scan([out[3 * i : 3 * i + 3] for i in range(len(shards))], n_rows, n_time))
-                return
-            if one_device:
-                emit(w, out)
-                return
-            # each shard's valid windows only, joined here
-            keep = [max(0, min(nw_local, n_valid - t * nw_local)) for t in range(n_time)]
-            k = 2 if mode == "search" else 1
-            got = tuple(gather([[out[k * (r * n_time + t) + c][:, : keep[t]] for t in range(n_time)]
-                                for r in range(n_rows)], 1) for c in range(k))
-            emit(w, got if k == 2 else got[0])
+            emit(at[0], _join_scan(out, n_rows, n_time) if mode == "scan" else out)
 
         _pipelined(rings, staged(), run_chunk, None if emit is None else emit_at, mesh.distinct, max_chunks)

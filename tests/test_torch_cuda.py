@@ -1128,9 +1128,11 @@ def test_launches_leave_the_current_device(cuda):
 def test_sharded_stream_step_matches_single_device(cuda, fmt, n_time, kind):
     """The sharded fused route against the single-device fused route over
     the same span, at an absolute offset near 1e9, so that every shard's
-    bases are planned far from zero: each shard launches kernel 1 once,
-    and the current device is unchanged."""
-    from quadrs_tpu_torch.parallel.sharding import gather, halo_samples, make_mesh, make_sharded_stream_step, shard_chunk
+    bases are planned far from zero (by ``shard_bases``, as the runner
+    plans them): each shard launches kernel 1 once, and the current device
+    is unchanged."""
+    from quadrs_tpu_torch.parallel.sharding import halo_samples, join, make_mesh, make_sharded_stream_step, shard_bases
+    from quadrs_tpu_torch.parallel.sharding import shard_span
 
     mesh = make_mesh(n_time, 1, devices=_mesh_devices(kind, n_time))
     model = PipelineModel(PipelineConfig(sample_rate=21_000_000, shift_freq=280_000, lp_freq=200_000,
@@ -1143,7 +1145,9 @@ def test_sharded_stream_step_matches_single_device(cuda, fmt, n_time, kind):
     torch.cuda.set_device(0)
     before = fe.frontend_fir.launches
     step = make_sharded_stream_step(model, mesh)
-    got = gather(step(shard_chunk(raw[:, :total], mesh, tail=raw[:, total:]), off), 1)[0]
+    bases = [[torch.from_numpy(shard_bases(model, off, n_local, n_local + halo, t)).to(d) for t, d in enumerate(row)]
+             for row in mesh.devices]
+    got = join(step(shard_span(raw, mesh, halo), off, bases), 1)[0].cpu().numpy()
     assert fe.frontend_fir.launches == before + n_time
     assert torch.cuda.current_device() == 0
     full = torch.from_numpy(raw).to(cuda)
@@ -1160,7 +1164,7 @@ def test_sharded_waterfall_matches_single_device(cuda, stride, kind):
     the bank's rtol, peak bins equal but where the top two norms are
     within it."""
     from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
-    from quadrs_tpu_torch.parallel.sharding import gather, make_mesh, make_sharded_waterfall_step, shard_chunk, waterfall_halo
+    from quadrs_tpu_torch.parallel.sharding import join, make_mesh, make_sharded_waterfall_step, shard_span, waterfall_halo
 
     mesh = make_mesh(2, 2, devices=_mesh_devices(kind, 4))
     model = WaterfallModel(WaterfallConfig(n_streams=4, fft_width=1024, stride=stride)).to(cuda)
@@ -1170,9 +1174,9 @@ def test_sharded_waterfall_matches_single_device(cuda, stride, kind):
     full = model.synth_raw(n + halo, seed=stride)
     torch.cuda.set_device(0)
     before = (wf.waterfall_norms.launches, wf.waterfall_search.launches)
-    norms = gather(make_sharded_waterfall_step(model, mesh)(shard_chunk(full[:, :, :n], mesh, tail=full[:, :, n:])), 1)
-    idx, val = gather(make_sharded_waterfall_step(model, mesh, search=True)(
-        shard_chunk(full[:, :, :n], mesh, tail=full[:, :, n:])), 1)
+    norms = join(make_sharded_waterfall_step(model, mesh)(shard_span(full, mesh, halo)), 1).cpu().numpy()
+    idx, val = (o.cpu().numpy() for o in join(make_sharded_waterfall_step(model, mesh, search=True)(
+        shard_span(full, mesh, halo)), 1))
     assert (wf.waterfall_norms.launches, wf.waterfall_search.launches) == (before[0] + 4, before[1] + 4)
     assert torch.cuda.current_device() == 0
     raw = torch.from_numpy(full).to(cuda)

@@ -68,6 +68,28 @@ def jmesh(n_time, n_stream=1):
     return jsh.make_mesh(n_time, n_stream)
 
 
+def blocks_of(raw, mesh, tail=None):
+    """A chunk ``raw`` and its continuation ``tail`` on the mesh, as the
+    JAX package's ``shard_chunk`` and ``replicate_tail`` place them: the
+    last shard's halo is ``tail``; no tail, no halo."""
+    if tail is None:
+        return tsh.shard_span(raw, mesh, 0)
+    return tsh.shard_span(np.concatenate([raw, tail], axis=-1), mesh, tail.shape[-1])
+
+
+def bases_of(model, mesh, off, n_local, cols):
+    """Each shard's fused NCO bases on its device, as the runner stages
+    them (:func:`shard_bases`)."""
+    return [[torch.from_numpy(tsh.shard_bases(model, off, n_local, cols, t)).to(d) for t, d in enumerate(row)]
+            for row in mesh.devices]
+
+
+def joined(outs):
+    """Shard outputs joined along the window axis, on the host."""
+    out = tsh.join(outs, 1)
+    return tuple(o.numpy() for o in out) if isinstance(out, tuple) else out.numpy()
+
+
 def cf32_bytes(data: np.ndarray) -> np.ndarray:
     inter = np.empty((len(data), 2), dtype=np.float32)
     inter[:, 0], inter[:, 1] = data.real, data.imag
@@ -178,9 +200,10 @@ def sharded_step_case(fmt, taps, n_time, n_stream, offset, frontend="auto", seed
     n_local = cfg.decimate * cfg.fft_width * 2
     total = n_time * n_local
     raws = np.stack([jm.synth_raw(total + halo, seed=seed + s) for s in range(n_stream)])
-    got = tsh.gather(
-        tsh.make_sharded_stream_step(tm, tmesh(n_time, n_stream), frontend=frontend)(
-            tsh.shard_chunk(raws[:, :, :total], tmesh(n_time, n_stream), tail=raws[:, :, total:]), offset), 1)
+    tm_mesh = tmesh(n_time, n_stream)
+    got = joined(tsh.make_sharded_stream_step(tm, tm_mesh, frontend=frontend)(
+        blocks_of(raws[:, :, :total], tm_mesh, tail=raws[:, :, total:]), offset,
+        bases_of(tm, tm_mesh, offset, n_local, n_local + halo)))
     mesh = jmesh(n_time, n_stream)
     theta0 = jm.theta0(offset + np.arange(n_time, dtype=np.int64) * n_local)
     jax_mesh = np.asarray(jsh.make_sharded_stream_step(jm, mesh)(
@@ -241,9 +264,10 @@ def test_sharded_search_step_matches_norms():
     halo = tsh.halo_samples(tm.cfg)
     total = 4 * 8 * 32 * 3
     raw = jm.synth_raw(total + halo, seed=5)[None]
-    blocks = tsh.shard_chunk(raw[:, :, :total], tmesh(4), tail=raw[:, :, total:])
-    norms = tsh.gather(tsh.make_sharded_stream_step(tm, tmesh(4))(blocks, 77), 1)
-    idx, val = tsh.gather(tsh.make_sharded_stream_step(tm, tmesh(4), search=True)(blocks, 77), 1)
+    blocks = blocks_of(raw[:, :, :total], tmesh(4), tail=raw[:, :, total:])
+    bases = bases_of(tm, tmesh(4), 77, total // 4, total // 4 + halo)
+    norms = joined(tsh.make_sharded_stream_step(tm, tmesh(4))(blocks, 77, bases))
+    idx, val = joined(tsh.make_sharded_stream_step(tm, tmesh(4), search=True)(blocks, 77, bases))
     np.testing.assert_array_equal(idx, np.argmax(norms, axis=-1))
     np.testing.assert_array_equal(val, norms.max(axis=-1))
 
@@ -254,7 +278,7 @@ def test_sharded_steps_are_memoized_and_validate():
     assert tsh.make_sharded_stream_step(tm, tmesh(4)) is step
     assert tsh.make_sharded_stream_step(tm, tmesh(4), search=True) is not step
     halo = tsh.halo_samples(tm.cfg)
-    short = tsh.shard_chunk(np.zeros((1, 2, 4 * 32), np.int8), tmesh(4), tail=np.zeros((1, 2, halo), np.int8))
+    short = blocks_of(np.zeros((1, 2, 4 * 32), np.int8), tmesh(4), tail=np.zeros((1, 2, halo), np.int8))
     with pytest.raises(ValueError, match="shorter than the 88-sample halo"):
         step(short, 0)
     with pytest.raises(ValueError, match="2 x 4 grid"):
@@ -262,7 +286,10 @@ def test_sharded_steps_are_memoized_and_validate():
     with pytest.raises(ValueError, match="group delay"):
         tsh.make_sharded_stream_step(models("cs8", taps=4000)[1], tmesh(2))
     with pytest.raises(ValueError, match="equal time shards"):
-        tsh.shard_chunk(np.zeros((1, 2, 30), np.int8), tmesh(4))
+        blocks_of(np.zeros((1, 2, 30), np.int8), tmesh(4))
+    whole = blocks_of(np.zeros((1, 2, 4 * 256), np.int8), tmesh(4), tail=np.zeros((1, 2, halo), np.int8))
+    with pytest.raises(ValueError, match="NCO bases"):
+        step(whole, 0)
 
 
 # -- the sharded waterfall step (tests/test_waterfall_pallas.py) --------------
@@ -285,7 +312,7 @@ def test_sharded_waterfall_strided(stride):
     full = jm.synth_raw(n + halo, seed=15)
     raw, tail = full[:, :, :n], full[:, :, n:]
     mesh = tmesh(4, 2)
-    got = tsh.gather(tsh.make_sharded_waterfall_step(tm, mesh)(tsh.shard_chunk(raw, mesh, tail=tail if halo else None)), 1)
+    got = joined(tsh.make_sharded_waterfall_step(tm, mesh)(blocks_of(raw, mesh, tail=tail if halo else None)))
     single = tm.step(torch.from_numpy(full)).numpy()[:, : n // stride]
     j = jmesh(4, 2)
     jstep = jsh.make_sharded_waterfall_step(jm, j)
@@ -293,8 +320,8 @@ def test_sharded_waterfall_strided(stride):
     assert got.shape == single.shape == jax_mesh.shape
     np.testing.assert_array_equal(got, single)
     np.testing.assert_allclose(got, jax_mesh, rtol=WF_RTOL, atol=WF_RTOL * jax_mesh.max())
-    idx, val = tsh.gather(tsh.make_sharded_waterfall_step(tm, mesh, search=True)(
-        tsh.shard_chunk(raw, mesh, tail=tail if halo else None)), 1)
+    idx, val = joined(tsh.make_sharded_waterfall_step(tm, mesh, search=True)(
+        blocks_of(raw, mesh, tail=tail if halo else None)))
     np.testing.assert_array_equal(idx, np.argmax(single, axis=-1))
     np.testing.assert_array_equal(val, single.max(axis=-1))
 
@@ -304,9 +331,9 @@ def test_sharded_waterfall_rejects_ragged_shards():
     step = tsh.make_sharded_waterfall_step(tm, tmesh(4, 2))
     bad = tm.synth_raw(4 * (1024 + 512), seed=3)  # shards not whole strides
     with pytest.raises(ValueError, match="stride"):
-        step(tsh.shard_chunk(bad, tmesh(4, 2)))
+        step(blocks_of(bad, tmesh(4, 2)))
     with pytest.raises(ValueError, match="'stream' mesh rows"):
-        tsh.shard_chunk(tm.synth_raw(4 * 1024, seed=3)[:1], tmesh(4, 2))
+        blocks_of(tm.synth_raw(4 * 1024, seed=3)[:1], tmesh(4, 2))
 
 
 def test_sharded_waterfall_wide_blackman_harris():
@@ -316,8 +343,8 @@ def test_sharded_waterfall_wide_blackman_harris():
     halo = tsh.waterfall_halo(tm.cfg)
     n = 4 * 2 * 1024
     full = jm.synth_raw(n + halo, seed=21)
-    got = tsh.gather(tsh.make_sharded_waterfall_step(tm, tmesh(4))(
-        tsh.shard_chunk(full[:, :, :n], tmesh(4), tail=full[:, :, n:])), 1)
+    got = joined(tsh.make_sharded_waterfall_step(tm, tmesh(4))(
+        blocks_of(full[:, :, :n], tmesh(4), tail=full[:, :, n:])))
     j = jmesh(4)
     want = np.asarray(jsh.make_sharded_waterfall_step(jm, j)(jsh.shard_chunk(full[:, :, :n], j),
                                                               jsh.replicate_tail(full[:, :, n:], j)))
@@ -766,14 +793,15 @@ def test_sharded_channelize_rejects_chained_stream():
         tsh.make_sharded_channelize_step(np.ones(40, np.float32), 4, FileFormat.COMPLEX_FLOAT32, tmesh(2, 2))
 
 
-# -- shards from several devices ---------------------------------------------------
+# -- shards on several devices -----------------------------------------------------
 
 
 def test_runners_join_shards_from_several_devices():
     """A mesh of two device names (``cpu`` and ``cpu:0``: two devices to
-    the runners, one to torch) brings each shard's output back on its own
-    and joins them on the host; a mesh of one device joins them on it.
-    Both give the same rows, peaks and surveys, stream and bank."""
+    the runners, one to torch): a ring and a stream each, and every
+    shard's output moved to the first shard's device and joined there.
+    It gives the rows, peaks and surveys of a mesh of one device, stream
+    and bank."""
     two = [CPU, torch.device("cpu", 0)]
     rng = np.random.default_rng(90)
     _, tm = models()
