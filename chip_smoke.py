@@ -119,7 +119,25 @@ the run.  Phases:
    channels within ``2e-6`` of scale), every kernel's launches counted
    from 0 over each run and the current device unchanged after it; with
    two or more cards the stream and the bank also run over distinct
-   cards;
+   cards; then the receivers' ``-mesh`` (``phase_receiver_mesh``):
+   ``ook``, ``fsk``, ``psk``, ``fm``, ``am`` and ``ssb`` at their
+   captures and configurations above through the CLI with ``-mesh 2`` and
+   ``-mesh 4`` on meshes that repeat the card, each against the same
+   command without ``-mesh`` (bits equal, digits equal but at near-ties,
+   audio within ``1e-5`` of full scale, PSK's baseband on a 4-way mesh
+   within ``1e-5`` of its scale), each mesh run through the sharded front
+   end; the daemon's ``-mesh`` (``phase_daemon_mesh``): ``serve -mesh
+   2x1`` at the bench config over the 2^26-sample capture, ``-mode fsk
+   -mesh 4``, ``-mode find -mesh 2``, ``-mode waterfall -mesh 2x1`` over
+   the bank's first capture, each session against the unmeshed daemon's
+   reply, and ``-parallel 2 -mesh 2`` with two ``-search`` sessions at
+   once, each reply a direct mesh run's lines, the sessions' launches
+   counted from 0; two processes of ``python -m
+   quadrs_tpu_torch.parallel.distributed`` on the card over gloo, two
+   shards each, at the bench config over the mesh capture, each rank's
+   rows against the single-device rows at the same global index
+   (``phase_distributed``); and one ``profiled()`` stream run with the
+   profiler's report (``phase_profiler``);
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
@@ -811,24 +829,26 @@ def all_launches() -> dict[str, int]:
 
 
 @contextlib.contextmanager
-def counting_dispatches():
+def counting_dispatches(kind: str = "_ChannelStep"):
     """Counts the receivers' streaming dispatches (calls of
-    ``models.demod._ChannelStep``) while open: yields a dict whose ``n`` each
-    call adds one to."""
+    ``models.demod._ChannelStep``, or of ``kind``: ``_MeshChannelStep``, a
+    mesh's dispatch) while open: yields a dict whose ``n`` each call adds
+    one to."""
     from quadrs_tpu_torch.models import demod
 
+    cls = getattr(demod, kind)
     count = {"n": 0}
-    call = demod._ChannelStep.__call__
+    call = cls.__call__
 
     def counted(step, o):
         count["n"] += 1
         return call(step, o)
 
-    demod._ChannelStep.__call__ = counted
+    cls.__call__ = counted
     try:
         yield count
     finally:
-        demod._ChannelStep.__call__ = call
+        cls.__call__ = call
 
 
 def card_run(name: str, argv: list[str], card: str, walls: dict[str, float], expect_rc=0, err="",
@@ -1403,6 +1423,27 @@ def audio_against_cpu(name: str, got: np.ndarray, want: np.ndarray) -> float:
     return err
 
 
+def fsk_halves(x: torch.Tensor):
+    """``freq_levels``' post at width 64: the two halves' sums of each window's norms."""
+    from quadrs_tpu_torch.ops.stft import stft_norms
+
+    norms = stft_norms(x, shift=False)
+    return norms[:, :32].sum(1), norms[:, 32:].sum(1)
+
+
+def fsk_near_ties(bad: list[int], path: str, device) -> bool:
+    """Whether each window in ``bad`` of ``fsk``'s phase-4 chain over
+    ``path`` is a near-tie: its halves' sums within ``TOL`` of each other,
+    on ``device`` through the Executor."""
+    from quadrs_tpu_torch.runtime import Executor
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream import LowPass, Shift
+
+    chan = LowPass(Shift(open_capture(path), 280_000), 200_000, 32, 400)
+    first, second = Executor(chan, 64, device, post=fsk_halves).run(np.asarray(bad, dtype=np.int64) * 64)[0]
+    return bool((np.abs(first - second) <= TOL * np.maximum(first, second)).all())
+
+
 def phase_receiver_path(card: str, tmp: str, cap: str) -> tuple[dict[str, float], dict[str, str]]:
     """Phase 4, the receivers through the CLI on the card: ``ook`` over a
     2^24-sample cs8 capture at 1 Msps (the payload comes back), ``fsk`` over
@@ -1416,10 +1457,6 @@ def phase_receiver_path(card: str, tmp: str, cap: str) -> tuple[dict[str, float]
     run over the prefix too: AM's carrier is the mean over the capture it
     is given) within 1e-5 of full scale.  All take the streaming front end
     and launch no kernel of the port.  Returns walls and the captures."""
-    from quadrs_tpu_torch.ops.stft import stft_norms
-    from quadrs_tpu_torch.runtime import Executor
-    from quadrs_tpu_torch.sources import open_capture
-    from quadrs_tpu_torch.stream import LowPass, Shift
     from quadrs_tpu_torch.utils.wav import wav_bytes
 
     laps = [("start", time.perf_counter())]  # where the step's own time goes
@@ -1468,15 +1505,8 @@ def phase_receiver_path(card: str, tmp: str, cap: str) -> tuple[dict[str, float]
         if len(syms) != (length - 64) // 64 or set(syms) - {"0", "1"} or syms.count("1") < 0.99 * len(syms):
             raise AssertionError(f"fsk: {len(syms)} symbols, {syms.count('1')} ones (the tone lies in the lower half)")
         bad = [i for i in range(len(cpu_syms)) if syms[i] != cpu_syms[i]]
-        if bad:
-            def halves(x):
-                norms = stft_norms(x, shift=False)
-                return norms[:, :32].sum(1), norms[:, 32:].sum(1)
-
-            chan = LowPass(Shift(open_capture(pres["fsk"]), 280_000), 200_000, 32, 400)
-            first, second = Executor(chan, 64, "cpu", post=halves).run(np.asarray(bad, dtype=np.int64) * 64)[0]
-            if (np.abs(first - second) > TOL * np.maximum(first, second)).any():
-                raise AssertionError("fsk symbols differ away from a near-tie")
+        if bad and not fsk_near_ties(bad, pres["fsk"], "cpu"):
+            raise AssertionError("fsk symbols differ away from a near-tie")
         print(f"  fsk: {len(syms)} symbols; the prefix's {len(cpu_syms)} compared, {len(bad)} differ (near-ties)")
         laps.append(("fsk", time.perf_counter()))
 
@@ -1538,7 +1568,6 @@ def phase_receiver_timing(card: str, caps: dict[str, str]) -> None:
     post (the receiver's reduction), each with :func:`time_ms`; then the
     device's share of a profiled ``fm`` and ``fsk`` run."""
     from quadrs_tpu_torch.models import demod
-    from quadrs_tpu_torch.ops.stft import stft_norms
     from quadrs_tpu_torch.sources import open_capture
 
     scale = float(np.float32(300_000 / (2.0 * np.pi)))
@@ -1547,17 +1576,13 @@ def phase_receiver_timing(card: str, caps: dict[str, str]) -> None:
         d = x[:, 1:] * torch.conj(x[:, :-1])
         return torch.atan2(d.imag, d.real) * scale
 
-    def halves(x):  # freq_levels' post
-        norms = stft_norms(x, shift=False)
-        return norms[:, :32].sum(1), norms[:, 32:].sum(1)
-
     configs = {}  # name: (chain, c, lead, post, stride, chunk_post)
     for name, model, lead, post in (("fm", demod.FmDemod(center=-STATION), 1, fm_post),
                                     ("am", demod.AmDemod(center=-STATION), 0, torch.abs),
                                     ("ssb", demod.SsbDemod(), 0, torch.real)):
         chan = model.channel(open_capture(caps[name]))
         configs[name] = (chan, min(model.chunk, chan.length - lead), lead, post, None, None)
-    configs["fsk"] = (demod.FskDemod(center=280_000).channel(open_capture(caps["fsk"])), 64, 0, halves, 64, None)
+    configs["fsk"] = (demod.FskDemod(center=280_000).channel(open_capture(caps["fsk"])), 64, 0, fsk_halves, 64, None)
     th = float(np.float32(demod.OokDemod().threshold))
     configs["ook"] = (open_capture(caps["ook"]), 4, 0, None, 2, demod._envelope_chunk_post(4, 2, th))
     for name, (chan, c, lead, post, stride, chunk_post) in configs.items():
@@ -2442,6 +2467,41 @@ def serve_client(port: int, payload, pieces: int = 1) -> tuple[bytes, float]:
     return b"".join(out), time.perf_counter() - t0
 
 
+def start_daemon(argv: list[str], max_connections: int, mesh: tuple[int, int] | None = None):
+    """``serve ARGV -port 0`` on a thread, on the card, its ``-mesh`` set to
+    ``mesh`` after parsing (the parser takes no ``-mesh`` for a receiver's
+    mode; ``run_serve`` does); returns (thread, port, errors)."""
+    import dataclasses
+    import threading
+
+    from quadrs_tpu_torch import args as targs
+    from quadrs_tpu_torch.serve import run_serve
+
+    (cmd,) = targs.parse(["serve", "-port", "0", *argv])
+    if mesh is not None:
+        cmd = dataclasses.replace(cmd, mesh=mesh)
+    box, errors, up = [], [], threading.Event()
+
+    def run():
+        try:
+            run_serve(cmd, DEVICE, ready=lambda p: (box.append(p), up.set()), max_connections=max_connections)
+        except BaseException as e:  # raised again by the step
+            errors.append(e)
+            up.set()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    if not up.wait(600) or errors:
+        raise AssertionError(f"serve {' '.join(argv)} did not come up: {errors}")
+    return th, box[0], errors
+
+
+def end_daemon(th, errors) -> None:
+    th.join(timeout=120)
+    if th.is_alive() or errors:
+        raise AssertionError(f"the daemon did not end cleanly: {errors}")
+
+
 def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin: str) -> dict[str, int]:
     """Phase 4, the daemon: ``serve`` (``quadrs_tpu_torch.serve.run_serve``)
     on a thread of this process, on the card, its clients on loopback
@@ -2462,12 +2522,10 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
     import socket
     import threading
 
-    from quadrs_tpu_torch import args as targs
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.models.receiver import PipelineModel
     from quadrs_tpu_torch.ops import frontend as fe
     from quadrs_tpu_torch.ops import waterfall as wf
-    from quadrs_tpu_torch.serve import run_serve
     from quadrs_tpu_torch.sources import open_capture
     from quadrs_tpu_torch.stream_runner import StreamRunner
 
@@ -2481,29 +2539,6 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
     bench = ["-shift", "280k", "-lowpass", "200k", "-power", "200", "-decimate", "32", "-width", "64",
              "-chunk", str(CHUNK), "-sr", str(SAMPLE_RATE), "-format", "cs8"]
     tee = _Tee(sys.stdout)
-
-    def daemon(argv: list[str], max_connections: int):
-        """``serve ARGV -port 0`` on a thread, on the card; returns (thread, port, errors)."""
-        (cmd,) = targs.parse(["serve", "-port", "0", *argv])
-        box, errors, up = [], [], threading.Event()
-
-        def run():
-            try:
-                run_serve(cmd, DEVICE, ready=lambda p: (box.append(p), up.set()), max_connections=max_connections)
-            except BaseException as e:  # raised again by the step
-                errors.append(e)
-                up.set()
-
-        th = threading.Thread(target=run, daemon=True)
-        th.start()
-        if not up.wait(600) or errors:
-            raise AssertionError(f"serve {' '.join(argv)} did not come up: {errors}")
-        return th, box[0], errors
-
-    def done(th, errors) -> None:
-        th.join(timeout=120)
-        if th.is_alive() or errors:
-            raise AssertionError(f"the daemon did not end cleanly: {errors}")
 
     def session(name: str, port: int, payload, want: dict[str, int], samples: int) -> bytes:
         """One session with every count at 0 before it; the counts after it must be ``want``."""
@@ -2535,7 +2570,7 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
             data = f.read()
         chunks = n_chunks(CAPTURE_SAMPLES, cfg)
         # -mode stream: the norms against StreamRunner over the file, then a profiled session
-        th, port, errors = daemon(bench, 2)
+        th, port, errors = start_daemon(bench, 2)
         rows = []
         StreamRunner(open_capture(cap), PipelineModel(cfg), DEVICE, chunk_samples=CHUNK).run(lambda w0, n: rows.append(n))
         want = np.concatenate(rows).tobytes()
@@ -2554,7 +2589,7 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         busy = device_busy(prof)[0] / 1e3
-        done(th, errors)
+        end_daemon(th, errors)
         print(f"  serve -mode stream, a profiled session: wall {wall:.3f}s, device busy {busy:.3f}s, "
               f"device share {100 * busy / wall:.1f}% ({card})")
         laps.append(("stream", time.perf_counter()))
@@ -2564,7 +2599,7 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
         n_slice = CAPTURE_SAMPLES // 2
         slices = [memoryview(data)[2 * i * (CAPTURE_SAMPLES // 16) :][: 2 * n_slice] for i in range(8)]
         per = n_chunks(n_slice, cfg)
-        th, port, errors = daemon([*bench, "-search", "yes"], 9)
+        th, port, errors = start_daemon([*bench, "-search", "yes"], 9)
         out = os.path.join(tmp, "dsearch")
         run_cli(["stream", "-shift", "280k", "-chunk", str(CHUNK), "-search", "yes", "-out", out, cap])
         with open(f"{out}.peaks.csv") as f:
@@ -2576,11 +2611,11 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
         t0 = time.perf_counter()
         sequential = [session(f"sequential {i}", port, s, {"frontend_fir": per}, n_slice) for i, s in enumerate(slices)]
         seq_wall = time.perf_counter() - t0
-        done(th, errors)
+        end_daemon(th, errors)
         laps.append(("stream -search", time.perf_counter()))
 
         # -parallel 4 -timeout 5: the eight at once, half trickling, and a stalled client
-        th, port, errors = daemon([*bench, "-search", "yes", "-parallel", "4", "-timeout", str(DAEMON_STALL)], 9)
+        th, port, errors = start_daemon([*bench, "-search", "yes", "-parallel", "4", "-timeout", str(DAEMON_STALL)], 9)
         for k in kernels.values():
             k.launches = 0
         banded = fe.frontend_banded.launches
@@ -2609,7 +2644,7 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
             held = time.perf_counter() - t0
         finally:
             stalled.close()
-        done(th, errors)
+        end_daemon(th, errors)
         log = tee.buf.getvalue()[log0:]
         got = {n: k.launches for n, k in kernels.items() if k.launches}
         if fe.frontend_banded.launches != banded:
@@ -2633,7 +2668,7 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
               f"{8 * n_slice / par_wall / 1e6:.1f} Msps aggregate ({par_wall:.3f}s), against "
               f"{8 * n_slice / seq_wall / 1e6:.1f} Msps one after another ({seq_wall:.3f}s) ({card})")
         # the same eight sent at once, none trickling: what -parallel 4 gains where no client holds it back
-        th, port, errors = daemon([*bench, "-search", "yes", "-parallel", "4"], 8)
+        th, port, errors = start_daemon([*bench, "-search", "yes", "-parallel", "4"], 8)
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
@@ -2644,7 +2679,7 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
         for c in clients:
             c.join(timeout=300)
         burst_wall = time.perf_counter() - t0
-        done(th, errors)
+        end_daemon(th, errors)
         got = {n: k.launches for n, k in kernels.items() if k.launches}
         for i in range(8):
             a, b = replies[i].decode().strip().splitlines(), sequential[i].decode().strip().splitlines()
@@ -2675,9 +2710,9 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
                 ("waterfall -search", ["-mode", "waterfall", *wfall, "-stride", "256", "-search", "yes"], "waterfall_search",
                  over, "# waterfall: "),
                 ("scan", ["-mode", "scan", *scan_args], "waterfall_scan", over, "# scan: ")):
-            th, port, errors = daemon([*argv, *srate], 1)
+            th, port, errors = start_daemon([*argv, *srate], 1)
             reply = session(what, port, bank_data, {kernel: n}, BANK_SAMPLES)
-            done(th, errors)
+            end_daemon(th, errors)
             if trailer is None:
                 with open(f"{out}.s0.norms.f32", "rb") as f:
                     same = reply == f.read()
@@ -2695,11 +2730,11 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
 
         # -mode find: the bank of three over the 9-row grid, the lines of replay | find -stdin
         names = [os.path.join(tmp, f"b{k}.sr21M.cs8") for k in range(len(FIND_BANK))]
-        th, port, errors = daemon(["-mode", "find", *[a for b in names for a in ("-pattern", b)], "-freq-tol", FIND_TOL,
+        th, port, errors = start_daemon(["-mode", "find", *[a for b in names for a in ("-pattern", b)], "-freq-tol", FIND_TOL,
                                    *srate], 1)
         with open(os.path.join(tmp, "find.sr21M.cs8"), "rb") as f:
             reply = session("find (bank)", port, f.read(), {}, CAPTURE_SAMPLES)
-        done(th, errors)
+        end_daemon(th, errors)
         want_lines = find_stdin.strip().splitlines()
         got = reply.decode().strip().splitlines()
         if got != [*want_lines[:-1], f"# {want_lines[-1]}"]:
@@ -2716,11 +2751,11 @@ def phase_daemon(card: str, cap: str, tmp: str, caps: dict[str, str], find_stdin
             audio = mode in ("fm", "am", "ssb")
             out = os.path.join(tmp, f"d{mode}")
             text = run_cli([*argv, *(["-out", out] if audio else []), path])
-            th, port, errors = daemon(["-mode", mode, *argv[1:], "-sr", rate, "-format", fmt], 1)
+            th, port, errors = start_daemon(["-mode", mode, *argv[1:], "-sr", rate, "-format", fmt], 1)
             with open(path, "rb") as f:
                 burst = f.read()
             reply = session(mode, port, burst, {}, len(burst) // 2)
-            done(th, errors)
+            end_daemon(th, errors)
             if audio:
                 head, rest = reply.split(b"\n", 1)
                 _, n, r = head.decode().removeprefix("# ").split()
@@ -3033,6 +3068,295 @@ def phase_mesh_path(card: str, cap: str, tmp: str, band: str) -> dict[str, int]:
     print(f"  the mesh runs: {time.perf_counter() - t_phase:.1f}s of phase 4; kernel launches {launches}; "
           f"current device {torch.cuda.current_device()} throughout")
     return launches
+
+
+AUDIO_TOL = 1e-5  # audio of full scale 1, a mesh run against the single-device run (phase 4's bound)
+
+
+@contextlib.contextmanager
+def repeated_card_meshes():
+    """The CLI's ``-mesh TxS`` over meshes that repeat the first card
+    (``serve.mesh_of`` takes a card a shard, where there may be one card):
+    a one-card machine stands for a mesh so, as in ``phase_mesh_path``."""
+    from quadrs_tpu_torch import serve
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+
+    card0 = torch.device("cuda", 0) if DEVICE.type == "cuda" else DEVICE
+    of = serve.mesh_of
+    serve.mesh_of = lambda shape: None if shape is None else make_mesh(
+        shape[0], shape[1], devices=[card0] * (shape[0] * shape[1]))
+    try:
+        yield card0
+    finally:
+        serve.mesh_of = of
+
+
+def same_psk(name: str, a: str, b: str) -> None:
+    """Two ``psk`` runs' lines: the bits equal, the trailer's numbers within
+    one unit of their last printed digit."""
+    (bits_a, nums_a), (bits_b, nums_b) = psk_line(a), psk_line(b)
+    res = {"freq": 0.1, "phase": 1e-3, "tau": 1e-2, "sps": 0.0}
+    if bits_a != bits_b or any(abs(nums_a[k] - nums_b[k]) > res[k] + 1e-9 for k in res):
+        raise AssertionError(f"{name}: {nums_a} against {nums_b}, bits equal: {bits_a == bits_b}")
+
+
+def phase_receiver_mesh(card: str, caps: dict[str, str], tmp: str) -> dict[str, float]:
+    """Phase 4, the receivers' ``-mesh``: each receiver at its phase-4
+    capture and configuration through the CLI with ``-mesh 2`` and ``-mesh
+    4`` on meshes that repeat the card, against the same command without
+    ``-mesh`` on the card: ``ook``'s bits, ``fsk``'s digits (but at
+    near-ties) and ``psk``'s bits equal, audio within ``1e-5`` of full
+    scale; PSK's baseband on a 4-way mesh within ``1e-5`` of its scale.
+    Each mesh run must shard (a ``_MeshChannelStep`` dispatch at least) and
+    launch no kernel of the port.  Returns the walls."""
+    from quadrs_tpu_torch.models.demod import PskDemod
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+    from quadrs_tpu_torch.sources import open_capture
+
+    t_phase = time.perf_counter()
+    walls: dict[str, float] = {}
+    runs = {"ook": (RX_ARGV["ook"], None), "fsk": (RX_ARGV["fsk"], None), "psk": (psk_argv("bpsk"), None),
+            "fm": (RX_ARGV["fm"], 48_000), "am": (RX_ARGV["am"], 48_000), "ssb": (RX_ARGV["ssb"], 250_000)}
+    paths = {**caps, "psk": caps["bpsk"]}
+    with repeated_card_meshes() as card0:
+        for name, (argv, rate) in runs.items():
+            samples = PSK_SAMPLES if name == "psk" else samples_of(name)
+            outs, audio = {}, {}
+            for mesh in (1, 2, 4):
+                tag = f"{name}-mesh{mesh}"
+                extra = ["-mesh", str(mesh)] if mesh > 1 else []
+                out = ["-out", os.path.join(tmp, tag), "-overwrite", "yes"] if rate else []
+                with counting_dispatches("_MeshChannelStep") as sharded:
+                    outs[mesh] = card_run(tag, [*argv, *extra, *out, paths[name]], card, walls, samples=samples)
+                if (sharded["n"] > 0) != (mesh > 1):
+                    raise AssertionError(f"{tag}: {sharded['n']} sharded dispatches")
+                if rate:
+                    audio[mesh] = np.fromfile(os.path.join(tmp, f"{tag}.sr{rate}.f32"), dtype="<f4")
+                print(f"    {tag}: {sharded['n']} sharded dispatches, {walls[tag] / walls[f'{name}-mesh1']:.2f}x "
+                      f"the single-device wall ({card})")
+            for mesh in (2, 4):
+                if rate:
+                    err = float(np.abs(audio[mesh] - audio[1]).max()) if audio[mesh].shape == audio[1].shape else np.inf
+                    print(f"    {name} -mesh {mesh}: {len(audio[mesh])} audio samples, max |diff| {err:.3e} of full "
+                          f"scale 1 against the single-device run")
+                    if err > AUDIO_TOL:
+                        raise AssertionError(f"{name} -mesh {mesh}: the audio disagrees")
+                elif name == "psk":
+                    same_psk(f"psk -mesh {mesh}", outs[mesh], outs[1])
+                elif name == "fsk":
+                    got, want = outs[mesh].splitlines()[0], outs[1].splitlines()[0]
+                    bad = [i for i in range(len(want)) if got[i] != want[i]] if len(got) == len(want) else None
+                    if bad is None or (bad and not fsk_near_ties(bad, paths["fsk"], DEVICE)):
+                        raise AssertionError(f"fsk -mesh {mesh}: digits differ away from a near-tie")
+                    print(f"    fsk -mesh {mesh}: {len(got)} digits, {len(bad)} differ (near-ties)")
+                elif outs[mesh] != outs[1]:
+                    raise AssertionError(f"{name} -mesh {mesh}: {outs[mesh]!r} against {outs[1]!r}")
+        psk = PskDemod(symbol_rate=PSK_CASES["bpsk"][1])
+        rate, want = psk.baseband(open_capture(caps["bpsk"]), device=DEVICE)
+        _, got = psk.baseband(open_capture(caps["bpsk"]), device=DEVICE, mesh=make_mesh(4, devices=[card0] * 4))
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else np.inf
+        print(f"    psk baseband -mesh 4: {len(got)} samples at {rate} Hz, max |diff| {err:.3e} of scale {scale:.4g}")
+        if err > 1e-5 * scale:
+            raise AssertionError("psk -mesh 4: the baseband disagrees")
+    print(f"  the receivers' -mesh: {time.perf_counter() - t_phase:.1f}s of phase 4")
+    return walls
+
+
+def phase_daemon_mesh(card: str, cap: str, tmp: str, find_stdin: str) -> dict[str, int]:
+    """Phase 4, ``serve -mesh`` on meshes that repeat the card, each session
+    against the unmeshed daemon's reply to the same bytes: ``-mesh 2x1`` at
+    the stream config over the 2^26-sample capture (norms within ``1e-5``
+    of scale), ``-mode fsk -mesh 4`` over the stream's capture (digits
+    equal but at near-ties), ``-mode find -mesh 2`` over ``find``'s capture
+    (offsets equal, scores within ``2e-4``, against ``find_stdin``: the
+    lines of ``replay | find -stdin``, which the unmeshed daemon's reply
+    equals in ``phase_daemon``), ``-mode waterfall -mesh 2x1``
+    over the bank's first capture (norms within ``2e-5`` of scale; a
+    connection is one stream, so a mesh of two stream rows fails each
+    session, as in the JAX package), and ``-parallel 2 -mesh 2``: two
+    ``-search`` sessions at once, each reply a direct mesh run's lines.  Each
+    session's launches counted from 0.  Returns the sessions' launches."""
+    import threading
+
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+    from quadrs_tpu_torch.sources import PipeSource
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+
+    os.environ.pop("QUADRS_PLATFORM", None)
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    cfg = bench_cfg(FileFormat.COMPLEX_INT8)
+    bench = ["-shift", "280k", "-lowpass", "200k", "-power", "200", "-decimate", "32", "-width", "64",
+             "-chunk", str(CHUNK), "-sr", str(SAMPLE_RATE), "-format", "cs8"]
+    srate = ["-sr", str(SAMPLE_RATE), "-format", "cs8"]
+
+    def serve_once(name: str, argv: list[str], payload, mesh=None) -> bytes:
+        """One session of a daemon made for it; its launches counted from 0."""
+        th, port, errors = start_daemon(argv, 1, mesh)
+        _zero_launches()
+        reply, wall = serve_client(port, payload)
+        end_daemon(th, errors)
+        got = _launched()
+        if mesh is not None:
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        print(f"    {name}: {wall:.3f}s, {len(reply)} bytes back; launches {got or 'none'} ({card})")
+        return reply
+
+    def lines(reply: bytes) -> list[str]:
+        return reply.decode().strip().splitlines()
+
+    with repeated_card_meshes() as card0, open(cap, "rb") as f:
+        data = f.read()
+        # -mode stream: the norms
+        want = np.frombuffer(serve_once("stream", bench, data), dtype=np.float32).reshape(-1, cfg.fft_width)
+        got = np.frombuffer(serve_once("stream -mesh 2x1", bench, data, (2, 1)), dtype=np.float32).reshape(-1, cfg.fft_width)
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else np.inf
+        print(f"  serve -mesh 2x1: {got.shape[0]} norms rows, max |diff| {err:.3e} of scale {want.max():.4g} against the "
+              f"unmeshed daemon ({card})")
+        if err > MESH_TOL * float(want.max()) or not launches.get("frontend_fir"):
+            raise AssertionError("serve -mesh 2x1: the norms disagree, or no kernel launched")
+        # -mode fsk -mesh 4
+        fsk = ["-mode", "fsk", *RX_ARGV["fsk"][1:], *srate]
+        want, got = (lines(serve_once(f"fsk{tag}", fsk, data, mesh)) for tag, mesh in (("", None), (" -mesh 4", (4, 1))))
+        bad = [i for i in range(len(want[0])) if got[0][i] != want[0][i]] if len(got[0]) == len(want[0]) else None
+        if bad is None or got[1] != want[1] or (bad and not fsk_near_ties(bad, cap, DEVICE)):
+            raise AssertionError("serve -mode fsk -mesh 4: the digits differ away from a near-tie")
+        print(f"  serve -mode fsk -mesh 4: {len(got[0])} digits, {len(bad)} differ from the unmeshed reply (near-ties)")
+        # -mode find -mesh 2: the bank of three over the 9-row grid
+        names = [os.path.join(tmp, f"b{k}.sr21M.cs8") for k in range(len(FIND_BANK))]
+        find = ["-mode", "find", *[a for b in names for a in ("-pattern", b)], "-freq-tol", FIND_TOL, *srate]
+        with open(os.path.join(tmp, "find.sr21M.cs8"), "rb") as f:
+            got = lines(serve_once("find -mesh 2", find, f.read(), (2, 1)))
+        want = find_stdin.strip().splitlines()
+        want[-1] = f"# {want[-1]}"
+        rows_w, rows_g = ([ln.split(",") for ln in x[:-1]] for x in (want, got))
+        if (len(rows_g) != len(rows_w) or not rows_g or got[-1] != want[-1]
+                or any(g[0] != w[0] or g[3:] != w[3:] or abs(float(g[1]) - float(w[1])) > 2e-4 + 5e-5
+                       for g, w in zip(rows_g, rows_w))):
+            raise AssertionError("serve -mode find -mesh 2 disagrees with the unmeshed daemon")
+        print(f"  serve -mode find -mesh 2: {len(rows_g)} matches, offsets and freqs equal, scores within 2e-4")
+        # -mode waterfall -mesh 2x1 over one capture of the bank
+        (bank,) = write_bank(tmp, 1, BANK_SAMPLES)
+        with open(bank, "rb") as f:
+            bank_data = f.read()
+        wfall = ["-mode", "waterfall", "-width", "1024", "-chunk", str(BANK_CHUNK), *srate]
+        want, got = (np.frombuffer(serve_once(f"waterfall{tag}", wfall, bank_data, mesh), dtype=np.float32)
+                     for tag, mesh in (("", None), (" -mesh 2x1", (2, 1))))
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else np.inf
+        print(f"  serve -mode waterfall -mesh 2x1: {got.size // 1024} rows, max |diff| {err:.3e} of scale "
+              f"{want.max():.4g}")
+        if err > WF_RTOL * float(want.max()) or not launches.get("waterfall_norms"):
+            raise AssertionError("serve -mode waterfall -mesh 2x1 disagrees, or no kernel launched")
+        # -parallel 2 -mesh 2: two -search sessions at once over halves of the capture
+        halves = [memoryview(data)[i * CAPTURE_SAMPLES : (i + 1) * CAPTURE_SAMPLES] for i in range(2)]
+        th, port, errors = start_daemon([*bench, "-search", "yes", "-parallel", "2"], 2, (2, 1))
+        _zero_launches()
+        replies: list = [None, None]
+        clients = [threading.Thread(target=lambda i=i: replies.__setitem__(i, serve_client(port, halves[i])))
+                   for i in range(2)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        end_daemon(th, errors)
+        for k, v in _launched().items():
+            launches[k] = launches.get(k, 0) + v
+        model = PipelineModel(cfg)
+        for i, half in enumerate(halves):
+            rows = []
+            StreamRunner(PipeSource(io.BytesIO(bytes(half)), cfg.fmt, SAMPLE_RATE), model, DEVICE, chunk_samples=CHUNK,
+                         mesh=make_mesh(2, devices=[card0] * 2)).run_search(lambda w0, out: rows.append((w0, out)))
+            want = [f"{w0 + j},{int(idx[j])},{float(val[j]):.9g}" for w0, (idx, val) in rows for j in range(len(idx))]
+            got = lines(replies[i][0])
+            if got[1:-1] != want or not got[-1].startswith("# stream: "):
+                raise AssertionError(f"serve -parallel 2 -mesh 2: session {i} differs from a direct mesh run")
+        print(f"  serve -parallel 2 -mesh 2: two sessions of {CAPTURE_SAMPLES // 2} samples at once in {wall:.3f}s "
+              f"({CAPTURE_SAMPLES / wall / 1e6:.1f} Msps aggregate), each reply a direct mesh run's lines ({card})")
+    print(f"  the daemon's -mesh: {time.perf_counter() - t_phase:.1f}s of phase 4; launches {launches}")
+    return launches
+
+
+DIST_CHUNK = 1 << 22  # the distributed run's chunk: a whole number of 4 shards' 2048-sample windows
+
+
+def phase_distributed(card: str, tmp: str) -> dict[str, int]:
+    """Phase 4, several processes: ``python -m
+    quadrs_tpu_torch.parallel.distributed`` as two processes on the card
+    (gloo by the backend rule: NCCL refuses two ranks on one card), two
+    shards each, at the stream config over the mesh phase's 2^24-sample
+    capture, each worker on its current card (``QUADRS_PLATFORM`` unset,
+    the package's rule); each rank's ``addressable_rows`` against the
+    single-device rows at the same global index (within ``1e-5`` of
+    scale), each worker with a timeout of its own.  Returns the workers'
+    kernel launches."""
+    import socket
+
+    from quadrs_tpu_torch.parallel.distributed import backend_for
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    capture = os.path.join(tmp, "mesh.sr21M.cs8")
+    env = {k: v for k, v in os.environ.items() if k != "QUADRS_PLATFORM"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "quadrs_tpu_torch.parallel.distributed", "--address",
+                               f"127.0.0.1:{port}", "--processes", "2", "--rank", str(r), "--shards", "2", "--chunk",
+                               str(DIST_CHUNK), capture],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(2)]
+    got = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"a distributed worker exited {p.returncode}: {out[-2000:]} {err[-2000:]}")
+            got.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    launches = 0
+    for r in got:
+        print(f"  distributed rank {r['rank']} ({r['backend']}, {r['device']}, fused route {r['fused']}): "
+              f"{r['shards']} shards, {r['rows']} rows, max |diff| {r['max_abs_err']:.3e} of scale {r['scale']:.4g} "
+              f"against the single-device rows; frontend_fir launches {r['launches']} ({card})")
+        if not (r["ok"] and r["device"] == "cuda:0" and r["rows"] > 0 and r["max_abs_err"] <= MESH_TOL * r["scale"]):
+            raise AssertionError(f"distributed rank {r['rank']} disagrees with the single-device run")
+        launches += r["launches"]
+    print(f"  distributed: 2 processes x 2 shards, backend rule {backend_for(2)!r} for 2 ranks on "
+          f"{torch.cuda.device_count()} card(s); {wall:.1f}s with the workers' start-up")
+    return {"frontend_fir": launches} if launches else {}
+
+
+def phase_profiler(card: str, tmp: str) -> None:
+    """Phase 4, the stage accounting: one ``profiled()`` stream run over the
+    mesh phase's capture and one Executor pull, and the profiler's report;
+    the runner's and the Executor's stages must be counted."""
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.models.receiver import PipelineModel
+    from quadrs_tpu_torch.sources import ToneGen, open_capture
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+    from quadrs_tpu_torch.utils.profiling import PROFILER, profiled
+
+    PROFILER.reset()
+    runner = StreamRunner(open_capture(os.path.join(tmp, "mesh.sr21M.cs8")), PipelineModel(bench_cfg(FileFormat.COMPLEX_INT8)),
+                          DEVICE, chunk_samples=CHUNK)
+    with profiled():
+        stats = runner.run()
+        ToneGen([1000], 48_000, 1.0).read_at(0, 4096, DEVICE)
+    print("  profiled(): a stream run and an Executor pull ({})\n    {}".format(
+        card, PROFILER.report().replace("\n", "\n    ")))
+    s = PROFILER.stages["stream_runner"]
+    if s.steps != 1 or s.samples != stats.samples_in or PROFILER.stages["tonegen"].steps != 1:
+        raise AssertionError(f"profiled() missed a stage: {dict(PROFILER.stages)}")
 
 
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM: peak HBM3 rate
@@ -3464,8 +3788,13 @@ def main() -> int:
             launches[name] += count
         for name, count in phase_mesh_path(card, cap, tmp, new_caps["band"]).items():
             launches[name] += count
+        phase_receiver_mesh(card, {**rx_caps, **new_caps}, tmp)
+        for phase in (lambda: phase_daemon_mesh(card, cap, tmp, find_stdin), lambda: phase_distributed(card, tmp)):
+            for name, count in phase().items():
+                launches[name] += count
+        phase_profiler(card, tmp)
         print(f"  launches over the main paths (the stream runs, the live runs, the bank runs, the daemon's "
-              f"sessions and the mesh runs): {launches}")
+              f"sessions, the mesh runs, the daemon's mesh sessions and the distributed workers): {launches}")
         # no path of the JAX package runs the v1 function, so no main path of
         # the port may: it is held to its plain version in phases 3 and 5
         launches["frontend_banded"] = fe.frontend_banded.launches

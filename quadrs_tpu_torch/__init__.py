@@ -37,9 +37,12 @@ input comes from a pipe (``-stdin yes``: :class:`.sources.PipeSource`),
 and ``replay`` turns a recorded capture into a live pipe.
 
 A device mesh (``-mesh TxS``, :mod:`.parallel.sharding`) shards ``stream``,
-``waterfall``, ``scan``, ``find`` and ``channelize`` over a ``(stream,
-time)`` grid of devices: each shard is staged with its halo and runs the
-single-device program on its device.
+``waterfall``, ``scan``, ``find``, ``channelize``, the receivers and the
+``serve`` daemon over a ``(stream, time)`` grid of devices: each shard is
+staged with its halo and runs the single-device program on its device.  A
+mesh may span processes (:mod:`.parallel.distributed`, on
+``torch.distributed``).  :mod:`.utils.profiling` accounts the stages and
+traces the device; :mod:`.utils.determinism` audits repeatability.
 
 Every kernel has a plain PyTorch version, which CPU tensors take.  The
 package imports ``torch`` and numpy, and never ``jax`` or
@@ -49,23 +52,38 @@ package imports ``torch`` and numpy, and never ``jax`` or
 from quadrs_tpu_torch.formats import FileDetails, FileFormat
 from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
 from quadrs_tpu_torch.models.waterfall import WaterfallConfig, WaterfallModel
-from quadrs_tpu_torch.sources import PipeSource, SampleSource, open_capture
+from quadrs_tpu_torch.pipeline import Operation, exec_operation, run_pipeline
+from quadrs_tpu_torch.sources import LivePipeStream, PipeSource, SampleSource, ToneGen, open_capture
+from quadrs_tpu_torch.stream import Agc, DcBlock, IqCorrect, LowPass, Resample, Shift, Stream
 from quadrs_tpu_torch.stream_runner import RunStats, ScanResult, StreamRunner, WaterfallRunner
 
 __version__ = "0.1.0"
 
+# the JAX package's exports (quadrs_tpu.__all__), then the models
 __all__ = [
-    "FileDetails",
     "FileFormat",
+    "FileDetails",
+    "Stream",
+    "Shift",
+    "LowPass",
+    "Resample",
+    "DcBlock",
+    "Agc",
+    "IqCorrect",
+    "LivePipeStream",
+    "PipeSource",
+    "SampleSource",
+    "ToneGen",
+    "open_capture",
+    "Operation",
+    "exec_operation",
+    "run_pipeline",
+    "StreamRunner",
+    "WaterfallRunner",
+    "RunStats",
+    "ScanResult",
     "PipelineConfig",
     "PipelineModel",
-    "PipeSource",
-    "RunStats",
-    "SampleSource",
-    "ScanResult",
-    "StreamRunner",
     "WaterfallConfig",
     "WaterfallModel",
-    "WaterfallRunner",
-    "open_capture",
 ]

@@ -11,9 +11,8 @@ arguments.
     scan ...  info FILE...  replay FILE  ook ...  fsk ...  psk ...  fm ...
     am ...  ssb ...  channelize ...  ui ...  eui ...  serve ...
 
-``-mesh`` parses as in the JAX package; ``stream``, ``waterfall``,
-``scan``, ``find`` and ``channelize`` run it, the receivers and ``serve``
-raise naming ROADMAP A13.
+``-mesh`` parses as in the JAX package: ``T`` or ``TxS``, and ``T`` or
+``Tx1`` where one capture shards over ``time`` alone.
 
 Parsing rules preserved from ``read_just_args`` (``src/args.rs:404-445``):
 flags are collected until the first non-flag token; a ``-``-prefixed
@@ -209,7 +208,7 @@ class OokCmd(Command):
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh T: time-shard the front end over the device mesh
 
 
 @dataclass
@@ -230,7 +229,7 @@ class FskCmd(Command):
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh T: time-shard the front end over the device mesh
 
 
 @dataclass
@@ -259,7 +258,7 @@ class PskCmd(Command):
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh T: time-shard the front end over the device mesh
 
 
 @dataclass
@@ -308,7 +307,7 @@ class FmCmd(Command):
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh T: time-shard the front end over the device mesh
 
 
 @dataclass
@@ -332,7 +331,7 @@ class AmCmd(Command):
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False  # buffer the capture from a pipe
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh T: time-shard the front end over the device mesh
 
 
 @dataclass
@@ -358,7 +357,7 @@ class SsbCmd(Command):
     sample_rate: str | None = None
     format: str | None = None
     stdin: bool = False
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh T: time-shard the front end over the device mesh
 
 
 @dataclass
@@ -392,7 +391,7 @@ class ServeCmd(Command):
     chunk: int | None = 4_000_000
     sample_rate: str | None = None
     format: str | None = None
-    mesh: tuple[int, int] | None = None  # parsed; refused (ROADMAP A13)
+    mesh: tuple[int, int] | None = None  # -mesh TxS: shard each connection's work over the device mesh
     # handle up to N connections at once, each on its own CUDA stream
     parallel: int = 1
     # per-socket-operation idle timeout in seconds (0 = none): a client

@@ -35,10 +35,11 @@ import torch
 from quadrs_tpu_torch import bits as bits_mod
 from quadrs_tpu_torch import sinks
 from quadrs_tpu_torch.formats import decode_plane
-from quadrs_tpu_torch.ops.fir import fir_decimate, lowpass_taps, overlapped_frames
+from quadrs_tpu_torch.ops.fir import auto_impl, fir_decimate, lowpass_taps, overlapped_frames
 from quadrs_tpu_torch.ops.frontend import no_tf32
 from quadrs_tpu_torch.ops.resample import resample_real
 from quadrs_tpu_torch.ops.stft import stft_norms
+from quadrs_tpu_torch.parallel.sharding import join
 from quadrs_tpu_torch.runtime import Executor, root_step_of, window_batches
 from quadrs_tpu_torch.staging import UploadRing
 from quadrs_tpu_torch.stream import LowPass, Shift, Stream
@@ -77,8 +78,11 @@ class OokDemod:
     threshold: float = 0.001
     samples_per_bit: float = 8.0
 
-    def pulses(self, stream: Stream, *, device: torch.device | str) -> np.ndarray:
-        """One bool a window: any bin's magnitude at or above the threshold."""
+    def pulses(self, stream: Stream, *, device: torch.device | str, mesh=None) -> np.ndarray:
+        """One bool a window: any bin's magnitude at or above the threshold.
+        ``mesh``: a Tx1 mesh the envelope's windows time-shard over
+        (:func:`_channel_step`); it needs the bare capture (ValueError
+        otherwise)."""
         offsets = np.arange(0, stream.length - self.width, self.stride, dtype=np.int64)
         if len(offsets) == 0:
             raise ValueError("input shorter than the envelope window")
@@ -90,9 +94,12 @@ class OokDemod:
         # small windows over a bare source take the chunk-level envelope,
         # which lifts the overlapped-window guard (the JAX package's test)
         chunk_post = _envelope_chunk_post(self.width, self.stride, th) if self.width <= 16 and self.stride <= 16 else None
-        fast = _strided_windows_dev(stream, self.width, self.stride, len(offsets), post, device=device, chunk_post=chunk_post)
+        fast = _strided_windows_dev(stream, self.width, self.stride, len(offsets), post, device=device,
+                                    chunk_post=chunk_post, mesh=mesh)
         if fast is not None:
             return fast
+        if mesh is not None:
+            raise ValueError(_MESH_NEEDS_CHAIN)
         batch, batches = window_batches(offsets, self.width, root_step=root_step_of(stream))
         ex = Executor(stream, self.width, device, batch=batch, post=post)
         flags = []
@@ -102,12 +109,12 @@ class OokDemod:
             flags.append(f)
         return np.concatenate(flags)
 
-    def demodulate(self, stream: Stream, *, device: torch.device | str) -> tuple[float, list[bool]]:
+    def demodulate(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[float, list[bool]]:
         """Returns (clock_error, raw pulse bits)."""
-        return bits_mod.scan(self.pulses(stream, device=device), self.samples_per_bit)
+        return bits_mod.scan(self.pulses(stream, device=device, mesh=mesh), self.samples_per_bit)
 
-    def decode_manchester(self, stream: Stream, *, device: torch.device | str) -> list[int]:
-        _, raw = self.demodulate(stream, device=device)
+    def decode_manchester(self, stream: Stream, *, device: torch.device | str, mesh=None) -> list[int]:
+        _, raw = self.demodulate(stream, device=device, mesh=mesh)
         return manchester_decode(raw)
 
 
@@ -137,13 +144,14 @@ class FskDemod:
             chain = Shift(chain, self.center, chain.sample_rate)
         return LowPass(chain, self.bandwidth, self.decimate, self.taps)
 
-    def symbols(self, stream: Stream, *, device: torch.device | str) -> list[int]:
-        levels = sinks.freq_levels(self.channel(stream), self.fft_width, self.stride, levels=2, device=device)
+    def symbols(self, stream: Stream, *, device: torch.device | str, mesh=None) -> list[int]:
+        levels = sinks.freq_levels(self.channel(stream), self.fft_width, self.stride, levels=2, device=device,
+                                   mesh=mesh)
         return levels.vals
 
-    def demodulate(self, stream: Stream, *, device: torch.device | str) -> tuple[float, list[bool]]:
+    def demodulate(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[float, list[bool]]:
         """Run-length clock recovery over the symbol stream."""
-        syms = [bool(v) for v in self.symbols(stream, device=device)]
+        syms = [bool(v) for v in self.symbols(stream, device=device, mesh=mesh)]
         return bits_mod.scan(syms, self.samples_per_symbol)
 
 
@@ -184,7 +192,7 @@ class FmDemod:
             chain = Shift(chain, self.center, chain.sample_rate)
         return LowPass(chain, self.bandwidth, self.decimate, self.taps)
 
-    def discriminate_dev(self, stream: Stream, *, device: torch.device | str) -> tuple[int, torch.Tensor]:
+    def discriminate_dev(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[int, torch.Tensor]:
         """``(channel_rate_hz, f32[channel_len - 1] Hz on the device)``: the
         window at offset o reads channel samples o .. o+c and gives the
         frequency at o+1 .. o+c, so offsets stepping c give every channel
@@ -200,12 +208,12 @@ class FmDemod:
             d = x[:, 1:] * torch.conj(x[:, :-1])
             return torch.atan2(d.imag, d.real) * scale
 
-        return rate, _chunked_signal_dev(chan, c, 1, post, device=device)
+        return rate, _chunked_signal_dev(chan, c, 1, post, device=device, mesh=mesh)
 
-    def demodulate(self, stream: Stream, *, device: torch.device | str) -> tuple[int, np.ndarray]:
+    def demodulate(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[int, np.ndarray]:
         """``(audio_rate_hz, f32 audio)``: ``inst_freq / deviation`` through
         the audio tail; only the final audio crosses to the host."""
-        rate, freq = self.discriminate_dev(stream, device=device)
+        rate, freq = self.discriminate_dev(stream, device=device, mesh=mesh)
         return audio_stage(self, rate, freq, div=float(self.deviation))
 
 
@@ -236,19 +244,19 @@ class AmDemod:
             chain = Shift(chain, self.center, chain.sample_rate)
         return LowPass(chain, self.bandwidth, self.decimate, self.taps)
 
-    def envelope_dev(self, stream: Stream, *, device: torch.device | str) -> tuple[int, torch.Tensor]:
+    def envelope_dev(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[int, torch.Tensor]:
         """``(channel_rate_hz, |x| f32[channel_len] on the device)``."""
         chan = self.channel(stream)
         if chan.length < 1:
             raise ValueError("input too short for the AM envelope")
         c = min(self.chunk, chan.length)
-        return chan.sample_rate, _chunked_signal_dev(chan, c, 0, torch.abs, device=device)
+        return chan.sample_rate, _chunked_signal_dev(chan, c, 0, torch.abs, device=device, mesh=mesh)
 
-    def demodulate(self, stream: Stream, *, device: torch.device | str) -> tuple[int, np.ndarray]:
+    def demodulate(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[int, np.ndarray]:
         """Audio in modulation-depth units (``envelope / carrier - 1``).
         The carrier is the envelope's mean on the device: one scalar comes
         back, and an all-zero envelope raises."""
-        rate, env = self.envelope_dev(stream, device=device)
+        rate, env = self.envelope_dev(stream, device=device, mesh=mesh)
         carrier = float(env.mean())
         if carrier <= 0.0:
             raise ValueError("no carrier: the channel envelope is all zero")
@@ -307,17 +315,17 @@ class SsbDemod:
             chain = Shift(chain, sign * half, chain.sample_rate)
         return chain
 
-    def baseband_dev(self, stream: Stream, *, device: torch.device | str) -> tuple[int, torch.Tensor]:
+    def baseband_dev(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[int, torch.Tensor]:
         """``(channel_rate_hz, real(x) f32[channel_len] on the device)``."""
         chan = self.channel(stream)
         if chan.length < 1:
             raise ValueError("input too short for the SSB demodulator")
         c = min(self.chunk, chan.length)
-        return chan.sample_rate, _chunked_signal_dev(chan, c, 0, torch.real, device=device)
+        return chan.sample_rate, _chunked_signal_dev(chan, c, 0, torch.real, device=device, mesh=mesh)
 
-    def demodulate(self, stream: Stream, *, device: torch.device | str) -> tuple[int, np.ndarray]:
+    def demodulate(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[int, np.ndarray]:
         """Audio: ``real`` of the re-centred sideband through the audio tail."""
-        rate, bb = self.baseband_dev(stream, device=device)
+        rate, bb = self.baseband_dev(stream, device=device, mesh=mesh)
         return audio_stage(self, rate, bb)
 
 
@@ -490,7 +498,7 @@ class PskDemod:
             chain = Shift(chain, self.center, chain.sample_rate)
         return LowPass(chain, self.bandwidth, self.decimate, self.taps)
 
-    def baseband(self, stream: Stream, *, device: torch.device | str) -> tuple[int, np.ndarray]:
+    def baseband(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[int, np.ndarray]:
         """``(channel_rate_hz, complex64[channel_len])`` of the filtered
         channel, in windows of ``chunk`` samples with no lead (the analog
         receivers' chunk loop; real and imaginary planes cross as one
@@ -499,7 +507,7 @@ class PskDemod:
         if chan.length < 1:
             raise ValueError("input too short for the PSK demodulator")
         c = min(self.chunk, chan.length)
-        arr = _chunked_signal_dev(chan, c, 0, torch.view_as_real, device=device).cpu().numpy()
+        arr = _chunked_signal_dev(chan, c, 0, torch.view_as_real, device=device, mesh=mesh).cpu().numpy()
         return chan.sample_rate, (arr[..., 0] + 1j * arr[..., 1]).astype(np.complex64)
 
     def _peak_khat(self, planes: np.ndarray, n: int, npad: int, device) -> float:
@@ -587,8 +595,8 @@ class PskDemod:
         sym = sym * np.complex64(complex(math.cos(-phase), math.sin(-phase)))
         return est, sym.astype(np.complex64)
 
-    def symbols(self, stream: Stream, *, device: torch.device | str) -> tuple[PskEstimate, np.ndarray]:
-        rate, x = self.baseband(stream, device=device)
+    def symbols(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[PskEstimate, np.ndarray]:
+        rate, x = self.baseband(stream, device=device, mesh=mesh)
         return self.analyze(rate, x, device=device)
 
     def slice(self, sym: np.ndarray) -> list[int]:
@@ -612,9 +620,9 @@ class PskDemod:
             out.extend(_QPSK_GRAY[int(v)])
         return out
 
-    def demodulate(self, stream: Stream, *, device: torch.device | str) -> tuple[PskEstimate, list[int]]:
+    def demodulate(self, stream: Stream, *, device: torch.device | str, mesh=None) -> tuple[PskEstimate, list[int]]:
         """Capture to synchronized bits."""
-        est, sym = self.symbols(stream, device=device)
+        est, sym = self.symbols(stream, device=device, mesh=mesh)
         return est, self.slice(sym)
 
 
@@ -688,11 +696,13 @@ class _ChannelStep:
     analog receivers' contiguous windows, each overlapping the next by
     ``lead``).  ``chunk_post(x, kk)``: for bare chains, the chunk-level
     replacement of ``post`` that takes the decoded span in place of
-    ``(kk, n_in)`` frames."""
+    ``(kk, n_in)`` frames.  ``fir_impl``: the channel FIR's impl, resolved
+    by the caller (:func:`_channel_step`; None without a FIR)."""
 
-    def __init__(self, parts, c: int, lead: int, post, stride: int, k: int, chunk_post, device):
+    def __init__(self, parts, c: int, lead: int, post, stride: int, k: int, chunk_post, device, fir_impl: str | None):
         lp, nco, src, outer = parts
         self.lp, self.src, self.outer, self.post = lp, src, outer, post
+        self.fir_impl = fir_impl
         self.chunk_post = chunk_post
         self.device = torch.device(device)
         self.d, self.size = (lp.decimate, lp.size) if lp is not None else (1, 0)
@@ -800,7 +810,7 @@ class _ChannelStep:
 
     def filter(self, rows: torch.Tensor, dev: dict[str, torch.Tensor]) -> torch.Tensor:
         """The truncated FIR of each window, then the channel-rate re-shift."""
-        y = fir_decimate(rows, self.lp.taps, self.d, self.n, impl=self.lp.fir_impl) if self.lp is not None else rows
+        y = fir_decimate(rows, self.lp.taps, self.d, self.n, impl=self.fir_impl) if self.lp is not None else rows
         if self.outer is not None:
             th = dev["theta"]
             y = y * torch.complex(torch.cos(th), torch.sin(th))
@@ -813,7 +823,40 @@ class _ChannelStep:
             self._last = None
 
 
-def _channel_step(chan: Stream, c: int, lead: int, post, *, device, stride: int | None = None, chunk_post=None):
+class _MeshChannelStep:
+    """The streaming dispatch time-sharded over a Tx1 mesh: ``k`` full
+    windows a dispatch, ``k / T`` a shard.  Shard ``t`` is a
+    :class:`_ChannelStep` of ``k / T`` windows on ``mesh.devices[0][t]``
+    with a page-locked ring of its own: it stages its block (its windows'
+    raw span, ``n_in - hop`` samples of halo past its slice; the last
+    shard's halo is the capture's continuation) straight from the source,
+    as the single-device step stages its span, and computes its windows
+    with the single-device program.  The shards' outputs join on the first
+    shard's device (:func:`~quadrs_tpu_torch.parallel.sharding.join`).
+
+    Dispatches cover full windows only (``n_full`` of them), so no window
+    is masked; the caller stitches the EOF tail through the single-device
+    step."""
+
+    def __init__(self, shards: list[_ChannelStep], n_full: int):
+        self.shards = shards
+        self.k_loc = shards[0].k
+        self.k = self.k_loc * len(shards)
+        self.n_full = n_full
+
+    def __call__(self, o: int):
+        """The dispatch whose first window sits at channel offset ``o``:
+        ``post``'s output for its ``k`` windows on the first shard's device."""
+        step = self.k_loc * self.shards[0].stride
+        return join([[shard(o + t * step)[0] for t, shard in enumerate(self.shards)]])
+
+    def close(self) -> None:
+        for shard in self.shards:
+            shard.close()
+
+
+def _channel_step(chan: Stream, c: int, lead: int, post, *, device, stride: int | None = None, chunk_post=None,
+                  mesh=None, windows: int | None = None):
     """A :class:`_ChannelStep` for ``chan``, or None where the chain shape is
     not a receiver's (user stages, live pipes), the chain is too short, or
     the windows overlap so much that their frames would swell memory (more
@@ -822,37 +865,110 @@ def _channel_step(chan: Stream, c: int, lead: int, post, *, device, stride: int 
     ``k`` windows a dispatch: bounded by the raw budget and by what the
     stream needs.  (The JAX package also bounds ``k`` by a window's
     128-lane padded footprint, a TPU layout.)  ``chunk_post`` applies only
-    to bare chains: no mix, no FIR, no re-shift."""
+    to bare chains: no mix, no FIR, no re-shift.  The FIR's ``auto`` impl
+    is resolved here from the single-device geometry, so every dispatch,
+    a mesh's shards too, takes the same impl and summation order.
+
+    ``mesh``: a Tx1 mesh (:func:`~quadrs_tpu_torch.parallel.sharding.make_mesh`);
+    the step is then a :class:`_MeshChannelStep` of ``k = min(k*T,
+    n_full//T*T, 2^18)`` full windows, or None where that leaves a shard
+    no window, or where the halo would reach past the next shard's slice
+    (the JAX package's geometry).
+
+    ``windows``: without a mesh, at most this many windows a dispatch (the
+    EOF tail after a mesh's prefix); the FIR impl is still resolved from
+    the uncapped geometry, so capping changes no output."""
     hit = _channel_parts(chan)
     if hit is None:
         return None
-    lp, nco, _, outer = hit
+    lp, nco, src, outer = hit
     d, size = (lp.decimate, lp.size) if lp is not None else (1, 0)
     use_chunk = chunk_post is not None and lp is None and nco is None and outer is None
     if chan.length - lead < 1:
         return None  # the caller's too-short guards give the error text
     stride = c if stride is None else int(stride)
     hop = stride * d
-    n_in = (c + lead) * d + size
+    n = c + lead
+    n_in = n * d + size
     if n_in > 8 * hop and not use_chunk:
         return None
     k = max(1, _CHANNEL_RAW_BUDGET // max(1, hop))
     k = min(k, -(-int(chan.length - lead) // stride), 1 << 21 if use_chunk else 1 << 18)
-    return _ChannelStep(hit, c, lead, post, stride, k, chunk_post if use_chunk else None, device)
+    chunk_post = chunk_post if use_chunk else None
+    devices = [torch.device(device)] if mesh is None else list(mesh.devices[0])
+    impl = None if lp is None else lp.fir_impl
+    if impl == "auto":
+        impl = auto_impl(size, d, k * n, devices[0].type, n)
+    if mesh is None:
+        k = k if windows is None else max(1, min(k, windows))
+        return _ChannelStep(hit, c, lead, post, stride, k, chunk_post, device, impl)
+    if mesh.shape["stream"] != 1:
+        raise ValueError("demod -mesh shards one capture over 'time'; use a Tx1 mesh")
+    n_time = mesh.shape["time"]
+    # full windows only: window j (raw offset j*hop) is full iff j*hop +
+    # n_in <= src.length; k divisible by the mesh, so every shard gets as
+    # many windows, and clamped so that short captures still shard
+    n_full = 0 if src.length < n_in else (src.length - n_in) // hop + 1
+    k = min(k * n_time, n_full // n_time * n_time, 1 << 18)
+    if k < n_time:
+        return None  # too short to give every shard a window
+    k_loc = k // n_time
+    if max(0, n_in - hop) > k_loc * hop:
+        return None  # the halo would reach past the next shard's slice
+    shards = [_ChannelStep(hit, c, lead, post, stride, k_loc, chunk_post, dev, impl) for dev in devices]
+    return _MeshChannelStep(shards, n_full)
 
 
-def _streaming_signal_dev(chan: Stream, c: int, lead: int, post, *, device):
+_MESH_NEEDS_CHAIN = (
+    "-mesh shards the streaming demod front end, which needs the receiver's own chain over a raw capture "
+    "file; drop the chained stages / live pipe or drop -mesh"
+)
+
+
+def _sharded_prefix(chan: Stream, c: int, lead: int, post, *, device, stride: int, total: int, mesh,
+                    chunk_post=None) -> tuple[list, int]:
+    """The mesh's dispatches over the first of ``total`` windows at channel
+    stride ``stride``, while each dispatch holds full windows only:
+    ``(outputs on device, windows covered)``.  No dispatch (and 0) where
+    the mesh step does not engage (:func:`_channel_step`)."""
+    step = _channel_step(chan, c, lead, post, device=device, stride=stride, chunk_post=chunk_post, mesh=mesh)
+    if step is None:
+        return [], 0
+    parts, w0 = [], 0
+    lim = min(total, step.n_full)
+    try:
+        while w0 + step.k <= lim:
+            out = step(w0 * stride)
+            parts.append(tuple(a.to(device) for a in out) if isinstance(out, tuple) else out.to(device))
+            w0 += step.k
+    finally:
+        step.close()
+    return parts, w0
+
+
+def _streaming_signal_dev(chan: Stream, c: int, lead: int, post, *, device, mesh=None):
     """:func:`_chunked_signal_dev`'s streaming route: :class:`_ChannelStep`
     dispatches over the whole stream, the flat result assembled on the
     device.  Output length and EOF arithmetic match the Executor route
-    exactly.  None where the chain shape is not supported."""
-    step = _channel_step(chan, c, lead, post, device=device)
+    exactly.  None where the chain shape is not supported.
+
+    ``mesh``: the full windows of an aligned prefix run time-sharded over
+    the mesh (:class:`_MeshChannelStep`); the EOF tail stitches through
+    the single-device dispatches, so output length and placement do not
+    change; its step holds no more windows than are left."""
+    parts, o0, left = [], 0, None
+    if mesh is not None:
+        # windows step c here, so window j sits at channel offset j*c
+        total = -(-int(chan.length - lead) // c)
+        outs, w0 = _sharded_prefix(chan, c, lead, post, device=device, stride=c, total=total, mesh=mesh)
+        parts = [out.reshape((-1,) + tuple(out.shape[2:])) for out in outs]
+        o0, left = w0 * c, total - w0
+    step = _channel_step(chan, c, lead, post, device=device, windows=left)
     if step is None:
         return None
     k, n = step.k, step.n
-    parts = []
     try:
-        for o in range(0, int(chan.length - lead), step.step):
+        for o in range(o0, int(chan.length - lead), step.step):
             out, v = step(o)
             m = k * c
             short = np.flatnonzero(v < n)
@@ -871,21 +987,30 @@ def _streaming_signal_dev(chan: Stream, c: int, lead: int, post, *, device):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _strided_windows_dev(stream: Stream, width: int, stride: int, total: int, post, *, device, chunk_post=None):
+def _strided_windows_dev(stream: Stream, width: int, stride: int, total: int, post, *, device, chunk_post=None,
+                         mesh=None):
     """``post`` outputs for ``total`` FULL strided ``width``-windows of
     ``stream`` (the ``freq_levels`` and OOK-envelope shape: every window
     read-exact), by :class:`_ChannelStep` dispatches, back on the host as
     numpy (a tuple of arrays for a tuple-valued ``post``).  None where the
     chain shape is not supported, or where a window would come up short:
-    the Executor route then gives the canonical error."""
+    the Executor route then gives the canonical error.
+
+    ``mesh``: an aligned prefix of the windows runs time-sharded over the
+    mesh (:class:`_MeshChannelStep`); the rest through the single-device
+    dispatches, of no more windows than are left."""
     if total <= 0:
         return None
-    step = _channel_step(stream, width, 0, post, device=device, stride=stride, chunk_post=chunk_post)
+    chunks, start = [], 0
+    if mesh is not None:
+        chunks, start = _sharded_prefix(stream, width, 0, post, device=device, stride=stride, total=total, mesh=mesh,
+                                        chunk_post=chunk_post)
+    step = _channel_step(stream, width, 0, post, device=device, stride=stride, chunk_post=chunk_post,
+                         windows=None if mesh is None else total - start)
     if step is None:
         return None
-    chunks = []
     try:
-        for w0 in range(0, total, step.k):
+        for w0 in range(start, total, step.k):
             take = min(step.k, total - w0)
             if step.valid_of((w0 + take - 1) * stride) < width:
                 return None
@@ -898,7 +1023,7 @@ def _strided_windows_dev(stream: Stream, width: int, stride: int, total: int, po
     return torch.cat(chunks).cpu().numpy()
 
 
-def _chunked_signal_dev(chan: Stream, c: int, lead: int, post, *, device) -> torch.Tensor:
+def _chunked_signal_dev(chan: Stream, c: int, lead: int, post, *, device, mesh=None) -> torch.Tensor:
     """``post`` over the channel in windows of ``c + lead`` samples at
     offsets stepping ``c``, each giving ``c`` outputs (with any trailing
     component axes of ``post``'s), assembled flat
@@ -908,10 +1033,13 @@ def _chunked_signal_dev(chan: Stream, c: int, lead: int, post, *, device) -> tor
     Receiver-shaped chains over a staging source take the streaming route
     (:func:`_streaming_signal_dev`); others (user stages, pipes) the
     windowed Executor route, whose outputs come back to the host and
-    cross to the device once at the end."""
-    out = _streaming_signal_dev(chan, c, lead, post, device=device)
+    cross to the device once at the end.  ``mesh`` shards the streaming
+    route, and is refused on the Executor route (ValueError)."""
+    out = _streaming_signal_dev(chan, c, lead, post, device=device, mesh=mesh)
     if out is not None:
         return out
+    if mesh is not None:
+        raise ValueError(_MESH_NEEDS_CHAIN)
     offsets = np.arange(0, chan.length - lead, c, dtype=np.int64)
     batch, batches = window_batches(offsets, c + lead, root_step=root_step_of(chan))
     ex = Executor(chan, c + lead, device, batch=batch, post=post)

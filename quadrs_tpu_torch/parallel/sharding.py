@@ -24,7 +24,10 @@ host from its absolute offset (the fused route's per-tile bases by
 A mesh may name one device more than once: a one-card machine stands
 for a mesh by repeating its card, and the CPU platform's default mesh is
 the CPU eight times over, as the JAX package's tests run on 8 virtual
-CPU devices.
+CPU devices.  A mesh may also span processes
+(:mod:`quadrs_tpu_torch.parallel.distributed`): each shard then names
+its process's rank beside its device, and a process computes only its
+own shards.
 """
 
 from __future__ import annotations
@@ -48,26 +51,36 @@ class Mesh:
     """A ``(stream, time)`` grid of torch devices, the JAX package's
     ``Mesh(grid, ("stream", "time"))``.  ``shape["stream"]`` rows of
     ``shape["time"]`` devices; ``devices[s][t]`` holds shard ``(s, t)``.
-    Equal grids compare and hash equal, so a memoized step serves every
-    mesh made alike."""
+    ``ranks``: a grid alike of process ranks, for a mesh that spans
+    processes; ``devices[s][t]`` is then a device of process
+    ``ranks[s][t]`` (None: every shard is this process's).  Equal grids
+    compare and hash equal, so a memoized step serves every mesh made
+    alike."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, ranks=None):
         grid = tuple(tuple(torch.device(d) for d in row) for row in devices)
         if not grid or not grid[0] or len({len(row) for row in grid}) != 1:
             raise ValueError("a mesh is a non-empty (stream, time) grid of devices")
         self.devices = grid
         self.shape = {"stream": len(grid), "time": len(grid[0])}
+        self.ranks = None if ranks is None else tuple(tuple(int(r) for r in row) for row in ranks)
+        if self.ranks is not None and [len(row) for row in self.ranks] != [len(row) for row in grid]:
+            raise ValueError("a mesh's ranks are a grid of the shape of its devices")
 
     @property
     def distinct(self) -> list[torch.device]:
         """The mesh's devices, each once, in grid order."""
         return list(dict.fromkeys(d for row in self.devices for d in row))
 
+    def local(self, s: int, t: int, rank: int) -> bool:
+        """Whether shard ``(s, t)`` is process ``rank``'s."""
+        return self.ranks is None or self.ranks[s][t] == rank
+
     def __eq__(self, other) -> bool:
-        return isinstance(other, Mesh) and other.devices == self.devices
+        return isinstance(other, Mesh) and (other.devices, other.ranks) == (self.devices, self.ranks)
 
     def __hash__(self) -> int:
-        return hash(self.devices)
+        return hash((self.devices, self.ranks))
 
 
 def default_devices() -> list[torch.device]:
@@ -79,14 +92,17 @@ def default_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def make_mesh(n_time: int, n_stream: int = 1, devices=None) -> Mesh:
+def make_mesh(n_time: int, n_stream: int = 1, devices=None, ranks=None) -> Mesh:
     """A ``(n_stream, n_time)`` mesh over the first ``n_time * n_stream``
     of ``devices`` (default :func:`default_devices`), row by row.  A
-    device may repeat."""
+    device may repeat.  ``ranks``: each device's process, for a mesh over
+    several processes (:func:`quadrs_tpu_torch.parallel.distributed.make_global_mesh`)."""
     devices = list(devices if devices is not None else default_devices())
     if len(devices) < n_time * n_stream:
         raise ValueError(f"need {n_time * n_stream} devices, have {len(devices)}")
-    return Mesh([devices[s * n_time : (s + 1) * n_time] for s in range(n_stream)])
+    rows = [slice(s * n_time, (s + 1) * n_time) for s in range(n_stream)]
+    ranks = None if ranks is None else list(ranks)
+    return Mesh([devices[r] for r in rows], None if ranks is None else [ranks[r] for r in rows])
 
 
 def mesh_of(shape: tuple[int, int] | None) -> Mesh | None:
@@ -148,7 +164,9 @@ def make_sharded_stream_step(model, mesh: Mesh, search: bool = False, frontend: 
     ``bases``: on the fused route, ``bases[s][t]`` is shard ``(s, t)``'s
     per-tile NCO bases on its device, from :func:`shard_bases` (the
     runner plans them on its staging thread and stages them beside the
-    planes); the chain plans its first-sample phase here.
+    planes); the chain plans its first-sample phase here.  A shard of
+    another process (a mesh over several) has None for its block, and
+    None for its output.
 
     Returns ``out[s][t]``: shard ``(s, t)``'s (1, windows, fft_width)
     f32 norms, or with ``search`` its peak bins and magnitudes, each
@@ -180,6 +198,9 @@ def make_sharded_stream_step(model, mesh: Mesh, search: bool = False, frontend: 
             for s, row in enumerate(blocks):
                 outs.append([])
                 for t, block in enumerate(row):
+                    if block is None:  # another process's shard
+                        outs[s].append(None)
+                        continue
                     if block.dim() == 3:
                         (block,) = block  # one stream a mesh row
                     n_local = block.shape[-1] - halo
@@ -231,7 +252,8 @@ def make_sharded_waterfall_step(model, mesh: Mesh, search: bool = False):
     the caller drops).  Returns ``out[s][t]``: (S_l, n_local // stride,
     fft_width) f32 norms, or with ``search`` the per-window peak bins and
     magnitudes; each shard runs the single-device model (the waterfall
-    kernels on a card).
+    kernels on a card).  A shard of another process has None for its
+    block and for its output.
 
     Memoized on the model per (mesh, search)."""
     cfg = model.cfg
@@ -246,6 +268,9 @@ def make_sharded_waterfall_step(model, mesh: Mesh, search: bool = False):
             for row in blocks:
                 outs.append([])
                 for block in row:
+                    if block is None:  # another process's shard
+                        outs[-1].append(None)
+                        continue
                     n_local = block.shape[-1] - halo
                     if n_local % cfg.stride:
                         raise ValueError(

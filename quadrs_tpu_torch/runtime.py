@@ -15,6 +15,10 @@ compilations; PyTorch runs eagerly and compiles nothing per shape), and
 the ``_Planes`` split of complex outputs into real planes (a workaround
 for TPU runtimes that cannot move complex values to the host).  Offsets
 into the staged buffer are int64, where JAX used int32.
+
+While :func:`quadrs_tpu_torch.utils.profiling.profiled` is on, each batch
+accounts the host time of its launch under its stream's class name
+(``shift``, ``lowpass``, ``tonegen``, ...), as the JAX executor does.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from quadrs_tpu_torch.staging import Download
 from quadrs_tpu_torch.stream import Stream
+from quadrs_tpu_torch.utils.profiling import PROFILER
 
 
 def window_batches(
@@ -148,11 +153,12 @@ class Executor:
             base = lo
         plan = self.stream.plan(offs, self.n, base)
         ctx = {"buf": buf, "device": self.device}
-        out = self.stream.read_batch(ctx, _to_device(plan.prep, self.device), self.n)
-        if self.post_takes_aux:
-            out = self.post(out, torch.tensor(0.0 if aux is None else aux, dtype=torch.float32, device=self.device))
-        elif self.post is not None:
-            out = self.post(out)
+        with PROFILER.stage(type(self.stream).__name__.lower(), len(offs) * self.n):
+            out = self.stream.read_batch(ctx, _to_device(plan.prep, self.device), self.n)
+            if self.post_takes_aux:
+                out = self.post(out, torch.tensor(0.0 if aux is None else aux, dtype=torch.float32, device=self.device))
+            elif self.post is not None:
+                out = self.post(out)
         # back through page-locked memory on a CUDA device
         return Download(out), plan.valid
 

@@ -39,12 +39,6 @@ from quadrs_tpu_torch.sources import PipeSource, RawRing, SampleSource, open_cap
 from quadrs_tpu_torch.stream_runner import BurstGate, RunStats, burst_spans
 from quadrs_tpu_torch.utils.sniff import guess_details
 
-def _refuse_mesh(name: str, cmd) -> None:
-    """The receivers' and the daemon's ``-mesh`` parses but is not ported
-    yet (ROADMAP A13)."""
-    if cmd.mesh is not None:
-        raise NotImplementedError(f"{name} -mesh (multi-GPU sharding, ROADMAP A13) is not yet ported to quadrs_tpu_torch")
-
 
 def _stdin_pipe_source(cmd) -> PipeSource:
     """Live, unbuffered stdin as a :class:`PipeSource`.  The parser made
@@ -506,10 +500,9 @@ def run_ook(cmd: argmod.OokCmd, device: torch.device) -> int:
     """Demodulate an OOK capture and print the recovered bits."""
     from quadrs_tpu_torch.models.demod import OokDemod, manchester_decode
 
-    _refuse_mesh("ook", cmd)
     src = _cmd_source(cmd)
     demod = OokDemod(width=cmd.width, stride=cmd.stride, threshold=cmd.threshold, samples_per_bit=cmd.bit)
-    err, raw_bits = demod.demodulate(src, device=device)
+    err, raw_bits = demod.demodulate(src, device=device, mesh=mesh_of(cmd.mesh))
     if cmd.raw:
         print("".join("1" if b else "0" for b in raw_bits))
     else:
@@ -523,18 +516,17 @@ def run_fsk(cmd: argmod.FskCmd, device: torch.device) -> int:
     (one a window, without ``-bit``) or clock-recovered bits."""
     from quadrs_tpu_torch.models.demod import FskDemod
 
-    _refuse_mesh("fsk", cmd)
     src = _cmd_source(cmd)
     demod = FskDemod(
         center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
         fft_width=cmd.fft_width, stride=cmd.stride, samples_per_symbol=1.0 if cmd.bit is None else cmd.bit,
     )
     if cmd.bit is None:
-        syms = demod.symbols(src, device=device)
+        syms = demod.symbols(src, device=device, mesh=mesh_of(cmd.mesh))
         print("".join(str(int(s)) for s in syms))
         print(f"fsk: {len(syms)} symbols")
     else:
-        err, bits = demod.demodulate(src, device=device)
+        err, bits = demod.demodulate(src, device=device, mesh=mesh_of(cmd.mesh))
         print("".join("1" if b else "0" for b in bits))
         print(f"fsk: {len(bits)} bits, clock error {err:.3f}")
     return 0
@@ -545,13 +537,12 @@ def run_psk(cmd: argmod.PskCmd, device: torch.device) -> int:
     estimates; ``-plot`` writes the constellation."""
     from quadrs_tpu_torch.models.demod import PskDemod
 
-    _refuse_mesh("psk", cmd)
     src = _cmd_source(cmd)
     demod = PskDemod(
         center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size, symbol_rate=cmd.symbol_rate,
         order=cmd.order, differential=cmd.differential, block=cmd.block,
     )
-    est, sym = demod.symbols(src, device=device)
+    est, sym = demod.symbols(src, device=device, mesh=mesh_of(cmd.mesh))
     bits = demod.slice(sym)
     print("".join(map(str, bits)))
     print(f"psk: {len(bits)} bits, freq {est.freq_hz:+.1f} Hz, phase {est.phase:+.3f} rad, tau {est.tau:.2f}, sps {est.sps:g}")
@@ -645,7 +636,7 @@ def _run_audio(cmd, demod, device: torch.device, meter) -> int:
     capture's Msps (peak and rms of the audio, f64 mean square)."""
     src = _cmd_source(cmd)
     t0 = time.perf_counter()
-    rate, audio = demod.demodulate(src, device=device)
+    rate, audio = demod.demodulate(src, device=device, mesh=mesh_of(cmd.mesh))
     secs = time.perf_counter() - t0
     meter_out = _emit_audio(cmd, rate, audio)
     peak = np.max(np.abs(audio)) if len(audio) else 0.0
@@ -659,7 +650,6 @@ def run_fm(cmd: argmod.FmCmd, device: torch.device) -> int:
     print a deviation meter."""
     from quadrs_tpu_torch.models.demod import FmDemod
 
-    _refuse_mesh("fm", cmd)
     demod = FmDemod(
         center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size, deviation=cmd.deviation,
         audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
@@ -679,7 +669,6 @@ def run_am(cmd: argmod.AmCmd, device: torch.device) -> int:
     (``-out``) and print a modulation meter."""
     from quadrs_tpu_torch.models.demod import AmDemod
 
-    _refuse_mesh("am", cmd)
     demod = AmDemod(
         center=cmd.shift, bandwidth=cmd.lowpass, decimate=cmd.decimate, taps=cmd.size,
         audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
@@ -697,7 +686,6 @@ def run_ssb(cmd: argmod.SsbCmd, device: torch.device) -> int:
     """Demodulate a single-sideband capture to audio (usb or lsb)."""
     from quadrs_tpu_torch.models.demod import SsbDemod
 
-    _refuse_mesh("ssb", cmd)
     demod = SsbDemod(
         center=cmd.shift, sideband=cmd.sideband, bandwidth=cmd.bandwidth, decimate=cmd.decimate, taps=cmd.size,
         audio_bandwidth=cmd.audio_lowpass, audio_decimate=cmd.audio_decimate, audio_taps=cmd.audio_size,
@@ -759,26 +747,34 @@ def _socket_files(conn):
             rf.close()
 
 
-def _demod_connection(conn, demod, cmd: argmod.ServeCmd, fmt, sample_rate: int, device: torch.device) -> RunStats:
+def _buffered_burst(rf, wf, fmt, sample_rate: int, too_long: str) -> SampleSource:
+    """A connection's whole burst, read to its half-close, as an in-memory
+    :class:`SampleSource`; past the 1 GiB cap the client is answered
+    ``# error: TOO_LONG`` (if it still listens) and ValueError raises."""
+    data = rf.read(_STDIN_BUFFER_CAP + 1)
+    if len(data) > _STDIN_BUFFER_CAP:
+        try:
+            wf.write(f"# error: {too_long}\n".encode())
+            wf.flush()
+        except OSError:
+            pass
+        raise ValueError(too_long)
+    return SampleSource(np.frombuffer(data, dtype=np.uint8), fmt, sample_rate)
+
+
+def _demod_connection(conn, demod, cmd: argmod.ServeCmd, fmt, sample_rate: int, device: torch.device,
+                      mesh=None) -> RunStats:
     """One receiver session: the client sends its whole burst and
     half-closes; the daemon buffers it (the 1 GiB cap of ``ook -stdin``),
-    demodulates it, and answers with exactly the lines the receiver's
-    command prints (or, for audio, :func:`_demod_reply`'s framing)."""
+    demodulates it (its front end time-sharded over ``mesh``, a Tx1 mesh),
+    and answers with exactly the lines the receiver's command prints (or,
+    for audio, :func:`_demod_reply`'s framing)."""
     with _socket_files(conn) as (rf, wf):
-        data = rf.read(_STDIN_BUFFER_CAP + 1)
-        if len(data) > _STDIN_BUFFER_CAP:
-            msg = ("connection burst exceeds the demod buffer cap (1 GiB); demod modes buffer the whole burst — "
-                   "use -mode stream/waterfall for unbounded streams")
-            try:
-                wf.write(f"# error: {msg}\n".encode())
-                wf.flush()
-            except OSError:
-                pass
-            raise ValueError(msg)
-        src = SampleSource(np.frombuffer(data, dtype=np.uint8), fmt, sample_rate)
+        src = _buffered_burst(rf, wf, fmt, sample_rate, "connection burst exceeds the demod buffer cap (1 GiB); "
+                              "demod modes buffer the whole burst — use -mode stream/waterfall for unbounded streams")
         t0 = time.perf_counter()
         try:
-            return _demod_reply(wf, demod, cmd, src, t0, device)
+            return _demod_reply(wf, demod, cmd, src, t0, device, mesh)
         except ValueError as e:
             # a bad burst (empty, shorter than the filter or the window) is
             # the client's mistake, not the daemon's: answer why, and count
@@ -788,26 +784,26 @@ def _demod_connection(conn, demod, cmd: argmod.ServeCmd, fmt, sample_rate: int, 
             return RunStats(samples_in=src.length, windows_out=0, seconds=time.perf_counter() - t0)
 
 
-def _demod_reply(wf, demod, cmd: argmod.ServeCmd, src, t0: float, device: torch.device) -> RunStats:
+def _demod_reply(wf, demod, cmd: argmod.ServeCmd, src, t0: float, device: torch.device, mesh=None) -> RunStats:
     """Demodulate one buffered burst and write the answer: the bits or
     symbols line and a ``# <cmd>: ...`` trailer, or for audio a
     ``# MODE N RATE`` header, N little-endian f32 samples and a trailer."""
     if cmd.mode in ("fm", "am", "ssb"):
-        rate, audio = demod.demodulate(src, device=device)
+        rate, audio = demod.demodulate(src, device=device, mesh=mesh)
         wf.write(f"# {cmd.mode} {len(audio)} {rate}\n".encode())
         wf.write(audio.astype("<f4").tobytes())
         wf.write(f"\n# {cmd.mode}: {len(audio)} audio samples @ {rate} Hz\n".encode())
         wf.flush()
         return RunStats(samples_in=src.length, windows_out=len(audio), seconds=time.perf_counter() - t0)
     if cmd.mode == "psk":
-        est, bits = demod.demodulate(src, device=device)
+        est, bits = demod.demodulate(src, device=device, mesh=mesh)
         line, n_out = "".join(map(str, bits)), len(bits)
         trailer = (f"psk: {len(bits)} bits, freq {est.freq_hz:+.1f} Hz, phase {est.phase:+.3f} rad, "
                    f"tau {est.tau:.2f}, sps {est.sps:g}")
     elif cmd.mode == "ook":
         from quadrs_tpu_torch.models.demod import manchester_decode
 
-        err, raw_bits = demod.demodulate(src, device=device)
+        err, raw_bits = demod.demodulate(src, device=device, mesh=mesh)
         if cmd.raw:
             line = "".join("1" if b else "0" for b in raw_bits)
         else:
@@ -815,11 +811,11 @@ def _demod_reply(wf, demod, cmd: argmod.ServeCmd, src, t0: float, device: torch.
         n_out = len(raw_bits)
         trailer = f"ook: {len(raw_bits)} raw bits, clock error {err:.3f}"
     elif cmd.bit is None:
-        syms = demod.symbols(src, device=device)
+        syms = demod.symbols(src, device=device, mesh=mesh)
         line, n_out = "".join(str(int(s)) for s in syms), len(syms)
         trailer = f"fsk: {len(syms)} symbols"
     else:
-        err, bits = demod.demodulate(src, device=device)
+        err, bits = demod.demodulate(src, device=device, mesh=mesh)
         line, n_out = "".join("1" if b else "0" for b in bits), len(bits)
         trailer = f"fsk: {len(bits)} bits, clock error {err:.3f}"
     wf.write(f"{line}\n# {trailer}\n".encode())
@@ -827,21 +823,24 @@ def _demod_reply(wf, demod, cmd: argmod.ServeCmd, src, t0: float, device: torch.
     return RunStats(samples_in=src.length, windows_out=n_out, seconds=time.perf_counter() - t0)
 
 
-def _serve_stream(rf, wf, model, cmd: argmod.ServeCmd, sample_rate: int, device: torch.device) -> RunStats:
+def _serve_stream(rf, wf, model, cmd: argmod.ServeCmd, sample_rate: int, device: torch.device,
+                  mesh=None) -> RunStats:
     """Run ``stream``, ``waterfall`` or ``scan`` over the byte stream ``rf``
     (a :class:`PipeSource`) and write the answer to ``wf`` as each chunk
     completes: ``window,bin,mag`` CSV and a ``# <mode>: ...`` trailer
     (``-search yes``), raw f32 norms rows, or at EOF the survey CSV
     (``-mode scan``).  The runner is made here, so its rings record their
-    events on the caller's current CUDA stream."""
+    events on the caller's current CUDA streams.  With ``mesh`` the runner
+    time-shards each chunk of the pipe, as ``stream -stdin -mesh`` does
+    (its sharded steps are memoized on the model, so sessions share them)."""
     from quadrs_tpu_torch.stream_runner import StreamRunner, WaterfallRunner
 
     waterfall = cmd.mode in ("waterfall", "scan")
     src = PipeSource(rf, model.cfg.fmt, sample_rate)
     if waterfall:
-        runner = WaterfallRunner([src], model, device, chunk_windows=cmd.chunk)
+        runner = WaterfallRunner([src], model, device, chunk_windows=cmd.chunk, mesh=mesh)
     else:
-        runner = StreamRunner(src, model, device, chunk_samples=cmd.chunk)
+        runner = StreamRunner(src, model, device, chunk_samples=cmd.chunk, mesh=mesh)
     if cmd.mode == "scan":
         # the reduction streams on the device; the answer is one small CSV at EOF
         result = runner.run_scan(threshold=cmd.threshold)
@@ -873,7 +872,8 @@ def _serve_stream(rf, wf, model, cmd: argmod.ServeCmd, sample_rate: int, device:
     return stats
 
 
-def _serve_connection(conn, model, cmd: argmod.ServeCmd, sample_rate: int, device: torch.device) -> RunStats:
+def _serve_connection(conn, model, cmd: argmod.ServeCmd, sample_rate: int, device: torch.device,
+                      mesh=None) -> RunStats:
     """One ``stream``/``waterfall``/``scan`` session: raw IQ bytes in,
     results back over the same socket as each chunk completes.
 
@@ -883,26 +883,35 @@ def _serve_connection(conn, model, cmd: argmod.ServeCmd, sample_rate: int, devic
     client that does not read them stalls the daemon's write, which stops
     the daemon reading, a deadlock on both sides."""
     with _socket_files(conn) as (rf, wf):
-        return _serve_stream(rf, wf, model, cmd, sample_rate, device)
+        return _serve_stream(rf, wf, model, cmd, sample_rate, device, mesh)
 
 
-def _find_connection(conn, patterns, cmd: argmod.ServeCmd, fmt, sample_rate: int, device: torch.device) -> RunStats:
+def _find_connection(conn, patterns, cmd: argmod.ServeCmd, fmt, sample_rate: int, device: torch.device,
+                     mesh=None) -> RunStats:
     """One matched-filter session: the connection's bytes run through
     :func:`quadrs_tpu_torch.sinks.find_pattern` as a live pipe (O(chunk)
     memory, no buffered burst), and the matches come back at EOF as
     exactly the lines ``find -stdin`` prints.  Each session makes its own
-    template tables, so sessions share nothing on the device."""
+    template tables, so sessions share nothing on the device.
+
+    With ``mesh`` (Tx1) the burst is buffered whole instead (the receivers'
+    1 GiB cap) and the correlation time-shards over the mesh
+    (``find_pattern(mesh=...)``)."""
     from quadrs_tpu_torch import sinks
     from quadrs_tpu_torch.sources import LivePipeStream
 
     t0 = time.perf_counter()
     with _socket_files(conn) as (rf, wf):
+        if mesh is not None:
+            stream = _buffered_burst(rf, wf, fmt, sample_rate, "connection burst exceeds the buffer cap (1 GiB); "
+                                     "find -mesh buffers the whole burst — drop -mesh for unbounded streams")
+        else:
+            stream = LivePipeStream(PipeSource(rf, fmt, sample_rate))
         try:
             res = sinks.find_pattern(
-                LivePipeStream(PipeSource(rf, fmt, sample_rate)),
-                patterns if len(patterns) > 1 else patterns[0],
+                stream, patterns if len(patterns) > 1 else patterns[0],
                 threshold=cmd.threshold, chunk=cmd.chunk, max_matches=cmd.top if cmd.top else None,
-                min_distance=cmd.distance, freq_tol=cmd.freq_tol, freq_step=cmd.freq_step, device=device,
+                min_distance=cmd.distance, freq_tol=cmd.freq_tol, freq_step=cmd.freq_step, device=device, mesh=mesh,
             )
         except ValueError as e:
             # a bad burst (shorter than the template) answers with the error
@@ -990,21 +999,24 @@ def run_serve(cmd: argmod.ServeCmd, device: torch.device, ready=None, max_connec
     """The TCP daemon: one model made at startup (:func:`_serve_model`),
     many connections, served one after another, or up to ``-parallel N``
     at once on a pool of threads, each session inside a CUDA stream of its
-    own.  ``-mode ook|fsk|psk|fm|am|ssb`` serves the receivers: each
-    connection's burst is buffered whole (1 GiB cap) and answered with what
-    the command prints.  ``-timeout S`` arms an idle timeout on every
-    accepted socket: a peer that stops sending before its half-close, or
-    stops draining its results, for S seconds has its session dropped and
-    logged like any failed one; a read that times out on a runner's staging
-    thread reaches the session as its exception.  ``ready(port)`` is called
-    with the bound port once listening (tests bind port 0).  A failed
-    session is logged (``serve: conn N failed: ...``) and the loop goes on;
-    ``-once yes`` exits after one connection (``max_connections``
-    generalizes it for embedders and tests; the CLI runs until killed).
-    ``-mesh`` is refused before the socket binds (ROADMAP A13)."""
+    own on each device it runs on.  ``-mode ook|fsk|psk|fm|am|ssb`` serves
+    the receivers: each connection's burst is buffered whole (1 GiB cap) and
+    answered with what the command prints.  ``-mesh TxS`` (made once, here)
+    shards each session's work over the device mesh: a socket is a live
+    pipe, so ``stream``, ``waterfall`` and ``scan`` time-shard its chunks as
+    ``stream -stdin -mesh`` does; ``find`` buffers the burst and shards the
+    correlation; a receiver time-shards its burst's front end.  ``-timeout
+    S`` arms an idle timeout on every accepted socket: a peer that stops
+    sending before its half-close, or stops draining its results, for S
+    seconds has its session dropped and logged like any failed one; a read
+    that times out on a runner's staging thread reaches the session as its
+    exception.  ``ready(port)`` is called with the bound port once
+    listening (tests bind port 0).  A failed session is logged (``serve:
+    conn N failed: ...``) and the loop goes on; ``-once yes`` exits after
+    one connection (``max_connections`` generalizes it for embedders and
+    tests; the CLI runs until killed)."""
     import socket
 
-    _refuse_mesh("serve", cmd)
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         # a model's tables are keyed by their tensors' device, which has an index
@@ -1012,6 +1024,9 @@ def run_serve(cmd: argmod.ServeCmd, device: torch.device, ready=None, max_connec
     details = guess_details("-", cmd.sample_rate, cmd.format)
     demod = cmd.mode in _RECEIVERS
     model = _serve_model(cmd, details, device)
+    mesh = mesh_of(cmd.mesh)
+    # the devices a session runs on, the session's own device last
+    devices = list(dict.fromkeys([*(mesh.distinct if mesh is not None else []), device]))
 
     srv = socket.create_server((cmd.host, cmd.port))
     port = srv.getsockname()[1]
@@ -1020,6 +1035,7 @@ def run_serve(cmd: argmod.ServeCmd, device: torch.device, ready=None, max_connec
     _log(
         f"serve: listening on {cmd.host}:{port} ({details.format.name.lower()}, sr {details.sample_rate}, "
         f"{cmd.mode} {answer}"
+        + (f", mesh {cmd.mesh[0]}x{cmd.mesh[1]}" if cmd.mesh else "")
         + (f", parallel {cmd.parallel}" if cmd.parallel > 1 else "")
         + (f", timeout {cmd.timeout:g}s" if cmd.timeout > 0 else "")
         + ")"
@@ -1031,26 +1047,30 @@ def run_serve(cmd: argmod.ServeCmd, device: torch.device, ready=None, max_connec
 
     def session(conn) -> RunStats:
         if demod:
-            return _demod_connection(conn, model, cmd, details.format, details.sample_rate, device)
+            return _demod_connection(conn, model, cmd, details.format, details.sample_rate, device, mesh)
         if cmd.mode == "find":
-            return _find_connection(conn, model, cmd, details.format, details.sample_rate, device)
-        return _serve_connection(conn, model, cmd, details.sample_rate, device)
+            return _find_connection(conn, model, cmd, details.format, details.sample_rate, device, mesh)
+        return _serve_connection(conn, model, cmd, details.sample_rate, device, mesh)
 
     def handle(n_conn: int, conn, peer) -> None:
-        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        # a stream of the session's own on each CUDA device it runs on; the
+        # session's device is entered last, so it is the current device
+        streams = [torch.cuda.Stream(d) for d in devices if d.type == "cuda"]
         try:
             if cmd.timeout > 0:
                 # any single blocked recv or send past this raises
                 # TimeoutError; the clock is per socket operation, so a slow
                 # but flowing client is never dropped
                 conn.settimeout(cmd.timeout)
-            with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+            with contextlib.ExitStack() as on_streams:
+                for stream in streams:
+                    on_streams.enter_context(torch.cuda.stream(stream))
                 stats = session(conn)
             _log(f"serve: conn {n_conn} {peer[0]}:{peer[1]} " + _stats_line("done", stats))
         except Exception as e:  # a daemon survives any one session: client gone, bad bytes, a timeout
             _log(f"serve: conn {n_conn} failed: {type(e).__name__}: {e}")
         finally:
-            if stream is not None:
+            for stream in streams:
                 # a failed session's work too ends before the next session
                 stream.synchronize()
             conn.close()

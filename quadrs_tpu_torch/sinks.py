@@ -155,6 +155,7 @@ def freq_levels(
     levels: int = 2,
     *,
     device: torch.device | str,
+    mesh=None,
 ) -> Levels:
     """Two-level frequency discriminator (reference ``src/fft.rs:77-101``):
     per strided window, compare the total magnitude of the lower and the
@@ -165,7 +166,12 @@ def freq_levels(
     does (:func:`quadrs_tpu_torch.models.demod._strided_windows_dev`: the
     raw span of many windows staged once a dispatch, each window placed
     and truncated as a per-window read would be); other chains (user
-    stages, live pipes, ``gen``) take the per-window Executor route."""
+    stages, live pipes, ``gen``) take the per-window Executor route.
+
+    ``mesh``: a Tx1 mesh (:func:`quadrs_tpu_torch.parallel.sharding.make_mesh`)
+    the windows time-shard over, on the streaming route
+    (:func:`quadrs_tpu_torch.models.demod._channel_step`); it needs a
+    receiver-shaped chain over a staging capture (ValueError otherwise)."""
     if levels != 2:
         raise ValueError("only supporting two levels for now")
     stride = fft_width if stride is None else stride
@@ -181,12 +187,14 @@ def freq_levels(
         return norms[:, :half].sum(dim=1), norms[:, half:].sum(dim=1)
 
     # lazy import: the receivers' module imports this one
-    from quadrs_tpu_torch.models.demod import _strided_windows_dev
+    from quadrs_tpu_torch.models.demod import _MESH_NEEDS_CHAIN, _strided_windows_dev
 
-    fast = _strided_windows_dev(stream, fft_width, stride, total, post, device=device)
+    fast = _strided_windows_dev(stream, fft_width, stride, total, post, device=device, mesh=mesh)
     if fast is not None:
         first, second = fast
         return Levels(vals=[int(v) for v in np.where(first < second, 0, 1)])
+    if mesh is not None:
+        raise ValueError(_MESH_NEEDS_CHAIN)
 
     batch, batches = window_batches(offsets, fft_width, root_step=root_step_of(stream))
     ex = Executor(stream, fft_width, device, batch=batch, post=post)

@@ -26,6 +26,10 @@ straight into its row of one slot; a pipe by carrying the lookahead on
 the host), the slot crosses on a copy stream, and each chunk's output
 comes back through page-locked memory while the next chunk computes.
 
+While :func:`quadrs_tpu_torch.utils.profiling.profiled` is on, each run
+accounts its samples and wall under ``stream_runner`` or
+``waterfall_runner``.
+
 :func:`burst_spans` and :class:`BurstGate` segment per-window activity
 into bursts for ``stream -trigger``.
 """
@@ -57,6 +61,7 @@ from quadrs_tpu_torch.parallel.sharding import (
 )
 from quadrs_tpu_torch.sources import LivePipeStream, SampleSource
 from quadrs_tpu_torch.staging import Download, RingClosed, RingSet, UploadRing
+from quadrs_tpu_torch.utils.profiling import PROFILER
 
 
 @dataclass
@@ -663,6 +668,7 @@ class StreamRunner:
         else:
             self._run_sharded(mode, emit, start_off, max_chunks, threshold, stats)
         stats.seconds = time.perf_counter() - t0
+        PROFILER.account("stream_runner", stats.samples_in, stats.seconds)
         return stats
 
     def _run_single(self, mode: str, emit, source, start_off: int, max_chunks, threshold: float,
@@ -1034,6 +1040,7 @@ class WaterfallRunner:
         else:
             self._run_single(mode, emit, start_window, max_chunks, threshold, account)
         stats.seconds = time.perf_counter() - t0
+        PROFILER.account("waterfall_runner", stats.samples_in, stats.seconds)
         return stats
 
     def _run_single(self, mode: str, emit, start_window: int, max_chunks, threshold: float, account) -> None:

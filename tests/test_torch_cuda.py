@@ -1225,3 +1225,101 @@ def test_mesh_runners_match_single_device_on_the_card(cuda, kind, tmp_path):
                                                                chunk_windows=500, mesh=mesh).run)[0]], axis=1)
     assert torch.cuda.current_device() == 0
     np.testing.assert_allclose(two, one, rtol=2e-5, atol=2e-5 * one.max())
+
+
+@pytest.mark.parametrize("kind", ["repeated", "distinct"])
+def test_receiver_mesh_matches_single_device_on_the_card(cuda, kind, tmp_path):
+    """Each receiver's ``mesh=`` on a 4-way mesh of the card (or of the
+    cards in turn) against its single-device run on the card: bits, digits
+    and pulses equal, audio and PSK baseband within ``1e-5`` (the parity
+    tests' bound), through the sharded front end, and the current device
+    unchanged after each run."""
+    from quadrs_tpu_torch.models import demod
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+    from quadrs_tpu_torch.sources import open_capture
+
+    rng = np.random.default_rng(3)
+    n = 1 << 19
+    t = np.arange(n) / 21e6
+    x = 0.5 * np.exp(1j * (2 * np.pi * 280e3 * t + 50.0 * np.sin(2 * np.pi * 1000 * t)))
+    x = x + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    path = tmp_path / "tone.sr21M.cs8"
+    path.write_bytes(np.clip(np.rint(np.stack([x.real, x.imag], 1) * 120), -127, 127).astype(np.int8).tobytes())
+    mesh = make_mesh(4, devices=_mesh_devices(kind, 4))
+    cases = [
+        (demod.FmDemod(center=280_000, bandwidth=100_000, decimate=10, taps=400, chunk=1024), "demodulate"),
+        (demod.AmDemod(center=280_000, bandwidth=10_000, decimate=20, taps=400, chunk=512), "demodulate"),
+        (demod.SsbDemod(center=-280_000, bandwidth=3000, decimate=20, taps=400, chunk=512), "demodulate"),
+        (demod.PskDemod(center=280_000, bandwidth=200_000, decimate=32, taps=400, symbol_rate=10_000, chunk=512),
+         "baseband"),
+        (demod.FskDemod(center=280_000, bandwidth=200_000, decimate=32, taps=400, fft_width=64), "symbols"),
+        (demod.OokDemod(width=4, stride=2, threshold=0.001), "pulses"),
+    ]
+    torch.cuda.set_device(0)
+    calls = []
+    real = demod._MeshChannelStep.__call__
+    demod._MeshChannelStep.__call__ = lambda step, o: calls.append(o) or real(step, o)
+    try:
+        for rx, method in cases:
+            want = getattr(rx, method)(open_capture(str(path)), device=cuda)
+            before = len(calls)
+            got = getattr(rx, method)(open_capture(str(path)), device=cuda, mesh=mesh)
+            assert len(calls) > before, type(rx).__name__
+            assert torch.cuda.current_device() == 0
+            if isinstance(want, tuple):  # (rate, audio or baseband)
+                assert got[0] == want[0] and got[1].shape == want[1].shape and got[1].size > 0
+                np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+            else:
+                assert np.array_equal(np.asarray(got), np.asarray(want)) and len(want) > 0, type(rx).__name__
+    finally:
+        demod._MeshChannelStep.__call__ = real
+
+
+def test_serve_mesh_sessions_on_the_card(cuda, monkeypatch):
+    """``serve -mesh`` on meshes that repeat the card: ``-parallel 2 -mesh
+    2`` runs two ``-search`` sessions at once, each with a stream of its
+    own on the card and a ring a shard, each reply a direct mesh run's
+    lines; ``-mode fsk -mesh 4`` replies what the unmeshed daemon replies."""
+    import io
+    import threading
+
+    from quadrs_tpu_torch import serve
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+    from quadrs_tpu_torch.sources import PipeSource
+    from quadrs_tpu_torch.stream_runner import StreamRunner
+
+    monkeypatch.setattr(serve, "mesh_of", lambda shape: None if shape is None else make_mesh(
+        shape[0], shape[1], devices=[torch.device("cuda", 0)] * (shape[0] * shape[1])))
+    rng = np.random.default_rng(8)
+    payloads = [rng.integers(-60, 61, 2 * (900_000 + 10_007 * i)).astype(np.int8).tobytes() for i in range(2)]
+    th, port, errors = _start_daemon(_serve_cmd(search=True, once=False, parallel=2, mesh=(2, 1)), cuda,
+                                     max_connections=2)
+    out: list[bytes | None] = [None, None]
+    clients = [threading.Thread(target=lambda i=i: out.__setitem__(i, _client(port, payloads[i], 4))) for i in range(2)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=300)
+        assert not c.is_alive()
+    th.join(timeout=120)
+    assert not th.is_alive() and not errors, errors
+    model = PipelineModel(PipelineConfig(sample_rate=21_000_000, shift_freq=280_000, lp_freq=200_000, decimate=32,
+                                         taps=400, fft_width=64, fmt=FileFormat.COMPLEX_INT8))
+    for data, reply in zip(payloads, out):
+        rows, _ = collect(StreamRunner(PipeSource(io.BytesIO(data), FileFormat.COMPLEX_INT8, 21_000_000), model, cuda,
+                                       chunk_samples=1 << 18, mesh=make_mesh(2, devices=[torch.device("cuda", 0)] * 2))
+                          .run_search)
+        want = [f"{w0 + j},{int(idx[j])},{float(val[j]):.9g}" for w0, (idx, val) in rows for j in range(len(idx))]
+        lines = reply.decode().strip().splitlines()
+        assert lines[0] == "window,bin,mag" and lines[1:-1] == want and len(want) > 100
+    fsk = dict(mode="fsk", shift=0, lowpass=8_000, size=20, decimate=4, fft_width=64, stride=600,
+               sample_rate="48k", format="cf32")
+    tone = np.repeat(rng.integers(0, 2, (1 << 19) // 4096), 4096) * 2 - 1
+    burst = _cf32(0.5 * np.exp(2j * np.pi * np.cumsum(tone * 3_000.0) / 48_000))
+    replies = []
+    for mesh in (None, (4, 1)):
+        th, port, errors = _start_daemon(_serve_cmd(mesh=mesh, **fsk), cuda)
+        replies.append(_client(port, burst))
+        th.join(timeout=120)
+        assert not th.is_alive() and not errors, errors
+    assert replies[0] == replies[1] and len(replies[0]) > 100

@@ -4,9 +4,9 @@
 (``R Msps``) aside; audio files agree within ``1e-5`` of full scale, WAV
 headers byte for byte; ``-out -`` writes the audio bytes and nothing else to
 stdout; ``-stdin yes`` buffers the pipe (up to its cap) and gives the file
-run's output; ``-mesh`` is refused naming ROADMAP A13 (``psk`` too; its
-port is held by ``tests/test_torch_psk.py``);
-parse errors are the JAX package's.  Captures are made with numpy from a
+run's output; ``-mesh T`` prints the single-device run's lines and
+quadjax's (``tests/test_torch_demod_mesh.py`` holds the sharded front end
+itself); parse errors are the JAX package's.  Captures are made with numpy from a
 seed."""
 
 import io
@@ -203,15 +203,43 @@ def test_stdin_cap(cpu, capsys, monkeypatch):
     assert (rc, err) == (0, "") and (rc, out, err) == run(jcli.main, argv, capsys)
 
 
+MESH_ARGV = {
+    "ook": ["ook", "-bit", "16"],
+    "fsk": ["fsk", "-lowpass", "8k", "-power", "10", "-decimate", "4", "-stride", "600"],
+    **AUDIO_ARGV,
+}
+
+
 @pytest.mark.parametrize("cmd", ["ook", "fsk", "fm", "am", "ssb"])
 def test_mesh_refused(cmd, cpu, capsys):
-    rc, out, err = run(tcli.main, [cmd, "-mesh", "2", OOK], capsys)
-    assert rc == 1 and f"{cmd} -mesh" in err and "ROADMAP A13" in err and out == ""
+    """A receiver's ``-mesh 2x2`` is refused with quadjax's text (one
+    capture shards over time only); ``-mesh 2`` runs, time-sharding the
+    front end over the CPU repeated, and prints the single-device run's
+    lines and quadjax's (the throughput aside).  The audio captures run 12.5
+    s, so that two of the front end's 65536-sample windows are full and the
+    mesh dispatch engages."""
+    path = {"ook": OOK, "fsk": FSK}.get(cmd) or write_capture(cpu, cmd, n=1_200_000)
+    argv = MESH_ARGV[cmd]
+    t_rc, _, t_err = run(tcli.main, [*argv, "-mesh", "2x2", path], capsys)
+    j_rc, _, j_err = run(jcli.main, [*argv, "-mesh", "2x2", path], capsys)
+    assert t_rc == j_rc == 1 and t_err == j_err == f"Error: processing command '{cmd}': {cmd} -mesh shards one capture: use T or Tx1\n"
+    outs = []
+    for main, mesh in ((tcli.main, ["-mesh", "2"]), (tcli.main, []), (jcli.main, ["-mesh", "2"])):
+        rc, out, err = run(main, [*argv, *mesh, path], capsys)
+        assert (rc, err) == (0, "")
+        outs.append(no_rate(out))
+    assert outs[0] == outs[1] == outs[2] and outs[0].startswith(f"{cmd}: ") == (cmd in AUDIO_ARGV)
 
 
 def test_psk_refused_and_parse_errors_match_jax(cpu, capsys):
-    rc, out, err = run(tcli.main, ["psk", "-symbol-rate", "1k", "-mesh", "2", FSK], capsys)
-    assert rc == 1 and "psk -mesh" in err and "ROADMAP A13" in err and out == ""
+    """``psk -mesh 2`` runs as the single-device run does (here the burst
+    is too slow for the symbol rate: the same error, exit 1, in both and in
+    quadjax); the receivers' parse errors, ``-mesh 2x2`` and ``-mesh`` with
+    ``-stdin`` among them, are quadjax's."""
+    got = [run(main, ["psk", "-symbol-rate", "1k", *mesh, FSK], capsys)
+           for main, mesh in ((tcli.main, ["-mesh", "2"]), (tcli.main, []), (jcli.main, ["-mesh", "2"]))]
+    assert got[0][::2] == got[1][::2] == got[2][::2] == (1, "Error: 1.50 channel samples/symbol < 2: lower the "
+                                                           "symbol rate or the decimation\n")
     for argv in (["ook"], ["fm", "-wav", "yes", FSK], ["ssb", "-sideband", "dsb", FSK], ["fm", "-deviation", "0", FSK],
                  ["am", "-stdin", "yes"], ["fsk", "-mesh", "2x2", FSK], ["ook", "-mesh", "2", "-stdin", "yes", "-sr", "1k",
                                                                         "-format", "cf32"], ["fm", "-bogus", "1", FSK],

@@ -8,8 +8,8 @@ against ``quadjax`` on the same argv (its mesh on the 8 virtual CPU
 devices); case for case with ``tests/test_cli_serve.py``,
 ``tests/test_scan.py``, ``tests/test_find.py`` and
 ``tests/test_channelizer.py``.  The receivers' and the daemon's ``-mesh``
-stay refused naming ROADMAP A13 (``tests/test_torch_demod_cli.py``,
-``tests/test_torch_psk.py``, ``tests/test_torch_serve.py``).
+are held in ``tests/test_torch_demod_mesh.py`` and
+``tests/test_torch_serve.py``.
 
 Against the single-device run: peak bins, survey counts, ``find`` offsets
 and burst spans exact, stream norms within ``1e-5`` of scale (the

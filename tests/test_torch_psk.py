@@ -378,9 +378,22 @@ def test_cli_stdin(cpu, capsys, monkeypatch):
 
 
 def test_cli_mesh_refused_and_parse_errors_match_jax(cpu, capsys):
-    path, _ = write_burst(cpu, 2)
-    rc, out, err = run(tcli.main, BASE + ["-mesh", "2", path], capsys)
-    assert rc == 1 and "psk -mesh" in err and "ROADMAP A13" in err and out == ""
+    """``psk -mesh 2`` over a burst of 8400 symbols (two full 65536-sample
+    windows of the front end, so the mesh dispatch engages): the
+    single-device run's lines, the payload, and quadjax's mesh run; the
+    parse errors, ``-mesh 2x2`` and ``-mesh`` with ``-stdin`` among them,
+    are quadjax's."""
+    incr = np.random.default_rng(43).integers(0, 2, 8400)
+    x = psk_iq(incr, 2, SR / 8_000.0, SR, f_off=150.0, phase0=0.4)
+    path = cpu / f"long.sr{SR}.cf32"
+    path.write_bytes(np.stack([x.real, x.imag], -1).astype("<f4").tobytes())
+    t_rc, mesh_out, err = run(tcli.main, BASE + ["-mesh", "2", str(path)], capsys)
+    assert (t_rc, err) == (0, "")
+    assert run(tcli.main, BASE + [str(path)], capsys)[1] == mesh_out
+    assert mesh_out.splitlines()[0] in want_bits(incr, 2)
+    j_rc, j_out, _ = run(jcli.main, BASE + ["-mesh", "2", str(path)], capsys)
+    assert j_rc == 0
+    assert_same_run(mesh_out, j_out)
     for argv in (["psk"], ["psk", "x.sr1M.cf32"], ["psk", "-symbol-rate", "8k", "-order", "3", "x.sr1M.cf32"],
                  ["psk", "-symbol-rate", "0", "x.sr1M.cf32"], ["psk", "-symbol-rate", "8k", "-mesh", "2x2", "x.sr1M.cf32"],
                  ["psk", "-symbol-rate", "8k", "-mesh", "2", "-stdin", "yes", "-sr", "1M", "-format", "cf32"],

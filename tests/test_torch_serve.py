@@ -14,7 +14,9 @@ offsets and ``which`` exact, scores and scales within ``2e-4``; ``ook`` and
 ``fsk`` text exact, PSK's bits exact but at counted near-ties; audio
 header lines exact and samples within ``1e-5`` of full scale; trailers and
 log lines equal but for the time and ``Msps`` figures and the ports.
-``-mesh`` is refused naming ROADMAP A13 before anything listens."""
+``-mesh``: stream norms byte for byte a direct mesh ``StreamRunner``'s, and
+within ``1e-5`` of scale of the unmeshed daemon's; ``fsk`` and ``find``
+replies those of the unmeshed daemon."""
 
 import io
 import pathlib
@@ -548,27 +550,164 @@ def test_serve_timeout_parse_and_banner(capsys):
         ("find", dict(patterns=("sync.sr48k.cf32",), threshold=0.8, chunk=1 << 13, format="cf32")),
     ],
 )
-def test_serve_mesh_refused_before_listening(capsys, mode, kw):
+def test_serve_mesh_refused_before_listening(capsys, tmp_path, monkeypatch, mode, kw):
     """``serve -mesh 2`` (the JAX package's three -mesh cases: stream, fsk,
-    find) is refused naming ROADMAP A13 before the socket binds: ``ready``
-    is never called and no banner is printed.  Through the CLI it exits 1
-    with the same message where the mode takes -mesh; fsk's parser refuses
-    -mesh, with the JAX package's text."""
-    called = []
-    with pytest.raises(NotImplementedError, match=r"serve -mesh .*ROADMAP A13"):
-        tserve.run_serve(serve_cmd(targs, mode=mode, mesh=(2, 1), **kw), CPU, ready=called.append)
-    assert not called and "listening" not in capsys.readouterr().out
+    find) through the CLI: fsk's parser refuses it before anything listens,
+    with quadjax's text; stream's and find's parse as quadjax's, and their
+    daemons listen with a ``, mesh 2x1`` banner and log one session as
+    quadjax's daemon does (the times and ports aside)."""
+    monkeypatch.chdir(tmp_path)
     argv = ["serve", "-mode", mode, "-mesh", "2", "-sr", "48k", "-format", "cf32"]
     if mode == "find":
         argv += ["-pattern", "sync.sr48k.cf32"]
-    assert tcli.main(argv) == 1
-    out, err = capsys.readouterr()
-    assert "listening" not in out
     if mode == "fsk":
-        assert "-mesh does not apply to -mode fsk" in err
+        assert tcli.main(argv) == 1
+        out, err = capsys.readouterr()
+        assert "listening" not in out and "-mesh does not apply to -mode fsk" in err
         assert jcli.main(argv) == 1 and capsys.readouterr().err == err
-    else:
-        assert "serve -mesh" in err and "ROADMAP A13" in err
+        return
+    (t_cmd,), (j_cmd,) = targs.parse(argv), jargs.parse(argv)
+    assert t_cmd.mesh == j_cmd.mesh == (2, 1)
+    payload, _ = find_case(tmp_path)
+    _, logs = serve_both(capsys, [payload], mesh=(2, 1), **dict(kw, format="cf32", sample_rate="48k"))
+    assert ", mesh 2x1)" in logs["torch"] and "done" in logs["torch"]
+    assert untimed(logs["torch"]) == untimed(logs["jax"])
+
+
+def test_serve_mesh_matches_direct_mesh_run(capsys):
+    """``serve -mesh 4x1`` time-shards each connection's chunks over the
+    mesh (the socket is a live pipe): the reply is byte for byte a direct
+    mesh ``StreamRunner`` over the same bytes, within ``1e-5`` of scale of
+    the unmeshed daemon's (the mesh bound of the stream), and within the
+    stream tolerance of quadjax's mesh daemon."""
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+
+    data = capture(30_000, seed=46)
+    replies, logs = serve_both(capsys, [data], mesh=(4, 1))
+    assert "mesh 4x1" in logs["torch"] and untimed(logs["torch"]) == untimed(logs["jax"])
+    model = PipelineModel(PipelineConfig(sample_rate=48_000, shift_freq=1_000, lp_freq=8_000, decimate=4, taps=40,
+                                         fft_width=32, fmt=FileFormat.COMPLEX_INT8))
+    rows = []
+    StreamRunner(SampleSource(np.frombuffer(data, dtype=np.uint8), model.cfg.fmt, 48_000), model, CPU,
+                 chunk_samples=8_000, mesh=make_mesh(4, 1, devices=[CPU] * 4)).run(lambda w, n: rows.append(n))
+    got = np.frombuffer(replies["torch"][0], dtype=np.float32).reshape(-1, 32)
+    assert got.tobytes() == np.concatenate(rows).tobytes()
+    single = direct_norms(data)
+    assert got.shape == single.shape
+    np.testing.assert_allclose(got, single, rtol=0, atol=1e-5 * single.max())
+    want = np.frombuffer(replies["jax"][0], dtype=np.float32).reshape(-1, 32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL * want.max())
+
+
+def test_serve_fsk_demod_mode_mesh(capsys):
+    """``serve -mode fsk -mesh 4`` time-shards each burst's front end: the
+    reply is byte for byte the unmeshed daemon's, and quadjax's mesh
+    daemon's."""
+    path = EXAMPLES / "fsk-sim.sr48k.cf32"
+    kw = dict(mode="fsk", shift=0, lowpass=8_000, size=20, decimate=4, fft_width=64, stride=600, bit=None,
+              sample_rate="48k", format="cf32")
+    th, port, errors = start("torch", **kw)
+    want = session(port, path.read_bytes())
+    join(th, errors)
+    capsys.readouterr()
+    replies, logs = serve_both(capsys, [path.read_bytes()], mesh=(4, 1), **kw)
+    assert "mesh 4x1" in logs["torch"] and untimed(logs["torch"]) == untimed(logs["jax"])
+    assert replies["torch"][0] == want == replies["jax"][0]
+
+
+def test_serve_find_mesh(capsys, tmp_path):
+    """``serve -mode find -mesh 4`` buffers each burst and time-shards the
+    correlation: the reply lines are the unmeshed daemon's, and quadjax's
+    mesh daemon's within the find tolerance."""
+    payload, pat_path = find_case(tmp_path, seed=62)
+    kw = dict(mode="find", patterns=(str(pat_path),), threshold=0.8, chunk=1 << 13, sample_rate="48k", format="cf32")
+    th, port, errors = start("torch", **kw)
+    want = reply_lines(session(port, payload))
+    join(th, errors)
+    capsys.readouterr()
+    replies, _ = serve_both(capsys, [payload], mesh=(4, 1), **kw)
+    got, j = reply_lines(replies["torch"][0]), reply_lines(replies["jax"][0])
+    assert [ln.split(",")[0] for ln in got[:-1]] == ["3000", "30000"]
+    assert got == want
+    assert_matches_close(got[:-1], j[:-1])
+    assert got[-1] == j[-1]
+
+
+def test_serve_find_mesh_buffer_cap(capsys, tmp_path, monkeypatch):
+    """A ``-mode find -mesh`` burst past the buffer cap answers with
+    quadjax's error line and the session fails; the cap is cut to 4 KiB
+    here, in both daemons."""
+    monkeypatch.setattr(tserve, "_STDIN_BUFFER_CAP", 4096)
+    monkeypatch.setattr(jserve, "_STDIN_BUFFER_CAP", 4096)
+    payload, pat_path = find_case(tmp_path)
+    kw = dict(mode="find", patterns=(str(pat_path),), threshold=0.8, chunk=1 << 13, sample_rate="48k", format="cf32",
+              mesh=(2, 1))
+    replies, logs = serve_both(capsys, [payload[:4097]], **kw)
+    line = ("# error: connection burst exceeds the buffer cap (1 GiB); find -mesh buffers the whole burst — "
+            "drop -mesh for unbounded streams")
+    assert reply_lines(replies["torch"][0]) == [line] and replies["torch"][0] == replies["jax"][0]
+    assert "serve: conn 1 failed: ValueError: connection burst exceeds the buffer cap" in logs["torch"]
+    assert untimed(logs["torch"]) == untimed(logs["jax"])
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2)])
+def test_serve_waterfall_mesh(capsys, mesh):
+    """``-mode waterfall -mesh 2`` time-shards each connection's bank of one
+    stream: the norms are the unmeshed daemon's, bit for bit, and quadjax's
+    within the waterfall tolerance.  ``-mesh 2x2`` asks a connection's one
+    stream to fill two stream rows: each session fails, logged as
+    quadjax's daemon logs it, and the daemon goes on."""
+    data = capture(15_000, seed=49)
+    kw = dict(mode="waterfall", fft_width=128, stride=64, chunk=40)
+    if mesh[1] == 2:
+        logs = {}
+        for pkg in ("jax", "torch"):
+            th, port, errors = start(pkg, mesh=mesh, **kw)
+            with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+                assert s.recv(1) == b""  # the daemon closes the session before it reads
+            join(th, errors)
+            logs[pkg] = capsys.readouterr().out
+        assert "serve: conn 1 failed: ValueError: 1 sources do not shard over 2 'stream' mesh rows" in logs["torch"]
+        assert untimed(logs["torch"]) == untimed(logs["jax"]) and "mesh 2x2" in logs["torch"]
+        return
+    replies, logs = serve_both(capsys, [data], mesh=mesh, **kw)
+    assert untimed(logs["torch"]) == untimed(logs["jax"]) and "mesh 2x1" in logs["torch"]
+    got = np.frombuffer(replies["torch"][0], dtype=np.float32).reshape(-1, 128)
+    np.testing.assert_array_equal(got, wf_norms(data, 128, 64, 40))
+    want = np.frombuffer(replies["jax"][0], dtype=np.float32).reshape(-1, 128)
+    np.testing.assert_allclose(got, want, rtol=WF_RTOL, atol=WF_RTOL * want.max())
+
+
+def test_serve_parallel_mesh_sessions(capsys):
+    """``-parallel 2 -mesh 2``: two sessions at once, each time-sharded
+    over the mesh (a stream of its own on each device, a ring a shard): each
+    reply is its own direct mesh run's, byte for byte."""
+    from quadrs_tpu_torch.parallel.sharding import make_mesh
+
+    payloads = [capture(25_000, seed=s) for s in (47, 48)]
+    th, port, errors = start("torch", max_connections=2, search=True, once=False, parallel=2, mesh=(2, 1))
+    results: list[bytes | None] = [None, None]
+
+    def client(i):
+        results[i] = session(port, payloads[i])
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=120)
+        assert not c.is_alive()
+    join(th, errors)
+    out = capsys.readouterr().out
+    assert "mesh 2x1, parallel 2" in out and out.count(" done: ") == 2
+    model = PipelineModel(PipelineConfig(sample_rate=48_000, shift_freq=1_000, lp_freq=8_000, decimate=4, taps=40,
+                                         fft_width=32, fmt=FileFormat.COMPLEX_INT8))
+    for data, reply in zip(payloads, results):
+        rows = []
+        StreamRunner(PipeSource(io.BytesIO(data), model.cfg.fmt, 48_000), model, CPU, chunk_samples=8_000,
+                     mesh=make_mesh(2, 1, devices=[CPU] * 2)).run_search(lambda w, o: rows.append((w, o)))
+        lines = reply_lines(reply)
+        assert lines[1:-1] == search_lines(rows) and lines[-1].startswith("# stream: ")
 
 
 # -- the receivers ---------------------------------------------------------------------
