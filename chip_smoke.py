@@ -136,8 +136,13 @@ the run.  Phases:
    quadrs_tpu_torch.parallel.distributed`` on the card over gloo, two
    shards each, at the bench config over the mesh capture, each rank's
    rows against the single-device rows at the same global index
-   (``phase_distributed``); and one ``profiled()`` stream run with the
-   profiler's report (``phase_profiler``);
+   (``phase_distributed``); one ``profiled()`` stream run with the
+   profiler's report (``phase_profiler``); and every entry of the bench
+   (``quadrs_tpu_torch.bench``) at its ``quick`` scale: the full bench's
+   shapes and lengths, 0.25 s timing windows, one rep, the 1G-sample
+   captures cut to 2^28 samples; each line printed as it is measured, and
+   the run failed by an entry's error, a kernel entry that launched no
+   kernel or one without its output check (``phase_bench``);
 5. CUDA-event times of the kernels, their plain versions and their
    yardsticks at the main paths' shapes: one 4M-sample cs8 chunk of the
    stream chain (D 32, 400 taps, W 64) for the frontend kernels and the
@@ -3359,6 +3364,53 @@ def phase_profiler(card: str, tmp: str) -> None:
         raise AssertionError(f"profiled() missed a stage: {dict(PROFILER.stages)}")
 
 
+class _Prefixed:
+    """A text stream that writes to standard output with ``prefix`` at the
+    start of each line."""
+
+    def __init__(self, prefix: str):
+        self.prefix, self.at_start = prefix, True
+
+    def write(self, s: str) -> None:
+        for part in s.splitlines(keepends=True):
+            sys.stdout.write((self.prefix if self.at_start else "") + part)
+            self.at_start = part.endswith("\n")
+
+    def flush(self) -> None:
+        sys.stdout.flush()
+
+
+def phase_bench(card: str, tmp: str) -> dict[str, int]:
+    """Phase 4's last: every entry of the bench at its ``quick`` scale
+    (the full bench's shapes and lengths, 0.25 s windows, one rep, the
+    1G-sample captures cut to 2^28 samples, written under ``tmp``), each
+    line printed as it is measured.  Fails on an entry's error, on a kernel
+    entry whose route launched no kernel or that lacks its output check.
+    Returns the kernels' launches over the entries' timed windows and
+    end-to-end runs (the output checks' launches are not counted)."""
+    from quadrs_tpu_torch import bench
+    from quadrs_tpu_torch import bench_suite as bs
+
+    sc = bs.Scale("quick", DEVICE, tmp)
+    print(f"  the bench, {len(bench.ENTRIES)} entries at the quick scale (cut: the 1G-sample captures to "
+          f"{sc.capture_samples} samples; 0.25 s windows, one rep) ({card}):")
+    t0 = time.perf_counter()
+    lines = bench.run(list(bench.ENTRIES), sc, out=_Prefixed("    "))
+    failed = [line["entry"] for line in lines if "error" in line]
+    kernel_lines = [line for line in lines if line["entry"] in bs.KERNEL_ENTRIES]
+    no_kernel = [line["entry"] for line in kernel_lines if not line.get("launches")]
+    unchecked = [line["entry"] for line in kernel_lines if "max_err_over_scale" not in line]
+    print(f"  the bench: {len(lines)} entries in {time.perf_counter() - t0:.1f}s; errors {failed}, kernel entries "
+          f"with no launch {no_kernel}, without an output check {unchecked}")
+    if failed or no_kernel or unchecked:
+        raise AssertionError("the bench's quick phase failed")
+    totals: dict[str, int] = {}
+    for line in lines:
+        for name, count in line.get("launches", {}).items():
+            totals[name] = totals.get(name, 0) + count
+    return totals
+
+
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM: peak HBM3 rate
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 
@@ -3793,8 +3845,11 @@ def main() -> int:
             for name, count in phase().items():
                 launches[name] += count
         phase_profiler(card, tmp)
+        for name, count in phase_bench(card, tmp).items():
+            launches[name] = launches.get(name, 0) + count
         print(f"  launches over the main paths (the stream runs, the live runs, the bank runs, the daemon's "
-              f"sessions, the mesh runs, the daemon's mesh sessions and the distributed workers): {launches}")
+              f"sessions, the mesh runs, the daemon's mesh sessions, the distributed workers and the bench's "
+              f"timed windows): {launches}")
         # no path of the JAX package runs the v1 function, so no main path of
         # the port may: it is held to its plain version in phases 3 and 5
         launches["frontend_banded"] = fe.frontend_banded.launches

@@ -330,6 +330,12 @@ class SsbDemod:
 
 
 def audio_stage(demod, rate: int, audio: torch.Tensor, div: float = 1.0, bias: float = 0.0) -> tuple[int, np.ndarray]:
+    """:func:`audio_stage_dev`, its audio fetched to the host as f32 numpy."""
+    rate, y = audio_stage_dev(demod, rate, audio, div, bias)
+    return rate, y.cpu().numpy()
+
+
+def audio_stage_dev(demod, rate: int, audio: torch.Tensor, div: float = 1.0, bias: float = 0.0) -> tuple[int, torch.Tensor]:
     """The audio tail of every analog receiver (the JAX package's
     ``_audio_stage`` and ``_audio_stage_fused``), on ``audio``'s device:
     the ``audio / div + bias`` prologue (FM's deviation scaling, AM's
@@ -338,8 +344,8 @@ def audio_stage(demod, rate: int, audio: torch.Tensor, div: float = 1.0, bias: f
     :func:`~quadrs_tpu_torch.ops.fir.fir_decimate`; ``n_out = 1 + (len -
     taps) // decimate``, as ``LowPass``), and the optional rational
     resample to ``demod.audio_rate``
-    (:func:`~quadrs_tpu_torch.ops.resample.resample_real`).  Only the final
-    audio crosses to the host.  Returns ``(out_rate, f32 audio)``."""
+    (:func:`~quadrs_tpu_torch.ops.resample.resample_real`).  Returns
+    ``(out_rate, f32 audio on the device)``."""
     dev = audio.device
     if dev.type == "cuda":
         no_tf32()
@@ -359,7 +365,7 @@ def audio_stage(demod, rate: int, audio: torch.Tensor, div: float = 1.0, bias: f
         cur_rate //= d
     if demod.audio_rate is not None:
         cur_rate, y = resample_real(y, cur_rate, int(demod.audio_rate))
-    return cur_rate, y.contiguous().cpu().numpy()
+    return cur_rate, y.contiguous()
 
 
 # ------------------------------------------------------------------- PSK

@@ -1323,3 +1323,18 @@ def test_serve_mesh_sessions_on_the_card(cuda, monkeypatch):
         th.join(timeout=120)
         assert not th.is_alive() and not errors, errors
     assert replies[0] == replies[1] and len(replies[0]) > 100
+
+
+def test_bench_quick_entries_launch_their_kernels(cuda, tmp_path):
+    """The bench's headline and 64-stream waterfall at the ``quick`` scale
+    (full shapes, 0.25 s windows): each launched its kernel while timed
+    and held one step to the kernel's plain version."""
+    from quadrs_tpu_torch import bench
+    from quadrs_tpu_torch import bench_suite as bs
+
+    lines = bench.run(["headline", "bench_waterfall"], bs.Scale("quick", cuda, str(tmp_path)))
+    for line, kernel in zip(lines, ("frontend_fir", "waterfall_norms")):
+        assert "error" not in line, line["error"]
+        assert line["launches"].get(kernel, 0) > 0 and kernel in line["route"]
+        assert line["max_err_over_scale"] <= (bs.FRONTEND_TOL if kernel == "frontend_fir" else 2 * bs.WATERFALL_RTOL)
+        assert line["value"] > 0 and line["pct_hbm_peak"] <= 100 and line["linearity"] > 1.8
