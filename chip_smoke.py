@@ -51,9 +51,11 @@ the run.  Phases:
    ``-write`` slices against the capture's bytes, the bank from ``replay
    -speed 0 | find -stdin yes`` against the file run, and the dispatches
    that the device scan decided (some must be); then the conditioning stages
-   over the first capture (``iqbal dcblock agc resample 147/160 write``;
-   the FSK chain through ``dcblock -window 256 agc -window 64`` into
-   ``sparkfft``), each against its CPU run over the prefix, and
+   over the first capture (``iqbal dcblock agc resample 147/160 write``
+   against its CPU run over the prefix; the FSK chain through ``dcblock
+   agc`` at their default windows into ``sparkfft`` over its first 2^24
+   samples, in batches capped by the root samples they gather, its peak
+   allocated memory printed and sampled rows held against the CPU), and
    ``resample_real`` 656,250 to 48,000 against the CPU; a profiled run of
    ``find``, the bank and the stage chain each gives the device's share
    of its wall; then the receivers (torch ops and cuFFT, no kernel: the
@@ -797,11 +799,13 @@ SPARK_BOUNDS = np.concatenate([[0.08, 1.0], np.float32(0.08) + (np.float32(1.0) 
                                * np.arange(1, 7, dtype=np.float32)]).astype(np.float32)
 
 
-def glyph_diffs(rows: list[str], cpu_rows: list[str], cpu_stream, width: int, stride: int) -> tuple[int, int]:
+def glyph_diffs(rows: list[str], cpu_rows: list[str], cpu_stream, width: int, stride: int,
+                at: np.ndarray | None = None) -> tuple[int, int]:
     """sparkfft rows printed on the card against the CPU's over the prefix:
     (rows that differ, glyphs that differ).  Each differing glyph's CPU norm
     (``cpu_stream``'s window, on the CPU) must lie within ``TOL`` of its
-    value from a level, or this raises."""
+    value from a level, or this raises.  ``at``: each row's window offset,
+    where the rows are a sample (row r's is ``r * stride`` otherwise)."""
     from quadrs_tpu_torch.ops.stft import stft_norms
     from quadrs_tpu_torch.runtime import Executor
 
@@ -810,7 +814,8 @@ def glyph_diffs(rows: list[str], cpu_rows: list[str], cpu_stream, width: int, st
     if bad:
         # each differing glyph's distance to the nearest level, relative to its value
         # (tests/test_sparkfft.py::test_ook_quantization_margins) and in f32 spacings there
-        norms = Executor(cpu_stream, width, "cpu", post=stft_norms).run(np.asarray(bad, dtype=np.int64) * stride)[0]
+        offs = np.asarray(bad, dtype=np.int64) * stride if at is None else np.asarray(at, dtype=np.int64)[bad]
+        norms = Executor(cpu_stream, width, "cpu", post=stft_norms).run(offs)[0]
         for i, r in enumerate(bad):
             for k, (a, b) in enumerate(zip(rows[r][1:-1], cpu_rows[r][1:-1])):
                 if a != b:
@@ -1189,7 +1194,7 @@ def find_breakdown(card: str, cap: str, template: str) -> dict[str, float]:
     the candidate scan).  The full-score tail is left out."""
     from quadrs_tpu_torch import sinks
     from quadrs_tpu_torch.ops.correlate import PeakScan, make_xcorr_post
-    from quadrs_tpu_torch.runtime import Executor, _to_device, window_batches
+    from quadrs_tpu_torch.runtime import Executor, _to_device, stream_batches
     from quadrs_tpu_torch.sources import SampleSource, open_capture
     from quadrs_tpu_torch.staging import Download
 
@@ -1198,7 +1203,7 @@ def find_breakdown(card: str, cap: str, template: str) -> dict[str, float]:
     c = sinks.find_block(len(pat), src.length)
     n_out, thr = c - len(pat) + 1, float(np.float32(0.5))
     offsets = np.arange(0, src.length - len(pat) + 1, n_out, dtype=np.int64)
-    batch, batches = window_batches(offsets, c, budget=max(c, sinks.FIND_DISPATCH_BUDGET))
+    batch, batches = stream_batches(src, offsets, c, budget=max(c, sinks.FIND_DISPATCH_BUDGET))
     post = make_xcorr_post(pat, c, extract=(thr, sinks.FIND_TOPK))
     ex, scan = Executor(src, c, DEVICE, batch=batch), PeakScan(thr)
     t = dict(staging=0.0, h2d=0.0, device=0.0, d2h=0.0, host=0.0)
@@ -1232,15 +1237,104 @@ def find_breakdown(card: str, cap: str, template: str) -> dict[str, float]:
     return t
 
 
+STAGE_SAMPLES = 1 << 24  # phase 4: the capture of the default-window stage chain (0.8 s of air)
+STAGE_ROWS = 32  # of its sparkfft rows, held against the CPU: the first, the lookback's end, and rows far in
+
+
+def stage_sparkfft(card: str, cap: str, tmp: str) -> dict[str, float]:
+    """The FSK chain through ``dcblock agc`` at their default windows (32000
+    and 4000) into ``sparkfft -width 64 -stride 16``, through the CLI on the
+    card over the first ``STAGE_SAMPLES`` of the capture.  Each window
+    reads 36,062 samples of the decimated stream (its 64 and 35,998 of
+    lookback), 1,154,384 root samples, so the executor caps each batch by
+    the root samples it gathers (2^26); sized by output samples alone, a
+    batch would gather 16,384 windows at once: more than the card holds.
+    Prints the batches, the peak of allocated memory, the wall and a
+    profiled run's device share; a sample of the rows (the lookback
+    filling, its end, rows far in) is held against the same windows on the
+    CPU through the port's executor, glyph for glyph outside near-ties, and
+    the card's norms of one batch against one window a batch are printed."""
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import Executor, root_read_of, stream_batches
+    from quadrs_tpu_torch.sources import open_capture
+    from quadrs_tpu_torch.stream import Agc, DcBlock, LowPass, Shift
+
+    laps = [("start", time.perf_counter())]  # where this part's time goes
+    path = os.path.join(tmp, "stagecap.sr21M.cs8")
+    with open(cap, "rb") as f, open(path, "wb") as g:
+        g.write(f.read(STAGE_SAMPLES * 2))
+
+    def chain(capture):
+        return Agc(DcBlock(LowPass(Shift(open_capture(capture), 280_000), 200_000, 32, 400), 32_000), window=4_000)
+
+    stream = chain(path)
+    offsets = np.arange(0, stream.length - 64, 16, dtype=np.int64)
+    read = root_read_of(stream, 64)
+    batch, batches = stream_batches(stream, offsets, 64)
+    print(f"  stages sparkfft at the default windows over {STAGE_SAMPLES} samples: {len(offsets)} windows, "
+          f"{read} root samples a window, {len(batches)} batches of at most {batch} windows "
+          f"({batch * read} root samples gathered a batch; the output budget alone gives "
+          f"{min(len(offsets), (1 << 20) // 64)} windows, {min(len(offsets), (1 << 20) // 64) * read})")
+    if batch * read > 1 << 26:
+        raise AssertionError("a batch gathers more than 2^26 root samples")
+    laps.append(("capture and plan", time.perf_counter()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls: dict[str, float] = {}
+    fsk = ["shift", "280k", "lowpass", "-power", "200", "-decimate", "32", "200k", "dcblock", "agc"]
+    out = card_run("stages sparkfft", ["from", path, *fsk, "sparkfft", "-width", "64", "-stride", "16"], card, walls,
+                   samples=STAGE_SAMPLES)
+    peak = torch.cuda.max_memory_allocated()
+    rows = out.splitlines()[1:]
+    print(f"    peak allocated {peak / 2**30:.3f} GiB; wall {walls['stages sparkfft']:.3f}s, "
+          f"{STAGE_SAMPLES / walls['stages sparkfft'] / 1e6:.2f} Msps of capture ({card})")
+    if len(rows) != len(offsets):
+        raise AssertionError(f"stages sparkfft printed {len(rows)} rows for {len(offsets)} windows")
+    if peak >= 8 << 30:
+        raise AssertionError(f"stages sparkfft peaked at {peak / 2**30:.3f} GiB of allocated memory")
+    laps.append(("card run", time.perf_counter()))
+    wall, busy = profiled(["from", path, *fsk, "sparkfft", "-width", "64", "-stride", "16"])
+    walls["stages sparkfft profiled"], walls["stages sparkfft busy"] = wall, busy
+    print(f"    a profiled card run: wall {wall:.3f}s, device busy {busy:.3f}s, device share {100 * busy / wall:.1f}% "
+          f"({card})")
+    # the sampled rows: the first (the lookback filling), those where it
+    # fills (output offset 35,998), and rows spread to the end
+    full = -(-(32_000 - 1 + 4_000 - 1) // 16)
+    pick = np.unique(np.concatenate([np.arange(8), full - 4 + np.arange(8),
+                                     np.linspace(full + 4, len(offsets) - 1, STAGE_ROWS - 16).astype(np.int64)]))
+    pick = pick[pick < len(offsets)]
+    laps.append(("profiled run", time.perf_counter()))
+    cpu_stream = chain(path)
+    norms = np.concatenate([Executor(cpu_stream, 64, "cpu", post=stft_norms).run(offsets[pick[i:i + 8]])[0]
+                            for i in range(0, len(pick), 8)])
+    cpu_rows = sinks.glyph_lines(norms, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX).split("\n")
+    bad, near = glyph_diffs([rows[r] for r in pick], cpu_rows, cpu_stream, 64, 16, at=offsets[pick])
+    laps.append(("CPU rows", time.perf_counter()))
+    print(f"    {len(pick)} rows (windows {pick[0]}..{pick[-1]}) against the CPU's executor: {bad} differ, "
+          f"{near} glyphs within {TOL} of a level")
+    ex = Executor(stream, 64, DEVICE, post=stft_norms)
+    one = ex.run(offsets[pick])[0]
+    alone = np.concatenate([ex.run(offsets[pick[i:i + 1]])[0] for i in range(len(pick))])
+    print(f"    the card's norms of those windows in one batch against one window a batch: max |diff| "
+          f"{float(np.abs(one - alone).max()):.3e} of {float(np.abs(alone).max()):.4g}")
+    laps.append(("batch against alone", time.perf_counter()))
+    walls["stages sparkfft added"] = laps[-1][1] - laps[0][1]
+    print(f"    the default-window sparkfft's part of the stage phase: {walls['stages sparkfft added']:.1f}s, "
+          + ", ".join(f"{name} {t - laps[k][1]:.1f}s" for k, (name, t) in enumerate(laps[1:])) + f" ({card})")
+    return walls
+
+
 def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
-    """Phase 4, the conditioning stages through the CLI over the 2^26-sample
-    capture: ``iqbal dcblock agc resample 147/160 write`` and the FSK chain
-    through ``dcblock agc`` into ``sparkfft``, each against the same argv on
-    the CPU over the 2^22-sample prefix; then ``resample_real`` 656,250 to
+    """Phase 4, the conditioning stages through the CLI:
+    ``iqbal dcblock agc resample 147/160 write`` over the 2^26-sample
+    capture against the same argv on the CPU over the 2^22-sample prefix;
+    the FSK chain through ``dcblock agc`` at their default windows into
+    ``sparkfft`` (:func:`stage_sparkfft`); then ``resample_real`` 656,250 to
     48,000 on the card against the CPU.  No kernel of the port launches."""
     from quadrs_tpu_torch.ops.resample import resample_real
     from quadrs_tpu_torch.sources import open_capture
-    from quadrs_tpu_torch.stream import Agc, DcBlock, IqCorrect, LowPass, Resample, Shift
+    from quadrs_tpu_torch.stream import Agc, DcBlock, IqCorrect, Resample
 
     laps = [("start", time.perf_counter())]  # where the phase's own time goes
     pre = os.path.join(tmp, "stagepre.sr21M.cs8")
@@ -1268,22 +1362,8 @@ def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
           f"device share {100 * busy / wall:.1f}% ({card})")
     laps.append(("profiled run", time.perf_counter()))
 
-    # the FSK chain through dcblock and agc: windows of 256 and 64 (the
-    # defaults' 32k + 4k lookback is re-read for each 64-sample pull)
-    cond = ["dcblock", "-window", "256", "agc", "-window", "64"]
-    fsk = ["shift", "280k", "lowpass", "-power", "200", "-decimate", "32", "200k", *cond]
-    out, cpu_out = card_then_cpu("stages sparkfft", lambda path, tag: ["from", path, *fsk, "sparkfft", "-width", "64",
-                                                                       "-stride", "16"], cap, pre, card, walls)
-    laps.append(("sparkfft runs", time.perf_counter()))
-    rows, cpu_rows = out.splitlines()[1:], cpu_out.splitlines()[1:]
-    length = 1 + (CAPTURE_SAMPLES - 400) // 32
-    if len(rows) != len(range(0, length - 64, 16)) or not cpu_rows:
-        raise AssertionError(f"stages sparkfft printed {len(rows)} rows for a {length}-sample stream")
-    stream = Agc(DcBlock(LowPass(Shift(open_capture(pre), 280_000), 200_000, 32, 400), 256), window=64)
-    bad, near = glyph_diffs(rows, cpu_rows, stream, 64, 16)
-    print(f"  stages sparkfft: {len(cpu_rows)} rows of the prefix compared, {bad} differ, {near} glyphs within "
-          f"{TOL} of a level")
-    laps.append(("sparkfft check", time.perf_counter()))
+    walls.update(stage_sparkfft(card, cap, tmp))
+    laps.append(("sparkfft at the default windows", time.perf_counter()))
 
     # the audio stage: 2^22 samples of a channel at 656,250 sps to 48 kHz
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -2048,13 +2128,13 @@ def phase_channelize_timing(card: str, cap: str, tmp: str) -> None:
     clock), each stage with :func:`time_ms`; with its bound."""
     from quadrs_tpu_torch.models.channelizer import Channelize, channels_first
     from quadrs_tpu_torch.ops import channelizer as chops
-    from quadrs_tpu_torch.runtime import _to_device, root_step_of, window_batches
+    from quadrs_tpu_torch.runtime import _to_device, stream_batches
     from quadrs_tpu_torch.sources import open_capture
     from quadrs_tpu_torch.staging import Download
 
     src = open_capture(cap)
     chan = Channelize(src, CH_K, size=2 * CH_POWER)
-    batch, _ = window_batches(np.arange(0, chan.length, CH_CHUNK), CH_CHUNK, root_step=root_step_of(chan))
+    batch, _ = stream_batches(chan, np.arange(0, chan.length, CH_CHUNK), CH_CHUNK)
     offs = np.arange(batch, dtype=np.int64) * CH_CHUNK
     lo, _ = chan.span(0, CH_CHUNK)
     s_off, s_n = chan.span(int(offs[-1]), CH_CHUNK)

@@ -140,6 +140,28 @@ def decode_plane(raw, fmt: FileFormat, about: float = 0.0):
     return _decode_components(raw, fmt, about)
 
 
+def decode_to_complex64(raw, fmt: FileFormat):
+    """Decode interleaved raw component values, ``(..., 2*n)`` of the
+    format's native dtype (a numpy array or a torch tensor on any device),
+    to ``(..., n)`` complex64 of the same kind.  The (re, im) pack does no
+    arithmetic, so cf32's NaN payloads survive."""
+    comps = _decode_components(raw, fmt)
+    re, im = comps[..., 0::2], comps[..., 1::2]
+    if isinstance(comps, torch.Tensor):
+        return torch.complex(re, im)
+    out = np.empty(np.broadcast(re, im).shape, dtype=np.complex64)
+    out.real, out.imag = re, im
+    return out
+
+
+def decode_bytes(buf: bytes | np.ndarray, fmt: FileFormat) -> np.ndarray:
+    """Raw capture bytes to complex64 on the host (numpy).  Trailing
+    partial sample pairs are truncated, as the reference does
+    (``src/samples.rs:84``)."""
+    flat = buf if isinstance(buf, np.ndarray) else np.frombuffer(buf, dtype=np.uint8)
+    return decode_to_complex64(view_raw(flat, fmt), fmt)
+
+
 def view_raw(buf: np.ndarray, fmt: FileFormat) -> np.ndarray:
     """Zero-copy view of a uint8 byte buffer as the format's native dtype."""
     pair = fmt.pair_bytes

@@ -22,7 +22,7 @@ import torch
 
 from quadrs_tpu_torch.ops.channelizer import channelize_block
 from quadrs_tpu_torch.ops.fir import lowpass_taps
-from quadrs_tpu_torch.runtime import Executor, root_step_of, window_batches
+from quadrs_tpu_torch.runtime import Executor, stream_batches
 from quadrs_tpu_torch.stream import Plan, Stream
 
 
@@ -146,7 +146,7 @@ def run_channelize(
     if lag0 >= total:
         return
     offsets = np.arange(lag0, total, chunk, dtype=np.int64)
-    batch, batches = window_batches(offsets, chunk, root_step=root_step_of(chan))
+    batch, batches = stream_batches(chan, offsets, chunk)
     ex = Executor(chan, chunk, device, batch=batch, post=channels_first)
     for offs, out, valid in ex.run_each(batches):  # out: (b, K, chunk)
         for row, off, v in zip(out, offs, valid):

@@ -40,7 +40,7 @@ from quadrs_tpu_torch.ops.frontend import no_tf32
 from quadrs_tpu_torch.ops.resample import resample_real
 from quadrs_tpu_torch.ops.stft import stft_norms
 from quadrs_tpu_torch.parallel.sharding import join
-from quadrs_tpu_torch.runtime import Executor, root_step_of, window_batches
+from quadrs_tpu_torch.runtime import Executor, stream_batches
 from quadrs_tpu_torch.staging import UploadRing
 from quadrs_tpu_torch.stream import LowPass, Shift, Stream
 
@@ -100,7 +100,7 @@ class OokDemod:
             return fast
         if mesh is not None:
             raise ValueError(_MESH_NEEDS_CHAIN)
-        batch, batches = window_batches(offsets, self.width, root_step=root_step_of(stream))
+        batch, batches = stream_batches(stream, offsets, self.width)
         ex = Executor(stream, self.width, device, batch=batch, post=post)
         flags = []
         for _, f, valid in ex.run_each(batches):
@@ -1047,7 +1047,7 @@ def _chunked_signal_dev(chan: Stream, c: int, lead: int, post, *, device, mesh=N
     if mesh is not None:
         raise ValueError(_MESH_NEEDS_CHAIN)
     offsets = np.arange(0, chan.length - lead, c, dtype=np.int64)
-    batch, batches = window_batches(offsets, c + lead, root_step=root_step_of(chan))
+    batch, batches = stream_batches(chan, offsets, c + lead)
     ex = Executor(chan, c + lead, device, batch=batch, post=post)
     parts = []
     for offs, vals, valid in ex.run_each(batches):

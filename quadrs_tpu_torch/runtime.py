@@ -39,14 +39,26 @@ def window_batches(
     budget: int = 1 << 20,
     span_cap: int = 1 << 26,
     root_step: int = 1,
+    root_read: int = 0,
+    gather_cap: int = 1 << 26,
 ) -> tuple[int, list[np.ndarray]]:
     """Split window offsets into executor-sized batches: ~``budget``
     samples of output per batch, and no batch spanning more than
     ``span_cap`` ROOT-SOURCE samples (the executor stages each batch's
     whole root span, so huge strides would otherwise balloon staging
     memory).  ``root_step`` is how many root samples one output offset
-    unit covers (the chain's total decimation, :func:`root_step_of`)."""
+    unit covers (the chain's total decimation, :func:`root_step_of`).
+
+    ``root_read``: the root samples one window reads
+    (:func:`root_read_of`).  The source gathers each window's read apart,
+    at about 40 bytes of device memory a sample, so no batch gathers more
+    than ``gather_cap`` of them: a trailing stage's lookback, re-read by
+    every window, would otherwise gather far more than the card holds.  A
+    window that alone reads more runs alone.  Where this cap does not
+    bind, the batches are the JAX package's."""
     batch = max(1, min(len(offsets), budget // max(width, 1)))
+    if root_read > 0:
+        batch = max(1, min(batch, gather_cap // int(root_read)))
     step = max(1, int(root_step))
     out = []
     i = 0
@@ -64,6 +76,21 @@ def root_step_of(stream) -> int:
     """Root-source samples per unit offset of ``stream`` (its chain's
     total decimation factor)."""
     return max(1, stream.span(1, 1)[0] - stream.span(0, 1)[0])
+
+
+def root_read_of(stream, width: int) -> int:
+    """Root-source samples one window of ``width`` outputs of ``stream``
+    reads (every window reads as many; a trailing stage's clamped start
+    moves its block, not its length).  0 for a generator root, which
+    stages nothing."""
+    return stream.span(0, width)[1]
+
+
+def stream_batches(stream, offsets: np.ndarray, width: int, **kw) -> tuple[int, list[np.ndarray]]:
+    """:func:`window_batches` of windows of ``width`` outputs of ``stream``,
+    with its root step and the root samples each window reads (``kw``: the
+    other arguments)."""
+    return window_batches(offsets, width, root_step=root_step_of(stream), root_read=root_read_of(stream, width), **kw)
 
 
 def _to_device(tree, device: torch.device):

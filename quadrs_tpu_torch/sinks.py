@@ -24,7 +24,7 @@ import torch
 
 from quadrs_tpu_torch.formats import FileFormat, decode_plane, encode_cf32, encode_samples
 from quadrs_tpu_torch.ops.stft import blackman_harris_window, stft_norms
-from quadrs_tpu_torch.runtime import Executor, root_step_of, window_batches
+from quadrs_tpu_torch.runtime import Executor, stream_batches
 from quadrs_tpu_torch.stream import Stream
 
 # The 9 display levels: blank below min, full block at/above max,
@@ -125,7 +125,7 @@ def spark_fft(
         return collected
 
     offsets = np.arange(0, stream.length - width, stride, dtype=np.int64)
-    batch, batches = window_batches(offsets, width, root_step=root_step_of(stream))
+    batch, batches = stream_batches(stream, offsets, width)
     ex = Executor(stream, width, device, batch=batch, post=stft_norms)
     for offs, norms, valid in ex.run_each(batches):  # a batch's rows are made while the next computes
         if not np.all(valid == width):
@@ -196,7 +196,7 @@ def freq_levels(
     if mesh is not None:
         raise ValueError(_MESH_NEEDS_CHAIN)
 
-    batch, batches = window_batches(offsets, fft_width, root_step=root_step_of(stream))
+    batch, batches = stream_batches(stream, offsets, fft_width)
     ex = Executor(stream, fft_width, device, batch=batch, post=post)
     vals: list[int] = []
     for _, (first, second), valid in ex.run_each(batches):
@@ -254,7 +254,7 @@ def do_write(
     with fh:
         if len(offsets) == 0:
             return filename
-        batch, batches = window_batches(offsets, WRITE_CHUNK, root_step=root_step_of(stream))
+        batch, batches = stream_batches(stream, offsets, WRITE_CHUNK)
         ex = Executor(stream, WRITE_CHUNK, device, batch=batch)
         for offs in batches:
             samples, valid = ex.run(offs)
@@ -349,7 +349,7 @@ def take_fft(
     elif windowing != "rectangular":
         raise ValueError(f"unknown windowing: {windowing}")
 
-    batch, batches = window_batches(offsets, width, root_step=root_step_of(stream))
+    batch, batches = stream_batches(stream, offsets, width)
     ex = Executor(stream, width, device, batch=batch, post=lambda x: stft_norms(x, window=window))
     rows: list[np.ndarray] = []
     for _, norms, valid in ex.run_each(batches):
@@ -584,7 +584,7 @@ def find_pattern(
                 o += step_lags
             lag0 = o
         offsets = np.arange(lag0, n_lags, n_out, dtype=np.int64)
-        batch, batches = window_batches(offsets, c, budget=budget, root_step=root_step_of(stream))
+        batch, batches = stream_batches(stream, offsets, c, budget=budget)
         ex_x = Executor(
             stream, c, device, batch=batch,
             post=make_xcorr_post(pats, c, grid, extract=(threshold, FIND_TOPK)),

@@ -246,8 +246,11 @@ class _Trailing(Stream):
         self.sample_rate = inner.sample_rate
 
     def span(self, off: int, n: int) -> tuple[int, int]:
-        lo = max(0, off - (self.window - 1))
-        return self.inner.span(lo, n + (off - lo))
+        # the block the plan reads: n + W - 1 samples from the clamped start,
+        # so the staged span holds all of it (a span cut at the window's end
+        # would leave the block's tail to the source's clamped gather, and the
+        # first windows' rounding to the rows batched with them)
+        return self.inner.span(max(0, off - (self.window - 1)), n + self.window - 1)
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         offs = np.asarray(offs, dtype=np.int64)

@@ -1,6 +1,6 @@
 """Minimal RIFF/WAVE writer for demodulated audio: a copy of
-``quadrs_tpu.utils.wav`` (``wav_bytes``, ``write_wav``), kept here because
-the port imports nothing of the JAX package.
+``quadrs_tpu.utils.wav`` (``wav_bytes``, ``write_wav``, ``read_wav_f32``),
+kept here because the port imports nothing of the JAX package.
 
 The audio commands' native output is raw mono LE f32
 (``{prefix}.sr{rate}.f32``); ``-wav yes`` wraps the same samples in a
@@ -46,3 +46,26 @@ def write_wav(path: str, rate: int, samples: np.ndarray, overwrite: bool = False
     with open(path, "wb" if overwrite else "xb") as fh:
         fh.write(wav_bytes(rate, samples))
     return path
+
+
+def read_wav_f32(path: str) -> tuple[int, np.ndarray]:
+    """Parse a mono float32 WAV written by :func:`write_wav` (tests and
+    round-trips; not a general WAV reader): ``(rate, samples)``."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    if raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
+        raise ValueError("not a RIFF/WAVE file")
+    pos, rate, data = 12, None, None
+    while pos + 8 <= len(raw):
+        tag = raw[pos : pos + 4]
+        (size,) = struct.unpack_from("<I", raw, pos + 4)
+        if tag == b"fmt ":
+            tag_fmt, ch, rate, _, _, bits = struct.unpack_from("<HHIIHH", raw, pos + 8)
+            if (tag_fmt, ch, bits) != (3, 1, 32):
+                raise ValueError("not mono float32")
+        elif tag == b"data":
+            data = np.frombuffer(raw, dtype="<f4", count=size // 4, offset=pos + 8)
+        pos += 8 + size + (size & 1)
+    if rate is None or data is None:
+        raise ValueError("missing fmt/data chunk")
+    return rate, data

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from quadrs_tpu_torch.ops.stft import stft_norms
-from quadrs_tpu_torch.runtime import Executor, root_step_of, window_batches
+from quadrs_tpu_torch.runtime import Executor, stream_batches
 from quadrs_tpu_torch.sinks import take_fft
 from quadrs_tpu_torch.sources import SampleSource
 from quadrs_tpu_torch.stream import Stream
@@ -93,7 +93,7 @@ def ui_norms(stream: Stream, params: UiParams | None = None, *, device: torch.de
     max_bands = h // row_height + 1
     n_windows = int(min(samples_available, w * max_bands))
     offsets = np.arange(n_windows, dtype=np.int64)
-    batch, batches = window_batches(offsets, p.fft_width, root_step=root_step_of(stream))
+    batch, batches = stream_batches(stream, offsets, p.fft_width)
     ex = Executor(stream, p.fft_width, device, batch=batch, post=stft_norms)
     norms_all = []
     for _, norms, valid in ex.run_each(batches):
