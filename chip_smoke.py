@@ -1325,6 +1325,237 @@ def stage_sparkfft(card: str, cap: str, tmp: str) -> dict[str, float]:
     return walls
 
 
+GEN_SECONDS = "0.8"  # gen_sparkfft: 16,800,000 generated samples at 21 Msps, the stage capture's length
+GEN_PROFILE_SECONDS = "0.1"  # its profiled run: 4,089 windows, 71 batches
+GEN_NOISE_SECONDS = "0.0015"  # its -noise run: 31,500 samples, 57 windows, one batch
+# the CLI in a process of its own that reports its peak RSS, sampled every 5 ms
+# from /proc/self/statm (ru_maxrss would count the forked parent's image, and
+# the card's machine gives no VmHWM); "peak RSS 0" where statm is missing
+HWM_RUN = """import resource, sys, threading, time
+peak = [0]
+def sample():
+    while True:
+        try:
+            with open("/proc/self/statm") as f:
+                peak[0] = max(peak[0], int(f.read().split()[1]) * resource.getpagesize())
+        except (OSError, ValueError, IndexError):
+            return
+        time.sleep(0.005)
+threading.Thread(target=sample, daemon=True).start()
+from quadrs_tpu_torch.cli import main
+rc = main(sys.argv[1:])
+print(f"peak RSS {peak[0]}", file=sys.stderr)
+sys.exit(rc)"""
+# 280k lands at +560k after `shift 280k`, outside the 200k passband: alone, the
+# chain's output is the FIR's stopband leakage, which agc raises up to 1000x and
+# where card and CPU part far past a near-tie; -230k lands at +50k, in the band
+GEN_TONES = (280_000, -230_000)
+
+
+def gen_sparkfft(card: str, tmp: str) -> dict[str, float]:
+    """:func:`stage_sparkfft`'s chain over ``gen -cos 280k -cos -230k`` in
+    place of a capture, through the CLI on the card at the default windows.  A
+    generator stages nothing, but each window generates its 1,154,384 root
+    samples, and the executor caps a batch by them as it does a capture's
+    gather.  Prints the batches, the peak of allocated memory, the wall, a
+    profiled run's device share; a sample of rows is held against the
+    CPU's executor, glyph for glyph outside near-ties.  Then ``-noise 0.1
+    -seed 7`` over a short ``-len`` in a process of its own (the host makes
+    each batch's noise in f64): its rows, its peak RSS beside that of the
+    same run without ``-noise``, and its wall.  The profiled run covers the first ``GEN_PROFILE_SECONDS`` (the profiler's
+    own cost grows with the batches)."""
+    import resource
+
+    from quadrs_tpu_torch import sinks
+    from quadrs_tpu_torch.ops.stft import stft_norms
+    from quadrs_tpu_torch.runtime import Executor, root_read_of, stream_batches
+    from quadrs_tpu_torch.sources import ToneGen
+    from quadrs_tpu_torch.stream import Agc, DcBlock, LowPass, Shift
+
+    laps = [("start", time.perf_counter())]
+
+    def chain(seconds: str, noise: float = 0.0):
+        gen = ToneGen(list(GEN_TONES), SAMPLE_RATE, float(seconds), noise=noise, seed=7)
+        return Agc(DcBlock(LowPass(Shift(gen, 280_000), 200_000, 32, 400), 32_000), window=4_000)
+
+    stream = chain(GEN_SECONDS)
+    samples = stream.root().length
+    offsets = np.arange(0, stream.length - 64, 16, dtype=np.int64)
+    read = root_read_of(stream, 64)
+    batch, batches = stream_batches(stream, offsets, 64)
+    print(f"  gen sparkfft at the default windows over {samples} generated samples: {len(offsets)} windows, "
+          f"{read} root samples generated a window, {len(batches)} batches of at most {batch} windows "
+          f"({batch * read} root samples generated a batch; the output budget alone gives "
+          f"{min(len(offsets), (1 << 20) // 64)} windows, {min(len(offsets), (1 << 20) // 64) * read})")
+    if batch * read > 1 << 26:
+        raise AssertionError("a gen batch generates more than 2^26 root samples")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls: dict[str, float] = {}
+    fsk = ["shift", "280k", "lowpass", "-power", "200", "-decimate", "32", "200k", "dcblock", "agc"]
+    tones = [a for f in GEN_TONES for a in ("-cos", str(f))]
+
+    def gen_argv(seconds: str, *noise: str) -> list[str]:
+        return ["gen", *tones, *noise, "-len", seconds, "21M", *fsk, "sparkfft", "-width", "64", "-stride", "16"]
+
+    out = card_run("gen sparkfft", gen_argv(GEN_SECONDS), card, walls, samples=samples)
+    peak = torch.cuda.max_memory_allocated()
+    rows = out.splitlines()[1:]
+    print(f"    peak allocated {peak / 2**30:.3f} GiB; wall {walls['gen sparkfft']:.3f}s, "
+          f"{samples / walls['gen sparkfft'] / 1e6:.2f} Msps generated ({card})")
+    if len(rows) != len(offsets):
+        raise AssertionError(f"gen sparkfft printed {len(rows)} rows for {len(offsets)} windows")
+    if peak >= 8 << 30:
+        raise AssertionError(f"gen sparkfft peaked at {peak / 2**30:.3f} GiB of allocated memory")
+    laps.append(("card run", time.perf_counter()))
+    wall, busy = profiled(gen_argv(GEN_PROFILE_SECONDS))
+    walls["gen sparkfft profiled"], walls["gen sparkfft busy"] = wall, busy
+    print(f"    a profiled card run over -len {GEN_PROFILE_SECONDS}: wall {wall:.3f}s, device busy {busy:.3f}s, "
+          f"device share {100 * busy / wall:.1f}% ({card})")
+    laps.append(("profiled run", time.perf_counter()))
+    full = -(-(32_000 - 1 + 4_000 - 1) // 16)
+    pick = np.unique(np.concatenate([np.arange(8), full - 4 + np.arange(8),
+                                     np.linspace(full + 4, len(offsets) - 1, STAGE_ROWS - 16).astype(np.int64)]))
+    pick = pick[pick < len(offsets)]
+    cpu_stream = chain(GEN_SECONDS)
+    norms = np.concatenate([Executor(cpu_stream, 64, "cpu", post=stft_norms).run(offsets[pick[i:i + 8]])[0]
+                            for i in range(0, len(pick), 8)])
+    cpu_rows = sinks.glyph_lines(norms, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX).split("\n")
+    bad, near = glyph_diffs([rows[r] for r in pick], cpu_rows, cpu_stream, 64, 16, at=offsets[pick])
+    print(f"    {len(pick)} rows (windows {pick[0]}..{pick[-1]}) against the CPU's executor: {bad} differ, "
+          f"{near} glyphs within {TOL} of a level")
+    laps.append(("CPU rows", time.perf_counter()))
+
+    # -noise: the CLI in a process of its own, for its own peak RSS
+    noisy = chain(GEN_NOISE_SECONDS, 0.1)
+    n_offs = np.arange(0, noisy.length - 64, 16, dtype=np.int64)
+    n_batch, n_batches = stream_batches(noisy, n_offs, 64)
+    env = {k: v for k, v in os.environ.items() if k != "QUADRS_PLATFORM"}
+
+    def own_process(argv: list[str]) -> tuple[list[str], int, float]:
+        """(stdout lines, peak RSS bytes, wall) of the CLI in a process of its own."""
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", HWM_RUN, *argv], capture_output=True, text=True, env=env,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        lines, err = proc.stdout.splitlines(), proc.stderr.strip().splitlines()
+        print(f"  $ python -m quadrs_tpu_torch {' '.join(argv)}  (a process of its own)")
+        print("    " + "\n    ".join(lines[:3] + [f"... ({len(lines)} lines)"] + lines[-2:] + err))
+        hwm = [e for e in err if e.startswith("peak RSS ")]
+        if proc.returncode != 0 or not hwm or len(lines) - 1 < len(n_offs):
+            raise AssertionError(f"{argv[0]} exited {proc.returncode} with {len(lines) - 1} rows for {len(n_offs)} windows")
+        return lines, int(hwm[-1].split()[-1]), wall
+
+    _, quiet_rss, _ = own_process(gen_argv(GEN_NOISE_SECONDS))
+    lines, rss, wall = own_process(gen_argv(GEN_NOISE_SECONDS, "-noise", "0.1", "-seed", "7"))
+
+    def gib(n: int) -> str:
+        return f"{n / 2**30:.3f} GiB" if n else "not measured (no /proc/self/statm)"
+
+    print(f"    gen -noise sparkfft: {len(n_offs)} windows in {len(n_batches)} batch(es) of at most {n_batch} "
+          f"({n_batch * root_read_of(noisy, 64)} root samples generated a batch, their noise made on the host); "
+          f"wall {wall:.3f}s (the process's start included), its peak RSS {gib(rss)} against {gib(quiet_rss)} "
+          f"without -noise; this process's peak RSS so far "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f} GiB ({card})")
+    walls["gen noise wall"], walls["gen noise rss"], walls["gen quiet rss"] = wall, rss, quiet_rss
+    rows = lines[1:]
+    pick = np.unique(np.linspace(0, len(n_offs) - 1, 8).astype(np.int64))
+    norms = Executor(noisy, 64, "cpu", post=stft_norms).run(n_offs[pick])[0]
+    cpu_rows = sinks.glyph_lines(norms, sinks.DEFAULT_SPARK_MIN, sinks.DEFAULT_SPARK_MAX).split("\n")
+    bad, near = glyph_diffs([rows[r] for r in pick], cpu_rows, noisy, 64, 16, at=n_offs[pick])
+    print(f"    {len(pick)} of its rows against the CPU's executor: {bad} differ, {near} glyphs within {TOL} of a level")
+    laps.append(("-noise run", time.perf_counter()))
+    walls["gen sparkfft added"] = laps[-1][1] - laps[0][1]
+    print(f"    gen sparkfft's part of the stage phase: {walls['gen sparkfft added']:.1f}s, "
+          + ", ".join(f"{name} {t - laps[k][1]:.1f}s" for k, (name, t) in enumerate(laps[1:])) + f" ({card})")
+    return walls
+
+
+INVARIANCE_GEOMETRIES = ((200, 63, 16), (1000, 4093, 1000))  # (windows, outputs a window, stride)
+
+
+def batch_invariance(card: str, cap: str) -> dict[str, float]:
+    """The elementwise chains' windows on the card at 1, 7 and 200 windows
+    a batch (the executor's batches), bit for bit: ``shift`` and ``iqbal
+    -c`` over the stage capture, and ``gen -> shift``; their complex
+    products (``ops.nco.rotate``) compute each element alone, so a window's
+    samples do not depend on the windows batched with it.  Paths with a
+    prefix sum, a reduction, a FIR or an FFT are held within their
+    tolerances instead (torch's CUDA ``cumsum`` and ``mean``, cuFFT and
+    cuBLAS choose their blocking by shape): ``shift dcblock -window 500 agc
+    -window 100`` (1e-4 of scale, the stage tests' bound against the JAX
+    package), ``PipelineModel.step_windows`` (5e-5 of scale) and an SSB
+    ``_ChannelStep`` dispatched as one, as 7-window and as 1-window
+    dispatches (1e-5 of full scale)."""
+    from quadrs_tpu_torch.formats import FileFormat
+    from quadrs_tpu_torch.models import demod
+    from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
+    from quadrs_tpu_torch.runtime import Executor
+    from quadrs_tpu_torch.sources import ToneGen, open_capture
+    from quadrs_tpu_torch.stream import Agc, DcBlock, IqCorrect, Shift
+
+    t0 = time.perf_counter()
+    src = open_capture(cap)
+    chains = {  # name: (stream, bit for bit)
+        "shift": (Shift(src, 5_000), True),
+        "iqbal -c": (IqCorrect(src, c=0.01 - 0.02j, device=DEVICE), True),
+        "gen shift": (Shift(ToneGen([3_000, -7_000], SAMPLE_RATE, 1.0), 5_000), True),
+        "shift dcblock agc": (Agc(DcBlock(Shift(src, 5_000), 500), window=100), False),
+    }
+    for windows, n, stride in INVARIANCE_GEOMETRIES:
+        offs = stride * np.arange(windows, dtype=np.int64)
+        for name, (stream, exact) in chains.items():
+            ex = Executor(stream, n, DEVICE)
+            runs = {b: np.concatenate([ex.run(offs[i:i + b])[0] for i in range(0, windows, b)]) for b in (1, 7, 200)}
+            differ = {b: int(np.sum(runs[b] != runs[1])) for b in (7, 200)}
+            gap = max(float(np.abs(runs[b] - runs[1]).max()) for b in (7, 200))
+            scale = float(np.abs(runs[1]).max())
+            cpu = Executor(stream, n, "cpu").run(offs[:8])[0]
+            err = float(np.abs(runs[1][:8] - cpu).max())
+            print(f"  batch invariance on the card, {name}, {windows} windows of {n} at stride {stride}: values "
+                  f"differing from one window a batch at 7 / 200 a batch: {differ[7]} / {differ[200]} of "
+                  f"{runs[1].size}, max |diff| {gap:.3e} of {scale:.4g} (bound {'0' if exact else '1e-4 of it'}); "
+                  f"the first 8 windows against the CPU: max |diff| {err:.3e} ({card})")
+            if any(differ.values()) if exact else gap > 1e-4 * scale:
+                raise AssertionError(f"{name}: a window's samples depend on its batch on the card")
+    # the FIR and FFT paths, within their tolerances
+    args = dict(sample_rate=1_000_000, shift_freq=12_345, lp_freq=50_000, decimate=4, taps=41, fft_width=16)
+    model = PipelineModel(PipelineConfig(fmt=FileFormat("cs8"), **args)).to(DEVICE)
+    w = model.cfg.window_raw
+    raw = torch.from_numpy(np.ascontiguousarray(src.stage(0, 200 * w).reshape(2, 200, w).transpose(1, 0, 2)))
+    thetas = model.theta0(977 * np.arange(200, dtype=np.int64))
+    runs = {b: torch.cat([model.step_windows(raw[i:i + b].to(DEVICE), thetas[i:i + b]) for i in range(0, 200, b)])
+            for b in (1, 7, 200)}
+    scale = float(runs[1].abs().max())
+    err = max(float((runs[b] - runs[1]).abs().max()) for b in (7, 200))
+    print(f"  step_windows on the card at 1, 7 and 200 windows a batch: max |diff| {err:.3e} of {scale:.4g} "
+          f"(bound {5e-5 * scale:.3e}) ({card})")
+    if err > 5e-5 * scale:
+        raise AssertionError("step_windows moves past its tolerance with its batch on the card")
+    ssb = demod.SsbDemod(center=-280_000, bandwidth=3_000, decimate=20, taps=400, chunk=4_093)
+    chan = ssb.channel(src)
+    got, ks = {}, {}
+    for k in (None, 7, 1):
+        step = demod._channel_step(chan, 4_093, 0, torch.real, device=DEVICE, windows=k)
+        ks[k] = step.k
+        outs, o = [], 0
+        try:
+            while sum(len(x) for x in outs) < 200:
+                outs.append(step(o)[0])
+                o += step.step
+        finally:
+            step.close()
+        got[k] = torch.cat(outs)[:200]
+    err = max(float((got[k] - got[None]).abs().max()) for k in (7, 1))
+    print(f"  SSB's dispatches on the card, {ks[None]} windows a dispatch against 7 and 1: max |diff| {err:.3e} "
+          f"of full scale 1 (bound 1e-5) ({card})")
+    if err > 1e-5:
+        raise AssertionError("SSB's re-shift moves past its tolerance with its dispatch on the card")
+    wall = time.perf_counter() - t0
+    print(f"    batch invariance's part of the stage phase: {wall:.1f}s ({card})")
+    return {"batch invariance added": wall}
+
+
 def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
     """Phase 4, the conditioning stages through the CLI:
     ``iqbal dcblock agc resample 147/160 write`` over the 2^26-sample
@@ -1364,6 +1595,10 @@ def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
 
     walls.update(stage_sparkfft(card, cap, tmp))
     laps.append(("sparkfft at the default windows", time.perf_counter()))
+    walls.update(gen_sparkfft(card, tmp))
+    laps.append(("gen sparkfft", time.perf_counter()))
+    walls.update(batch_invariance(card, os.path.join(tmp, "stagecap.sr21M.cs8")))
+    laps.append(("batch invariance", time.perf_counter()))
 
     # the audio stage: 2^22 samples of a channel at 656,250 sps to 48 kHz
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -1658,7 +1893,7 @@ def phase_receiver_timing(card: str, caps: dict[str, str]) -> None:
     scale = float(np.float32(300_000 / (2.0 * np.pi)))
 
     def fm_post(x):  # FmDemod's discriminator
-        d = x[:, 1:] * torch.conj(x[:, :-1])
+        d = demod.discriminate(x)
         return torch.atan2(d.imag, d.real) * scale
 
     configs = {}  # name: (chain, c, lead, post, stride, chunk_post)

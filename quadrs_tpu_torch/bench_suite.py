@@ -629,7 +629,7 @@ def bench_fm(sc: Scale) -> dict:
         scale = float(np.float32(rate / (2.0 * np.pi)))
 
         def discriminate(x):  # FmDemod.discriminate_dev's post
-            d = x[:, 1:] * torch.conj(x[:, :-1])
+            d = demod.discriminate(x)
             return torch.atan2(d.imag, d.real) * scale
 
         return discriminate

@@ -51,8 +51,8 @@ class Channelize(Stream):
         self.length = 1 + (inner.length - self.size) // self.channels
         self.taps = lowpass_taps(self.frequency / inner.sample_rate, self.size)
 
-    def span(self, off: int, n: int) -> tuple[int, int]:
-        return self.inner.span(off * self.channels, n * self.channels + self.size)
+    def request(self, off: int, n: int) -> tuple[int, int]:
+        return off * self.channels, n * self.channels + self.size
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         offs = np.asarray(offs, dtype=np.int64)

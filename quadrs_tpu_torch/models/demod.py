@@ -37,6 +37,7 @@ from quadrs_tpu_torch import sinks
 from quadrs_tpu_torch.formats import decode_plane
 from quadrs_tpu_torch.ops.fir import auto_impl, fir_decimate, lowpass_taps, overlapped_frames
 from quadrs_tpu_torch.ops.frontend import no_tf32
+from quadrs_tpu_torch.ops.nco import mix, rotate
 from quadrs_tpu_torch.ops.resample import resample_real
 from quadrs_tpu_torch.ops.stft import stft_norms
 from quadrs_tpu_torch.parallel.sharding import join
@@ -155,6 +156,14 @@ class FskDemod:
         return bits_mod.scan(syms, self.samples_per_symbol)
 
 
+def discriminate(x: torch.Tensor) -> torch.Tensor:
+    """``x[:, 1:] * conj(x[:, :-1])`` of a (B, c+1) batch: the quadrature
+    discriminator's product, through
+    :func:`~quadrs_tpu_torch.ops.nco.rotate`."""
+    prev = x[:, :-1]
+    return rotate(x[:, 1:], prev.real, -prev.imag)
+
+
 @dataclass
 class FmDemod:
     """Frequency-modulation receiver: shift -> lowpass -> quadrature
@@ -205,7 +214,7 @@ class FmDemod:
         scale = float(np.float32(rate / (2.0 * np.pi)))
 
         def post(x):  # (B, c+1) complex -> (B, c) f32 Hz
-            d = x[:, 1:] * torch.conj(x[:, :-1])
+            d = discriminate(x)
             return torch.atan2(d.imag, d.real) * scale
 
         return rate, _chunked_signal_dev(chan, c, 1, post, device=device, mesh=mesh)
@@ -818,8 +827,7 @@ class _ChannelStep:
         """The truncated FIR of each window, then the channel-rate re-shift."""
         y = fir_decimate(rows, self.lp.taps, self.d, self.n, impl=self.fir_impl) if self.lp is not None else rows
         if self.outer is not None:
-            th = dev["theta"]
-            y = y * torch.complex(torch.cos(th), torch.sin(th))
+            y = mix(y, dev["theta"])
         return y
 
     def close(self) -> None:

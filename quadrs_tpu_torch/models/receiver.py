@@ -33,7 +33,7 @@ from torch import nn
 from quadrs_tpu_torch.formats import FileFormat, decode_plane
 from quadrs_tpu_torch.ops import frontend as fe
 from quadrs_tpu_torch.ops.fir import fir_decimate, is_spectral, lowpass_taps
-from quadrs_tpu_torch.ops.nco import ExactNCO
+from quadrs_tpu_torch.ops.nco import ExactNCO, mix
 from quadrs_tpu_torch.ops.stft import stft_norms
 
 
@@ -127,9 +127,9 @@ class PipelineModel(nn.Module):
 
     def _mix(self, x: torch.Tensor, theta0: torch.Tensor, n: int) -> torch.Tensor:
         """Rotate each row by ``theta0[b] + delta[k]``: an f32 sum of host
-        angles, then f32 cos/sin."""
-        theta = theta0[..., None] + torch.as_tensor(self.delta(n), device=x.device)
-        return x * torch.complex(torch.cos(theta), torch.sin(theta))
+        angles, then f32 cos/sin, then :func:`~quadrs_tpu_torch.ops.nco.mix`'s
+        product."""
+        return mix(x, theta0[..., None] + torch.as_tensor(self.delta(n), device=x.device))
 
     def _mix_stream(self, x: torch.Tensor, theta0: torch.Tensor) -> torch.Tensor:
         """NCO mix over a long chunk without an O(chunk) angle table or

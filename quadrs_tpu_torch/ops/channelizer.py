@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from quadrs_tpu_torch.ops.nco import rotate
+
 
 @functools.lru_cache(maxsize=16)
 def _branch_taps(taps_key: bytes, k: int) -> np.ndarray:
@@ -69,8 +71,7 @@ def dft_phase(b: torch.Tensor, size: int, k: int) -> torch.Tensor:
     """The cross-branch DFT over the K axis, then each channel's
     group-delay phase: (B, n_out, K) complex64."""
     pr, pi = _center_phase(size, k)
-    phase = torch.complex(torch.from_numpy(pr), torch.from_numpy(pi)).to(b.device)
-    return torch.fft.fft(b, dim=-1) * phase
+    return rotate(torch.fft.fft(b, dim=-1), torch.from_numpy(pr).to(b.device), torch.from_numpy(pi).to(b.device))
 
 
 def channelize_block(x: torch.Tensor, taps: np.ndarray, k: int, n_out: int) -> torch.Tensor:

@@ -50,11 +50,11 @@ def window_batches(
     unit covers (the chain's total decimation, :func:`root_step_of`).
 
     ``root_read``: the root samples one window reads
-    (:func:`root_read_of`).  The source gathers each window's read apart,
-    at about 40 bytes of device memory a sample, so no batch gathers more
-    than ``gather_cap`` of them: a trailing stage's lookback, re-read by
-    every window, would otherwise gather far more than the card holds.  A
-    window that alone reads more runs alone.  Where this cap does not
+    (:func:`root_read_of`).  The source gathers (or generates) each
+    window's read apart, at about 40 bytes of device memory a sample, so no
+    batch gathers more than ``gather_cap`` of them: a trailing stage's
+    lookback, re-read by every window, would otherwise gather far more than
+    the card holds.  A window that alone reads more runs alone.  Where this cap does not
     bind, the batches are the JAX package's."""
     batch = max(1, min(len(offsets), budget // max(width, 1)))
     if root_read > 0:
@@ -79,11 +79,12 @@ def root_step_of(stream) -> int:
 
 
 def root_read_of(stream, width: int) -> int:
-    """Root-source samples one window of ``width`` outputs of ``stream``
-    reads (every window reads as many; a trailing stage's clamped start
-    moves its block, not its length).  0 for a generator root, which
-    stages nothing."""
-    return stream.span(0, width)[1]
+    """Root samples one window of ``width`` outputs of ``stream`` reads
+    (every window reads as many; a trailing stage's clamped start moves its
+    block, not its length): a capture's staged samples, or the samples a
+    generator root generates, though it stages none
+    (:meth:`~quadrs_tpu_torch.stream.Stream.reads`)."""
+    return stream.reads(0, width)
 
 
 def stream_batches(stream, offsets: np.ndarray, width: int, **kw) -> tuple[int, list[np.ndarray]]:

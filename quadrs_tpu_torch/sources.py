@@ -98,6 +98,9 @@ class SampleSource(Stream):
     def span(self, off: int, n: int) -> tuple[int, int]:
         return off, n
 
+    def reads(self, off: int, n: int) -> int:
+        return n
+
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         offs = np.asarray(offs, dtype=np.int64)
         valid = np.clip(self.length - offs, 0, n)
@@ -288,6 +291,7 @@ class LivePipeStream(SampleSource):
         return out
 
 
+NOISE_BLOCK = 1 << 22  # generated noise samples the host makes at a time
 _SM_C1 = np.uint64(0xBF58476D1CE4E5B9)
 _SM_C2 = np.uint64(0x94D049BB133111EB)
 _SM_GAMMA = np.uint64(0x9E3779B97F4A7C15)
@@ -337,18 +341,38 @@ class ToneGen(Stream):
         # reference src/gen.rs:31-33 (f64 multiply, truncate)
         self.length = int(self.seconds * float(self.sample_rate))
         self._ncos = [ExactNCO(f, self.sample_rate) for f in self.cos]
+        self._deltas: dict[int, np.ndarray] = {}
 
     def span(self, off: int, n: int) -> tuple[int, int]:
-        return 0, 0
+        return 0, 0  # it stages nothing
+
+    def reads(self, off: int, n: int) -> int:
+        # what a read generates: each window's (F, n) phases and its noise
+        return n
 
     def _delta(self, n: int) -> np.ndarray:
-        i = np.arange(n, dtype=np.int64)
-        return np.stack([nc.angles(i) for nc in self._ncos], axis=0)  # (F, n)
+        if n not in self._deltas:  # a window's in-window angles, planned once
+            i = np.arange(n, dtype=np.int64)
+            self._deltas[n] = np.stack([nc.angles(i) for nc in self._ncos], axis=0)  # (F, n)
+        return self._deltas[n]
 
     def _noise_planes(self, offs: np.ndarray, n: int):
         """(B, n) f32 (re, im) noise planes for absolute sample indices
         ``offs[b] + j``: two hashed uniforms -> Box-Muller (exactly two
-        draws per sample, so the mapping index -> noise is total)."""
+        draws per sample, so the mapping index -> noise is total).  Made
+        ``NOISE_BLOCK`` samples at a time: the f64 steps take about 76
+        bytes of host memory a sample, the planes 8."""
+        offs = np.asarray(offs, dtype=np.int64)
+        re, im = np.empty((len(offs), n), np.float32), np.empty((len(offs), n), np.float32)
+        rows, cols = max(1, NOISE_BLOCK // max(n, 1)), max(1, min(n, NOISE_BLOCK))
+        for r in range(0, len(offs), rows):
+            for c in range(0, n, cols):
+                k = min(cols, n - c)
+                re[r : r + rows, c : c + k], im[r : r + rows, c : c + k] = self._noise_block(offs[r : r + rows] + c, k)
+        return re, im
+
+    def _noise_block(self, offs: np.ndarray, n: int):
+        """:meth:`_noise_planes` of one block."""
         with np.errstate(over="ignore"):
             idx = (offs[:, None].astype(np.uint64) + np.arange(n, dtype=np.uint64)) * np.uint64(2)
             key = _splitmix64(np.uint64(self.seed) ^ np.uint64(0xA5A5A5A55A5A5A5A))

@@ -39,7 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from quadrs_tpu_torch.ops.nco import ExactNCO
+from quadrs_tpu_torch.ops.nco import ExactNCO, mix, rotate
 
 
 @dataclass
@@ -64,10 +64,24 @@ class Stream:
     has_staging = False  # True for sources the Executor stages from
 
     # -- host planning ----------------------------------------------------
-    def span(self, off: int, n: int) -> tuple[int, int]:
-        """Map an output span to the (offset, count) needed from the root
-        source, composing through all stages."""
+    def request(self, off: int, n: int) -> tuple[int, int]:
+        """The (offset, count) of ``inner`` that a read of ``n`` outputs at
+        ``off`` pulls: a stage's one mapping, which :meth:`span` and
+        :meth:`reads` compose down to the root."""
         raise NotImplementedError
+
+    def span(self, off: int, n: int) -> tuple[int, int]:
+        """Map an output span to the (offset, count) the root source
+        stages, composing through all stages: ``(0, 0)`` below a
+        generator, which stages nothing."""
+        return self.inner.span(*self.request(off, n))
+
+    def reads(self, off: int, n: int) -> int:
+        """The root samples one read of ``n`` outputs at ``off`` makes the
+        root produce, composing through all stages: a capture's staged
+        samples, a generator's generated ones (what the executor's gather
+        cap counts, :func:`~quadrs_tpu_torch.runtime.root_read_of`)."""
+        return self.inner.reads(*self.request(off, n))
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         """Host planning for window offsets ``offs`` (int64, shape (B,)) of
@@ -105,7 +119,9 @@ class Shift(Stream):
     Multiplies sample ``m`` (absolute index) by ``e^{j·2π·f·m/sr}``.  The
     angle is planned on the host: ``(f·m) mod sr`` exactly for the
     window's first sample and for each in-window index; the device adds
-    the two in f32 and takes f32 cos/sin.
+    the two in f32, takes f32 cos/sin and rotates
+    (:func:`~quadrs_tpu_torch.ops.nco.mix`), so that a window's samples do
+    not depend on the windows batched with it.
     """
 
     def __init__(self, inner: Stream, frequency: int, sample_rate: int | None = None):
@@ -122,8 +138,8 @@ class Shift(Stream):
         self._nco = ExactNCO(self.frequency, self.sample_rate)
         self._deltas: dict[int, np.ndarray] = {}
 
-    def span(self, off: int, n: int) -> tuple[int, int]:
-        return self.inner.span(off, n)
+    def request(self, off: int, n: int) -> tuple[int, int]:
+        return off, n
 
     def _delta(self, n: int) -> np.ndarray:
         if n not in self._deltas:
@@ -138,8 +154,7 @@ class Shift(Stream):
     def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
         x = self.inner.read_batch(ctx, prep["inner"], n)
         delta = torch.as_tensor(self._delta(n), device=x.device)
-        theta = prep["theta0"][:, None] + delta[None, :]
-        return x * torch.complex(torch.cos(theta), torch.sin(theta))
+        return mix(x, prep["theta0"][:, None] + delta[None, :])
 
 
 class LowPass(Stream):
@@ -179,8 +194,8 @@ class LowPass(Stream):
         self.length = 1 + (inner.length - self.size) // self.decimate
         self.taps = lowpass_taps(self.frequency / inner.sample_rate, self.size)  # src/filter.rs:126-128
 
-    def span(self, off: int, n: int) -> tuple[int, int]:
-        return self.inner.span(off * self.decimate, n * self.decimate + self.size)
+    def request(self, off: int, n: int) -> tuple[int, int]:
+        return off * self.decimate, n * self.decimate + self.size
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         offs = np.asarray(offs, dtype=np.int64)
@@ -245,12 +260,12 @@ class _Trailing(Stream):
         self.length = inner.length
         self.sample_rate = inner.sample_rate
 
-    def span(self, off: int, n: int) -> tuple[int, int]:
+    def request(self, off: int, n: int) -> tuple[int, int]:
         # the block the plan reads: n + W - 1 samples from the clamped start,
         # so the staged span holds all of it (a span cut at the window's end
         # would leave the block's tail to the source's clamped gather, and the
         # first windows' rounding to the rows batched with them)
-        return self.inner.span(max(0, off - (self.window - 1)), n + self.window - 1)
+        return max(0, off - (self.window - 1)), n + self.window - 1
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         offs = np.asarray(offs, dtype=np.int64)
@@ -353,7 +368,9 @@ class IqCorrect(Stream):
 
     on the host in f64 (centring keeps a DC offset, such as the cu8/cs16
     decode formulas' parked baseline, from reading as an image).  The
-    estimate's read runs on ``device``."""
+    estimate's read runs on ``device``.  The product is
+    :func:`~quadrs_tpu_torch.ops.nco.rotate`'s, with ``c`` rounded to
+    complex64, as the JAX package rounds it."""
 
     def __init__(self, inner: Stream, c: complex | None = None, est_samples: int = 256_000, *, device: torch.device | str):
         self.inner = inner
@@ -380,8 +397,8 @@ class IqCorrect(Stream):
             c = rho / 2.0
         self.c = complex(c)
 
-    def span(self, off: int, n: int) -> tuple[int, int]:
-        return self.inner.span(off, n)
+    def request(self, off: int, n: int) -> tuple[int, int]:
+        return off, n
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         inner = self.inner.plan(offs, n, base)
@@ -389,8 +406,8 @@ class IqCorrect(Stream):
 
     def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
         x = self.inner.read_batch(ctx, prep["inner"], n)
-        c = torch.tensor(self.c, dtype=torch.complex64, device=x.device)
-        return x - c * torch.conj(x)
+        c = np.complex64(self.c)
+        return x - rotate(torch.conj(x), float(c.real), float(c.imag))
 
 
 class Resample(Stream):
@@ -435,8 +452,8 @@ class Resample(Stream):
         nb = -(-n // self.up)
         return (nb - 1) * self.down + self._frame_len
 
-    def span(self, off: int, n: int) -> tuple[int, int]:
-        return self.inner.span((off // self.up) * self.down + self._gamma_min, self._n_in(n))
+    def request(self, off: int, n: int) -> tuple[int, int]:
+        return (off // self.up) * self.down + self._gamma_min, self._n_in(n)
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         offs = np.asarray(offs, dtype=np.int64)

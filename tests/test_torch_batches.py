@@ -12,15 +12,19 @@ them at once under ``sparkfft -width 64``: far more than a card holds.
 
 - **Planning only**: every call site of the port plans batches that
   gather at most the cap (2^26 root samples) over a 2^24-sample capture,
+  or generate at most as many over 0.8 s of ``gen`` at 21 Msps (a
+  generator stages nothing, but each window generates its whole read),
   and as few batches as that cap allows; each site is stopped before it
-  computes anything.
+  computes anything.  ``span`` and the root step stay the JAX package's.
 - **Unchanged where the cap does not bind**: chains with no trailing
-  stage plan the JAX package's batches.
+  stage plan the JAX package's batches, over a capture or a generator.
 - **Outputs unchanged**: with the cap forced low, so that a run splits
   into many batches, ``sparkfft`` rows, ``bucket`` digits, ``write``
   samples and ``take_fft`` norms through ``dcblock`` and ``agc`` are
   bit-equal to the uncapped run's, and equal to the JAX package's within
-  the stage tests' tolerances.  The chains are small enough that the CPU's
+  the stage tests' tolerances, over captures and a ``gen`` root, with
+  ``shift`` in the chain (its product no longer rounds by the row's place
+  in the batch).  The chains are small enough that the CPU's
   FIR rule (which depends on a batch's total outputs) takes the same impl
   capped and uncapped.
 - **The helpers**: bit-equal to the JAX package's.
@@ -35,6 +39,7 @@ import torch
 torch.set_num_threads(1)
 
 from quadrs_tpu import formats as jformats  # noqa: E402
+from quadrs_tpu.models import channelizer as jchannelizer  # noqa: E402
 from quadrs_tpu import sinks as jsinks  # noqa: E402
 from quadrs_tpu import sources as jsources  # noqa: E402
 from quadrs_tpu import stream as jstream  # noqa: E402
@@ -64,6 +69,16 @@ def big_source(n: int = 1 << 24, rate: int = 21_000_000) -> tsources.SampleSourc
     """A cs8 source of ``n`` samples backed by no memory (a zero-strided
     view): planning reads only its length."""
     return tsources.SampleSource(np.broadcast_to(np.uint8(0), (2 * n,)), tformats.FileFormat("cs8"), rate)
+
+
+def gen_root(noise: float = 0.0) -> tsources.ToneGen:
+    """``gen -cos 280k [-noise N -seed 7] -len 0.8 21M``: 16,800,000
+    generated samples, which the executor gathers as it would a capture's."""
+    return tsources.ToneGen([280_000], 21_000_000, 0.8, noise=noise, seed=7)
+
+
+# the chain's root: a capture, or a generator (with its host-made noise)
+ROOTS = {"file": big_source, "gen": gen_root, "gen -noise": lambda: gen_root(0.1)}
 
 
 def fsk_chain(src, stages=True):
@@ -121,16 +136,19 @@ SITES = {
     "audio chunks": (tdemod, lambda s, d: _chunked(s)),
     "channelize": (tchannelizer, lambda s, d: _channelize(s)),
     "ui": (tviz, lambda s, d: _ui(s)),
+    "find": (tsinks, lambda s, d: tsinks.find_pattern(s, np.exp(0.3j * np.arange(64)), device=CPU)),
 }
 
 
-@pytest.mark.parametrize("site", list(SITES))
-def test_default_window_batches_gather_at_most_the_cap(site, monkeypatch, tmp_path):
-    """Each call site over the default-window stage chain on 2^24 samples:
-    no batch gathers more than 2^26 root samples, the batch is the most
-    windows that fit, and the batches are as few as it allows."""
+@pytest.mark.parametrize("site,root", [
+    pytest.param(site, root, id=site if root == "file" else f"{site} {root}") for root in ROOTS for site in SITES])
+def test_default_window_batches_gather_at_most_the_cap(site, root, monkeypatch, tmp_path):
+    """Each call site over the default-window stage chain on 2^24 samples
+    of a capture, or on 0.8 s of a generator at 21 Msps (with and without
+    its noise): no batch gathers more than 2^26 root samples, the batch is
+    the most windows that fit, and the batches are as few as it allows."""
     module, call = SITES[site]
-    seen = plan_at(monkeypatch, module, lambda: call(fsk_chain(big_source()), str(tmp_path)))
+    seen = plan_at(monkeypatch, module, lambda: call(fsk_chain(ROOTS[root]()), str(tmp_path)))
     read = runtime.root_read_of(seen["stream"], seen["width"])
     assert read >= 32_000 * 32  # every window re-reads the lookback
     n = len(seen["offsets"])
@@ -151,6 +169,19 @@ def test_fsk_sparkfft_numbers():
     batch, batches = runtime.stream_batches(s, offs, 64)
     assert batch == 58 and len(batches) == -(-len(offs) // 58) == 565
     assert max(len(b) for b in batches) * 1_154_384 <= CAP
+
+
+def test_gen_fsk_sparkfft_numbers():
+    """The same chain over ``gen -cos 280k -len 0.8 21M``: each window
+    generates its 1,154,384 root samples, so the cap takes 58 windows a
+    batch, not 16,384; the generator stages nothing and its step stays 1."""
+    s = fsk_chain(gen_root())
+    offs = np.arange(0, s.length - 64, 16, dtype=np.int64)
+    assert runtime.root_read_of(s, 64) == 1_154_384
+    assert s.span(0, 64) == (0, 0) and runtime.root_step_of(s) == 1
+    assert j_window_batches(offs, 64, root_step=runtime.root_step_of(s))[0] == 16_384
+    batch, batches = runtime.stream_batches(s, offs, 64)
+    assert len(offs) == 32_808 and batch == 58 and len(batches) == -(-len(offs) // 58) == 566
 
 
 def test_bucket_after_agc_numbers():
@@ -182,7 +213,51 @@ def test_root_read_is_the_block():
     assert s.span(0, 64) == (0, 412) and s.span(30, 64) == (0, 412) and s.span(10_000, 64) == (10_000 - 348, 412)
     plan = s.plan(np.asarray([0, 30, 10_000]), 64, 0)
     assert list(plan.prep["inner"]["inner"]["off_rel"]) == [0, 0, 10_000 - 348]
-    assert runtime.root_read_of(tsources.ToneGen([100], 48_000, 1.0), 64) == 0
+    gen = tsources.ToneGen([100], 48_000, 1.0)
+    assert runtime.root_read_of(gen, 64) == 64 and gen.span(0, 64) == (0, 0)  # generated, not staged
+
+
+def every_node(pkg: str, root: str):
+    """Each kind of node over a small capture or generator of the port
+    (``pkg`` "t") or the JAX package ("j"), and the FSK stage chain."""
+    sources, stream, formats, chan = ((tsources, tstream, tformats, tchannelizer) if pkg == "t" else
+                                      (jsources, jstream, jformats, jchannelizer))
+    if root == "gen":
+        src = sources.ToneGen([3_000], 48_000, 1.0)
+    else:
+        src = sources.SampleSource(capture("cs8", 48_000), formats.FileFormat("cs8"), 48_000)
+    dev = {"device": CPU} if pkg == "t" else {}
+    return {
+        "source": src,
+        "shift": stream.Shift(src, 5_000),
+        "lowpass": stream.LowPass(src, 6_000, 4, 40),
+        "dcblock": stream.DcBlock(src, 300),
+        "agc": stream.Agc(src, window=50),
+        "iqbal": stream.IqCorrect(src, c=0.01 - 0.02j, **dev),
+        "resample": stream.Resample(src, 3, 2, size=48),
+        "channelize": chan.Channelize(src, 8, size=40),
+        "stages": stream.Agc(stream.DcBlock(stream.LowPass(stream.Shift(src, 5_000), 6_000, 4, 40), 300), window=50),
+    }
+
+
+@pytest.mark.parametrize("root", ["file", "gen"])
+@pytest.mark.parametrize("node", ["source", "shift", "lowpass", "dcblock", "agc", "iqbal", "resample", "channelize",
+                                  "stages"])
+def test_span_and_step_unchanged_reads_count_the_root(node, root):
+    """``span`` and ``root_step_of`` are the JAX package's for every node
+    (the trailing stages' span names their whole block, so it is compared
+    where the lookback does not clamp), ``(0, 0)`` and 1 over a generator;
+    ``reads`` is the root count a capture's span gives, over either root."""
+    t, j = every_node("t", root)[node], every_node("j", root)[node]
+    t_file = every_node("t", "file")[node]
+    assert runtime.root_step_of(t) == j_root_step_of(j)
+    for off, n in ((0, 64), (7, 1), (1_000, 333), (30_000, 4096)):
+        if node in ("dcblock", "agc", "stages") and off < 2_000:
+            continue  # the lookback clamps: the port's span names the block (test_root_read_is_the_block)
+        assert t.span(off, n) == j.span(off, n)
+        assert t.reads(off, n) == t_file.span(off, n)[1]
+        if root == "gen":
+            assert t.span(off, n) == (0, 0)
 
 
 # ------------------------------------------- unchanged where the cap does not bind
@@ -208,10 +283,31 @@ def test_plain_chain_batches_equal_jax(d, taps, width, stride):
     assert all(np.array_equal(a, b) for a, b in zip(got[1], want[1]))
 
 
+def plain_gen_chain(pkg_sources, pkg_stream, d: int, taps: int):
+    gen = pkg_sources.ToneGen([280_000, -90_000], 21_000_000, 0.8, noise=0.1, seed=7)
+    return gen if d == 1 else pkg_stream.LowPass(pkg_stream.Shift(gen, 280_000), 200_000, d, taps)
+
+
+@pytest.mark.parametrize("d,taps", [(1, 0), (4, 40), (8, 100), (32, 400)])
+@pytest.mark.parametrize("width,stride", [(64, 16), (128, 128), (0x1000, 0x1000)])
+def test_plain_gen_chain_batches_equal_jax(d, taps, width, stride):
+    """A generator root with no trailing stage: the cap, which now counts
+    what it generates, does not bind, and the batches are the JAX
+    package's."""
+    t, j = plain_gen_chain(tsources, tstream, d, taps), plain_gen_chain(jsources, jstream, d, taps)
+    offs = np.arange(0, t.length - width, stride, dtype=np.int64)
+    got = runtime.stream_batches(t, offs, width)
+    want = j_window_batches(offs, width, root_step=j_root_step_of(j))
+    assert runtime.root_read_of(t, width) == width * d + taps and runtime.root_step_of(t) == j_root_step_of(j) == 1
+    assert want[0] * runtime.root_read_of(t, width) <= CAP  # the cap does not bind
+    assert got[0] == want[0] and len(got[1]) == len(want[1])
+    assert all(np.array_equal(a, b) for a, b in zip(got[1], want[1]))
+
+
 # ------------------------------------------------------ outputs unchanged
 
 
-SCALE = {"cs8": 1.0, "cu8": 128.0}
+SCALE = {"cs8": 1.0, "cu8": 128.0, "gen": 1.0}
 
 
 def capture(fmt: str, n: int, seed: int = 5) -> np.ndarray:
@@ -227,11 +323,16 @@ def capture(fmt: str, n: int, seed: int = 5) -> np.ndarray:
 
 def stage_chains(fmt: str, n: int, decimate: bool = True):
     """(port chain, JAX chain): ``shift 5k [lowpass -decimate 4 6k]
-    dcblock -window 500 agc -window 100`` over the same bytes."""
-    raw = capture(fmt, n)
+    dcblock -window 500 agc -window 100`` over the same bytes, or over
+    ``gen -cos 3k -cos -7k -noise 0.2 -seed 7 48k`` of ``n`` samples for
+    ``fmt`` "gen"."""
     out = []
     for pkg_sources, pkg_stream, pkg_formats in ((tsources, tstream, tformats), (jsources, jstream, jformats)):
-        s = pkg_sources.SampleSource(raw, pkg_formats.FileFormat(fmt), 48_000)
+        if fmt == "gen":
+            s = pkg_sources.ToneGen([3_000, -7_000], 48_000, n / 48_000, noise=0.2, seed=7)
+        else:
+            s = pkg_sources.SampleSource(capture(fmt, n), pkg_formats.FileFormat(fmt), 48_000)
+        s = pkg_stream.Shift(s, 5_000)
         if decimate:
             s = pkg_stream.LowPass(s, 6_000, 4, 40)
         out.append(pkg_stream.Agc(pkg_stream.DcBlock(s, 500), window=100))
@@ -255,7 +356,7 @@ def capped_run(monkeypatch, module, call, windows_a_batch: int):
         return call(), seen[0]
 
 
-@pytest.mark.parametrize("fmt", ["cs8", "cu8"])
+@pytest.mark.parametrize("fmt", ["cs8", "cu8", "gen"])
 def test_sparkfft_rows_capped(fmt, monkeypatch):
     t, j = stage_chains(fmt, 12_000)
 
@@ -268,7 +369,7 @@ def test_sparkfft_rows_capped(fmt, monkeypatch):
     assert capped == jsinks.spark_fft(j, 32, 64) and len(capped) > 40
 
 
-@pytest.mark.parametrize("fmt", ["cs8", "cu8"])
+@pytest.mark.parametrize("fmt", ["cs8", "cu8", "gen"])
 def test_bucket_digits_capped(fmt, monkeypatch):
     t, j = stage_chains(fmt, 12_000)
 
@@ -295,7 +396,7 @@ def test_write_samples_capped(fmt, monkeypatch, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * SCALE[fmt] * np.abs(want).max())
 
 
-@pytest.mark.parametrize("fmt", ["cs8", "cu8"])
+@pytest.mark.parametrize("fmt", ["cs8", "cu8", "gen"])
 def test_take_fft_norms_capped(fmt, monkeypatch):
     t, j = stage_chains(fmt, 12_000)
 
