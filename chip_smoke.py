@@ -25,7 +25,12 @@ the run.  Phases:
    waterfall kernels for every format, widths 256 to 8192, strides tiled,
    overlapped, not a 128-multiple and skipping, both windowings, then
    hop 1 and N-1, sliced and odd-strided views and width 640, held to the
-   JAX package's waterfall tolerances;
+   JAX package's waterfall tolerances; the trailing stages' row scans
+   (``csrc/rowscan.cu``: ``row_mean``, ``row_exclusive_prefix`` with and
+   without a subtracted row mean), f32 and complex64, at the tile's edges
+   (4096 elements), lengths no multiple of it and the main path's shapes,
+   within 1e-5 of each row's sum of |v|, each row bit-equal alone, in its
+   batch and in a second call;
 4. the main paths through the CLI, launch counts and outputs checked:
    ``stream`` over a 2^26-sample synthetic cs8 capture at 21 Msps, with
    and without ``-search`` and with ``-scan`` (kernel 1), and the model's
@@ -55,7 +60,12 @@ the run.  Phases:
    against its CPU run over the prefix; the FSK chain through ``dcblock
    agc`` at their default windows into ``sparkfft`` over its first 2^24
    samples, in batches capped by the root samples they gather, its peak
-   allocated memory printed and sampled rows held against the CPU), and
+   allocated memory printed and sampled rows held against the CPU; the
+   row scans' launches counted over that run, which is their main path;
+   one batch's ops and kernels by device time; then the executor's
+   chains at 1, 7 and 200 windows a batch and again, bit for bit:
+   ``shift``, ``iqbal -c``, ``gen shift``, ``shift dcblock agc``,
+   ``dcblock`` and ``agc``), and
    ``resample_real`` 656,250 to 48,000 against the CPU; a profiled run of
    ``find``, the bank and the stage chain each gives the device's share
    of its wall; then the receivers (torch ops and cuFFT, no kernel: the
@@ -166,7 +176,10 @@ the run.  Phases:
    staging, the copy, decode + mask, the branch FIR, the DFT, the phase,
    the way back and the file writes, with its bound; PSK's two device
    programs, its host tables and one ``-block`` peak at the BPSK burst; the
-   device's share of a profiled ``psk`` and ``channelize`` run.
+   device's share of a profiled ``psk`` and ``channelize`` run; the row
+   scans at the main path's shapes (58 rows of DcBlock's 36,062 complex64
+   and of Agc's 4,063 f32; yardsticks ``torch.mean`` and ``torch.cumsum``
+   along the rows).
    A yardstick does part of its kernel's work; its inputs are made outside
    the timed region, and the port never calls it.  The frontend kernels and
    their yardstick take tens of microseconds, less than a call of their
@@ -181,7 +194,10 @@ errors taken at the main paths' shapes (the v1 kernel, which no path
 runs, at the stream chain's chunk), launches over the main paths, times,
 ``bound_ms`` (the larger of the bytes in and out once over 3.35 TB/s and
 the f32 operations over 67 TFLOP/s) with ``bound_by``, ``library_ms``, and
-for the frontend rows ``call_ms`` and ``library_call_ms``.  Then the card's name and power limit; the last line is
+for the frontend and row-scan rows ``call_ms`` and ``library_call_ms``; the
+row scans' errors are over each row's sum of |v|, their launches those of
+``stage_sparkfft``'s run, and ``row_exclusive_prefix`` carries Agc's f32
+shape under ``f32``.  Then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -830,12 +846,30 @@ def glyph_diffs(rows: list[str], cpu_rows: list[str], cpu_stream, width: int, st
     return len(bad), near
 
 
-def all_launches() -> dict[str, int]:
+def wrappers() -> tuple:
+    """Every kernel wrapper of the port, each with its ``launches``."""
     from quadrs_tpu_torch.ops import frontend as fe
+    from quadrs_tpu_torch.ops import rowscan
     from quadrs_tpu_torch.ops import waterfall as wf
 
-    return {k.__name__: k.launches for k in (fe.frontend_fir, fe.frontend_fir_stft, fe.frontend_banded,
-                                             wf.waterfall_norms, wf.waterfall_search, wf.waterfall_scan)}
+    return (fe.frontend_fir, fe.frontend_fir_stft, fe.frontend_banded, wf.waterfall_norms, wf.waterfall_search,
+            wf.waterfall_scan, rowscan.row_mean, rowscan.row_exclusive_prefix)
+
+
+ROWSCAN = ("row_mean", "row_exclusive_prefix")  # the trailing stages' kernels (csrc/rowscan.cu)
+
+
+def all_launches() -> dict[str, int]:
+    return {k.__name__: k.launches for k in wrappers()}
+
+
+def stray_launches(before: dict[str, int], argv=()) -> dict[str, int]:
+    """The launches since ``before`` of kernels that a run of ``argv``
+    should not launch: a chain through ``dcblock`` or ``agc`` launches the
+    row scans, and no path launches any other kernel outside the stream,
+    bank, daemon, mesh and bench phases."""
+    allow = ROWSCAN if {"dcblock", "agc"} & set(argv) else ()
+    return {k: v - before[k] for k, v in all_launches().items() if v != before[k] and k not in allow}
 
 
 @contextlib.contextmanager
@@ -865,7 +899,8 @@ def card_run(name: str, argv: list[str], card: str, walls: dict[str, float], exp
              samples: int = CAPTURE_SAMPLES) -> str:
     """``argv`` through the CLI on the card over a capture of ``samples``;
     records its wall in ``walls[name]`` and raises if it launched a kernel
-    of the port (these paths run as torch ops).  Returns its stdout."""
+    of the port other than the trailing stages' row scans (these paths run
+    as torch ops).  Returns its stdout."""
     os.environ.pop("QUADRS_PLATFORM", None)  # the CLI's default device: cuda
     before = all_launches()
     t0 = time.perf_counter()
@@ -874,8 +909,9 @@ def card_run(name: str, argv: list[str], card: str, walls: dict[str, float], exp
     launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
     print(f"    {name}: {walls[name]:.3f}s, {samples / walls[name] / 1e6:.1f} Msps ({card}); "
           f"kernel launches: {launched or 'none'}")
-    if launched:
-        raise AssertionError(f"{name} launched {launched}: the chain runs as torch ops")
+    stray = stray_launches(before, argv)
+    if stray:
+        raise AssertionError(f"{name} launched {stray}: the chain runs as torch ops and the row scans")
     return out
 
 
@@ -1241,7 +1277,7 @@ STAGE_SAMPLES = 1 << 24  # phase 4: the capture of the default-window stage chai
 STAGE_ROWS = 32  # of its sparkfft rows, held against the CPU: the first, the lookback's end, and rows far in
 
 
-def stage_sparkfft(card: str, cap: str, tmp: str) -> dict[str, float]:
+def stage_sparkfft(card: str, cap: str, tmp: str) -> tuple[dict[str, float], dict[str, int]]:
     """The FSK chain through ``dcblock agc`` at their default windows (32000
     and 4000) into ``sparkfft -width 64 -stride 16``, through the CLI on the
     card over the first ``STAGE_SAMPLES`` of the capture.  Each window
@@ -1253,7 +1289,10 @@ def stage_sparkfft(card: str, cap: str, tmp: str) -> dict[str, float]:
     profiled run's device share; a sample of the rows (the lookback
     filling, its end, rows far in) is held against the same windows on the
     CPU through the port's executor, glyph for glyph outside near-ties, and
-    the card's norms of one batch against one window a batch are printed."""
+    the card's norms of one batch against one window a batch are printed,
+    then one batch's ops by device time (:func:`op_breakdown`).  The row
+    scans' counts are set to 0 before the CLI run and read after it; each
+    must have launched.  Returns the walls and those counts."""
     from quadrs_tpu_torch import sinks
     from quadrs_tpu_torch.ops.stft import stft_norms
     from quadrs_tpu_torch.runtime import Executor, root_read_of, stream_batches
@@ -1283,8 +1322,16 @@ def stage_sparkfft(card: str, cap: str, tmp: str) -> dict[str, float]:
     torch.cuda.reset_peak_memory_stats()
     walls: dict[str, float] = {}
     fsk = ["shift", "280k", "lowpass", "-power", "200", "-decimate", "32", "200k", "dcblock", "agc"]
+    scans = [k for k in wrappers() if k.__name__ in ROWSCAN]
+    for k in scans:
+        k.launches = 0  # the row scans' main path: this run's counts only
     out = card_run("stages sparkfft", ["from", path, *fsk, "sparkfft", "-width", "64", "-stride", "16"], card, walls,
                    samples=STAGE_SAMPLES)
+    launches = {k.__name__: k.launches for k in scans}
+    print(f"    the row scans over that run: {launches} (a DcBlock mean and two prefix sums a batch, "
+          f"{len(batches)} batches planned)")
+    if not all(launches.values()):
+        raise AssertionError(f"stages sparkfft launched {launches}: DcBlock and Agc take the row-scan kernels")
     peak = torch.cuda.max_memory_allocated()
     rows = out.splitlines()[1:]
     print(f"    peak allocated {peak / 2**30:.3f} GiB; wall {walls['stages sparkfft']:.3f}s, "
@@ -1319,10 +1366,43 @@ def stage_sparkfft(card: str, cap: str, tmp: str) -> dict[str, float]:
     print(f"    the card's norms of those windows in one batch against one window a batch: max |diff| "
           f"{float(np.abs(one - alone).max()):.3e} of {float(np.abs(alone).max()):.4g}")
     laps.append(("batch against alone", time.perf_counter()))
+    op_breakdown(ex, offsets[len(offsets) // 2:][:batch], card)
+    laps.append(("one batch's ops", time.perf_counter()))
     walls["stages sparkfft added"] = laps[-1][1] - laps[0][1]
     print(f"    the default-window sparkfft's part of the stage phase: {walls['stages sparkfft added']:.1f}s, "
           + ", ".join(f"{name} {t - laps[k][1]:.1f}s" for k, (name, t) in enumerate(laps[1:])) + f" ({card})")
-    return walls
+    return walls, launches
+
+
+def op_breakdown(ex, offs: np.ndarray, card: str, top: int = 10) -> None:
+    """One batch of ``ex`` (warm) under ``torch.profiler``: the device's
+    busy time, the ``top`` torch ops by their own device time (the kernels
+    each launched itself; ``key_averages``), and the row-scan kernels, which
+    ctypes launches outside any torch op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_stream import device_busy
+
+    ex.run(offs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.run(offs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy(prof)[0]
+
+    def own(e) -> float:
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    stats = prof.key_averages()
+    ops = sorted((e for e in stats if e.device_type == DeviceType.CPU and own(e) > 0), key=own, reverse=True)
+    scans = [e for e in stats if e.device_type == DeviceType.CUDA and "tile_" in e.key]
+    print(f"    one batch of {len(offs)} windows, profiled: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms; "
+          f"the top {min(top, len(ops))} of {len(ops)} torch ops by own device time, then the row-scan kernels ({card}):")
+    for e in ops[:top] + scans:
+        print(f"      {own(e) / 1e3:9.3f} ms {100 * own(e) / 1e3 / max(busy, 1e-9):5.1f}%  x{e.count:<5d} {e.key[:90]}")
 
 
 GEN_SECONDS = "0.8"  # gen_sparkfft: 16,800,000 generated samples at 21 Msps, the stage capture's length
@@ -1475,17 +1555,19 @@ INVARIANCE_GEOMETRIES = ((200, 63, 16), (1000, 4093, 1000))  # (windows, outputs
 
 
 def batch_invariance(card: str, cap: str) -> dict[str, float]:
-    """The elementwise chains' windows on the card at 1, 7 and 200 windows
-    a batch (the executor's batches), bit for bit: ``shift`` and ``iqbal
-    -c`` over the stage capture, and ``gen -> shift``; their complex
-    products (``ops.nco.rotate``) compute each element alone, so a window's
-    samples do not depend on the windows batched with it.  Paths with a
-    prefix sum, a reduction, a FIR or an FFT are held within their
-    tolerances instead (torch's CUDA ``cumsum`` and ``mean``, cuFFT and
-    cuBLAS choose their blocking by shape): ``shift dcblock -window 500 agc
-    -window 100`` (1e-4 of scale, the stage tests' bound against the JAX
-    package), ``PipelineModel.step_windows`` (5e-5 of scale) and an SSB
-    ``_ChannelStep`` dispatched as one, as 7-window and as 1-window
+    """The executor's chains on the card at 1, 7 and 200 windows a batch,
+    bit for bit, and again at 200 a batch (run to run): ``shift`` and
+    ``iqbal -c`` over the stage capture, and ``gen -> shift``, whose complex
+    products (``ops.nco.rotate``) compute each element alone; ``shift
+    dcblock -window 500 agc -window 100``, ``dcblock -window 500`` and ``agc
+    -window 100``, whose block means and prefix sums are the row-scan
+    kernels' (``ops/rowscan.py``: an order fixed by the block's length); so
+    a window's samples do not depend on the windows batched with it.  The
+    first 8 windows of each stay within 1e-4 of scale of the CPU (the stage
+    tests' bound against the JAX package).  Paths with a FIR or an FFT are
+    held within their tolerances instead (cuFFT and cuBLAS choose their
+    blocking by shape): ``PipelineModel.step_windows`` (5e-5 of scale) and
+    an SSB ``_ChannelStep`` dispatched as one, as 7-window and as 1-window
     dispatches (1e-5 of full scale)."""
     from quadrs_tpu_torch.formats import FileFormat
     from quadrs_tpu_torch.models import demod
@@ -1496,28 +1578,35 @@ def batch_invariance(card: str, cap: str) -> dict[str, float]:
 
     t0 = time.perf_counter()
     src = open_capture(cap)
-    chains = {  # name: (stream, bit for bit)
-        "shift": (Shift(src, 5_000), True),
-        "iqbal -c": (IqCorrect(src, c=0.01 - 0.02j, device=DEVICE), True),
-        "gen shift": (Shift(ToneGen([3_000, -7_000], SAMPLE_RATE, 1.0), 5_000), True),
-        "shift dcblock agc": (Agc(DcBlock(Shift(src, 5_000), 500), window=100), False),
+    chains = {
+        "shift": Shift(src, 5_000),
+        "iqbal -c": IqCorrect(src, c=0.01 - 0.02j, device=DEVICE),
+        "gen shift": Shift(ToneGen([3_000, -7_000], SAMPLE_RATE, 1.0), 5_000),
+        "shift dcblock agc": Agc(DcBlock(Shift(src, 5_000), 500), window=100),
+        "dcblock": DcBlock(src, 500),
+        "agc": Agc(src, window=100),
     }
     for windows, n, stride in INVARIANCE_GEOMETRIES:
         offs = stride * np.arange(windows, dtype=np.int64)
-        for name, (stream, exact) in chains.items():
+        for name, stream in chains.items():
             ex = Executor(stream, n, DEVICE)
             runs = {b: np.concatenate([ex.run(offs[i:i + b])[0] for i in range(0, windows, b)]) for b in (1, 7, 200)}
+            runs["again"] = np.concatenate([ex.run(offs[i:i + 200])[0] for i in range(0, windows, 200)])
             differ = {b: int(np.sum(runs[b] != runs[1])) for b in (7, 200)}
+            differ["again"] = int(np.sum(runs["again"] != runs[200]))
             gap = max(float(np.abs(runs[b] - runs[1]).max()) for b in (7, 200))
             scale = float(np.abs(runs[1]).max())
             cpu = Executor(stream, n, "cpu").run(offs[:8])[0]
             err = float(np.abs(runs[1][:8] - cpu).max())
             print(f"  batch invariance on the card, {name}, {windows} windows of {n} at stride {stride}: values "
                   f"differing from one window a batch at 7 / 200 a batch: {differ[7]} / {differ[200]} of "
-                  f"{runs[1].size}, max |diff| {gap:.3e} of {scale:.4g} (bound {'0' if exact else '1e-4 of it'}); "
-                  f"the first 8 windows against the CPU: max |diff| {err:.3e} ({card})")
-            if any(differ.values()) if exact else gap > 1e-4 * scale:
+                  f"{runs[1].size}, a second run at 200 from the first: {differ['again']}, max |diff| {gap:.3e} of "
+                  f"{scale:.4g} (bound 0); the first 8 windows against the CPU: "
+                  f"max |diff| {err:.3e} (bound {1e-4 * scale:.3e}) ({card})")
+            if any(differ.values()):
                 raise AssertionError(f"{name}: a window's samples depend on its batch on the card")
+            if err > 1e-4 * scale:
+                raise AssertionError(f"{name}: the card's first windows are not the CPU's within 1e-4 of scale")
     # the FIR and FFT paths, within their tolerances
     args = dict(sample_rate=1_000_000, shift_freq=12_345, lp_freq=50_000, decimate=4, taps=41, fft_width=16)
     model = PipelineModel(PipelineConfig(fmt=FileFormat("cs8"), **args)).to(DEVICE)
@@ -1556,13 +1645,15 @@ def batch_invariance(card: str, cap: str) -> dict[str, float]:
     return {"batch invariance added": wall}
 
 
-def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
+def phase_stage_path(card: str, cap: str, tmp: str) -> tuple[dict[str, float], dict[str, int]]:
     """Phase 4, the conditioning stages through the CLI:
     ``iqbal dcblock agc resample 147/160 write`` over the 2^26-sample
     capture against the same argv on the CPU over the 2^22-sample prefix;
     the FSK chain through ``dcblock agc`` at their default windows into
     ``sparkfft`` (:func:`stage_sparkfft`); then ``resample_real`` 656,250 to
-    48,000 on the card against the CPU.  No kernel of the port launches."""
+    48,000 on the card against the CPU.  The stages launch the row-scan
+    kernels and no other kernel of the port.  Returns the walls and the
+    row scans' launches over ``stage_sparkfft``'s run (their main path)."""
     from quadrs_tpu_torch.ops.resample import resample_real
     from quadrs_tpu_torch.sources import open_capture
     from quadrs_tpu_torch.stream import Agc, DcBlock, IqCorrect, Resample
@@ -1593,7 +1684,8 @@ def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
           f"device share {100 * busy / wall:.1f}% ({card})")
     laps.append(("profiled run", time.perf_counter()))
 
-    walls.update(stage_sparkfft(card, cap, tmp))
+    spark_walls, launches = stage_sparkfft(card, cap, tmp)
+    walls.update(spark_walls)
     laps.append(("sparkfft at the default windows", time.perf_counter()))
     walls.update(gen_sparkfft(card, tmp))
     laps.append(("gen sparkfft", time.perf_counter()))
@@ -1617,7 +1709,7 @@ def phase_stage_path(card: str, cap: str, tmp: str) -> dict[str, float]:
     walls["resample_real ms"] = ms
     laps.append(("resample_real", time.perf_counter()))
     print("  stage phase, its steps: " + ", ".join(f"{name} {t - laps[i][1]:.1f}s" for i, (name, t) in enumerate(laps[1:])))
-    return walls
+    return walls, launches
 
 
 # phase 4's receiver captures (made with numpy from SEED, at the sizes users
@@ -3137,11 +3229,9 @@ def _near_ties(norms: np.ndarray, tol: float) -> np.ndarray:
 
 
 def _zero_launches() -> None:
-    from quadrs_tpu_torch.ops import frontend as fe
-    from quadrs_tpu_torch.ops import waterfall as wf
-
-    for k in (fe.frontend_fir, fe.frontend_fir_stft, wf.waterfall_norms, wf.waterfall_search, wf.waterfall_scan):
-        k.launches = 0
+    for k in wrappers():
+        if k.__name__ != "frontend_banded":
+            k.launches = 0
 
 
 def _launched() -> dict[str, int]:
@@ -4014,6 +4104,164 @@ def phase_waterfall_timing(card: str, at_main: dict[str, tuple[float, float]]) -
     return ms
 
 
+ROWSCAN_TOL = 1e-5  # |kernel - plain| over each row's sum of |v| (a channel's, for complex64)
+# (rows, length): the tile's edges (4096 elements), lengths no multiple of
+# it, and one row and 200 rows of each
+ROWSCAN_EDGES = [(1, 1), (200, 1), (1, 4095), (200, 4095), (1, 4096), (200, 4096), (1, 4097), (200, 4097),
+                 (3, 3 * 4096 + 5), (200, 10_000)]
+# the main path's rows (stage_sparkfft: 565 batches of at most 58 windows):
+# DcBlock's 36,062-sample complex64 blocks and Agc's 4,063-sample powers
+ROWSCAN_MAIN = {"row_mean": (58, 36_062, torch.complex64), "row_exclusive_prefix": (58, 36_062, torch.complex64),
+                "row_exclusive_prefix f32": (58, 4_063, torch.float32)}
+
+
+def rowscan_rows(b: int, n: int, dtype, seed: int) -> torch.Tensor:
+    """(b, n) seeded rows on the card: unit noise about a DC offset (the
+    offset is what DcBlock's mean takes out)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n)) + (0.3 - 0.2j)
+    x = x.astype(np.complex64) if dtype == torch.complex64 else (x.real ** 2).astype(np.float32)
+    return torch.from_numpy(x).to(DEVICE)
+
+
+def rowscan_err(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, that over each row's and channel's sum of |v|)."""
+    f = (lambda t: torch.view_as_real(t) if t.is_complex() else t[..., None])
+    diff = (f(got) - f(want)).abs()
+    scale = f(v).abs().sum(dim=1, keepdim=True).clamp(min=1e-30)
+    return float(diff.max()), float((diff / scale).max())
+
+
+def phase_rowscan_kernels() -> dict[str, tuple[float, float]]:
+    """Phase 3, the trailing stages' row scans (``csrc/rowscan.cu``)
+    against their plain versions on the same CUDA rows, f32 and complex64,
+    at :data:`ROWSCAN_EDGES` and the main path's shapes: ``row_mean``,
+    ``row_exclusive_prefix`` and ``row_exclusive_prefix`` less the row mean,
+    each within :data:`ROWSCAN_TOL` of each row's sum of |v| (the plain
+    version's ``cumsum`` adds in another order, so neither is exact); then
+    each row of a batch bit-equal to the row alone and to a second call.
+    Returns (max_abs_err, that over the row sums) at the main path's
+    shapes."""
+    from quadrs_tpu_torch.ops import rowscan
+
+    at_main: dict[str, tuple[float, float]] = {}
+    failures: list[str] = []
+    cases = [(b, n, dt) for b, n in ROWSCAN_EDGES for dt in (torch.float32, torch.complex64)]
+    cases += list(dict.fromkeys(ROWSCAN_MAIN.values()))
+    worst = 0.0
+    for b, n, dt in cases:
+        x = rowscan_rows(b, n, dt, seed=n + b)
+        mean = rowscan.row_mean(x)
+        errs = {
+            "row_mean": rowscan_err(mean * n, rowscan.row_mean_reference(x) * n, x),
+            "row_exclusive_prefix": rowscan_err(rowscan.row_exclusive_prefix(x), rowscan.row_exclusive_prefix_reference(x), x),
+            "row_exclusive_prefix less the mean": rowscan_err(rowscan.row_exclusive_prefix(x, mean),
+                                                              rowscan.row_exclusive_prefix_reference(x, mean), x - mean),
+        }
+        centred = rowscan.row_exclusive_prefix(x, mean)
+        k = min(b, 3)
+        alone = torch.cat([rowscan.row_exclusive_prefix(x[i:i + 1], mean[i:i + 1]) for i in range(k)])
+        alone_mean = torch.cat([rowscan.row_mean(x[i:i + 1]) for i in range(k)])
+        same = (torch.equal(alone, centred[:k]) and torch.equal(alone_mean, mean[:k])
+                and torch.equal(rowscan.row_exclusive_prefix(x, mean), centred))
+        torch.cuda.synchronize()
+        tag = f"{b} x {n} {'c64' if dt == torch.complex64 else 'f32'}"
+        print(f"  row scans {tag}: " + ", ".join(f"{name} {a:.3e} abs, {r:.3e} of the row sum" for name, (a, r) in errs.items())
+              + f"; rows alone, in the batch and again bit-equal: {same}")
+        for name, (_, r) in errs.items():
+            worst = max(worst, r)
+            if r > ROWSCAN_TOL:
+                failures.append(f"{name} {tag}: {r:.3e}")
+        if not same:
+            failures.append(f"{tag}: a row's scan depends on its batch or its call")
+        if (b, n, dt) == ROWSCAN_MAIN["row_mean"]:
+            at_main["row_mean"] = errs["row_mean"]
+            at_main["row_exclusive_prefix"] = errs["row_exclusive_prefix less the mean"]
+        elif (b, n, dt) == ROWSCAN_MAIN["row_exclusive_prefix f32"]:
+            at_main["row_exclusive_prefix f32"] = errs["row_exclusive_prefix"]
+    print(f"  row scans: {len(cases)} cases, the largest error {worst:.3e} of a row's sum of |v| (bound {ROWSCAN_TOL})")
+    if failures:
+        raise AssertionError(f"the row-scan kernels disagree with their plain versions: {failures}")
+    return at_main
+
+
+def phase_rowscan_timing(card: str) -> dict[str, float]:
+    """Phase 5, the row scans at the main path's shapes (:data:`ROWSCAN_MAIN`):
+    each kernel's device time (:func:`device_ms`) and its time through the
+    wrapper (:func:`time_ms`), its plain version's, and the yardstick's: one
+    torch call along the rows (``mean`` for ``row_mean``; ``cumsum``, without
+    the subtraction and the zero column, for ``row_exclusive_prefix``), in
+    mirrored order.  Bound: each input read once and each output written
+    once over 3.35 TB/s (an add an element is far below the f32 peak)."""
+    from quadrs_tpu_torch.ops import rowscan
+
+    ms: dict[str, float] = {}
+    inputs = {name: rowscan_rows(b, n, dt, seed=n + b) for name, (b, n, dt) in ROWSCAN_MAIN.items()}
+    dc = inputs["row_exclusive_prefix"]
+    mean = rowscan.row_mean(dc)
+    pw = inputs["row_exclusive_prefix f32"]
+    variants = {
+        "row_mean": lambda: rowscan.row_mean(inputs["row_mean"]),
+        "row_exclusive_prefix": lambda: rowscan.row_exclusive_prefix(dc, mean),
+        "row_exclusive_prefix f32": lambda: rowscan.row_exclusive_prefix(pw),
+        "plain row_mean": lambda: rowscan.row_mean_reference(inputs["row_mean"]),
+        "plain row_exclusive_prefix": lambda: rowscan.row_exclusive_prefix_reference(dc, mean),
+        "plain row_exclusive_prefix f32": lambda: rowscan.row_exclusive_prefix_reference(pw),
+        "library row_mean": lambda: torch.mean(inputs["row_mean"], dim=1),
+        "library row_exclusive_prefix": lambda: torch.cumsum(dc, dim=1),
+        "library row_exclusive_prefix f32": lambda: torch.cumsum(pw, dim=1),
+    }
+    order = list(variants) + list(reversed(variants))
+    runs: dict[str, list[float]] = {k: [] for k in variants}
+    dev: dict[str, list[float]] = {k: [] for k in variants if not k.startswith("plain")}
+    for k in order:
+        runs[k].append(time_ms(variants[k]))
+        if k in dev:
+            dev[k].append(device_ms(variants[k]))
+    for k, v in runs.items():
+        ms[f"call {k}"] = sum(v) / len(v)
+    for k, v in dev.items():
+        ms[k] = sum(v) / len(v)
+    for name, (b, n, dt) in ROWSCAN_MAIN.items():
+        item = 8 if dt == torch.complex64 else 4
+        nbytes = b * n * item + (b * item if name == "row_mean" else b * (n + 1) * item)
+        nbytes += b * item if name == "row_exclusive_prefix" else 0  # the subtracted means
+        ms[f"bound {name}"] = bound(nbytes, b * n * (2 if dt == torch.complex64 else 1))
+        print(f"  {name} at {b} x {n} {'complex64' if item == 8 else 'f32'}: {ms[name]:.4f} ms on the device, "
+              f"{ms[f'call {name}']:.4f} ms through the wrapper (runs {', '.join(f'{x:.4f}' for x in dev[name])}); "
+              f"plain {ms[f'call plain {name}']:.4f} ms; yardstick {ms[f'library {name}']:.4f} ms on the device, "
+              f"{ms[f'call library {name}']:.4f} through the call; bound {ms[f'bound {name}'][0]:.4f} ms "
+              f"({ms[f'bound {name}'][1]}: {nbytes} bytes) ({card})")
+    return ms
+
+
+def rowscan_records(launches: dict[str, int], at_main: dict, rs_ms: dict) -> list[dict]:
+    """The row scans' entries of the kernels line, at the main path's
+    shapes (58 rows of DcBlock's 36,062 complex64; Agc's 4,063 f32 under
+    ``f32``).  They replace XLA's ``jnp.cumsum``, no ``pallas_call``; errors
+    over each row's sum of |v|; ``bound`` as (ms, by), as the other rows."""
+    scan = {"route": "cuda", "source": "quadrs_tpu_torch/csrc/rowscan.cu", "replaces": "quadrs_tpu/stream.py:317"}
+    rows = []
+    for name, library, shape in (("row_mean", "torch.mean along the rows", "58 x 36,062 complex64 (DcBlock)"),
+                                 ("row_exclusive_prefix", "torch.cumsum along the rows (covers part of the work)",
+                                  "58 x 36,062 complex64 less the row mean (DcBlock)")):
+        row = {"name": name, **scan, "launches": launches[name], "ms": rs_ms[name], "call_ms": rs_ms[f"call {name}"],
+               "plain_ms": rs_ms[f"call plain {name}"], "bound": rs_ms[f"bound {name}"],
+               "library_ms": rs_ms[f"library {name}"], "library_call_ms": rs_ms[f"call library {name}"],
+               "library": library, "shape": shape, "max_abs_err": at_main[name][0],
+               "err_over_row_abs_sum": at_main[name][1]}
+        if name == "row_exclusive_prefix":
+            f = f"{name} f32"
+            b_ms, b_by = rs_ms[f"bound {f}"]
+            row["also_replaces"] = "quadrs_tpu/stream.py:367"
+            row["f32"] = {"shape": "58 x 4,063 f32 (Agc's powers)", "ms": rs_ms[f], "call_ms": rs_ms[f"call {f}"],
+                          "plain_ms": rs_ms[f"call plain {f}"], "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": rs_ms[f"library {f}"], "max_abs_err": at_main[f][0],
+                          "err_over_row_abs_sum": at_main[f][1]}
+        rows.append(row)
+    return rows
+
+
 def ptxas_usage(log: str) -> list[tuple[str, str]]:
     """(kernel, ptxas's registers / shared memory / spills) from the build
     log: every frontend kernel, and the waterfall body's cs8
@@ -4110,6 +4358,7 @@ def main() -> int:
     phase_frontend_edges()
     at_main["frontend_banded"] = phase_banded_kernel()
     phase_waterfall_kernels()
+    at_main.update(phase_rowscan_kernels())
     print("phase 4: the main paths")
     from quadrs_tpu_torch.ops import frontend as fe
 
@@ -4122,9 +4371,11 @@ def main() -> int:
         before, t0 = all_launches(), time.perf_counter()
         walls, find_stdin = phase_find_path(card, tmp, cap)
         t1 = time.perf_counter()
-        walls.update(phase_stage_path(card, cap, tmp))
-        if all_launches() != before:
-            raise AssertionError("find or the stages launched a kernel of the port: they run as torch ops")
+        stage_walls, stage_launches = phase_stage_path(card, cap, tmp)
+        walls.update(stage_walls)
+        launches.update(stage_launches)
+        if stray_launches(before, ["dcblock"]):
+            raise AssertionError("find or the stages launched a kernel of the port other than the row scans")
         print(f"  find and the stages: {time.perf_counter() - t0:.1f}s of phase 4 (find {t1 - t0:.1f}s, "
               f"the stages {time.perf_counter() - t1:.1f}s)")
         t0 = time.perf_counter()
@@ -4177,6 +4428,7 @@ def main() -> int:
         ms.update(phase_chain_timing(card))
         phase_cs16_readings(card)
         wf_ms = phase_waterfall_timing(card, at_main)
+        rs_ms = phase_rowscan_timing(card)
         t0 = time.perf_counter()
         phase_find_timing(card)
         print(f"  find's sweep and the resampler's product: {time.perf_counter() - t0:.1f}s of phase 5")
@@ -4232,8 +4484,10 @@ def main() -> int:
                         "ms": wf_ms[f"{key}@{stride}"], "plain_ms": wf_ms[f"plain_{key}@{stride}"],
                         "bound": wf_ms[f"bound {key}@{stride}"], "library_ms": wf_ms[f"library_fft@{stride}"],
                         "library": "torch.fft.fft over the decoded frames (covers part of the work)"})
+    kernels += rowscan_records(launches, at_main, rs_ms)
     for k in kernels:
-        k["max_abs_err"], k["err_over_max"] = at_main[k["name"]]
+        if "max_abs_err" not in k:
+            k["max_abs_err"], k["err_over_max"] = at_main[k["name"]]
         k["bound_ms"], k["bound_by"] = k.pop("bound")
         k["roofline_share"] = k["bound_ms"] / k["ms"]
     print(json.dumps({"kernels": kernels}))

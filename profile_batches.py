@@ -4,8 +4,9 @@ Run from the root of a checkout:
 
 - ``python3 profile_batches.py`` (one CUDA card): which torch ops of the
   executor's chains give a row's values that depend on the rows computed
-  with it on the card (row reductions and prefix sums at the trailing
-  stages' shapes; the chains ``dcblock``, ``agc`` and ``shift`` through
+  with it on the card (torch's row reductions and prefix sums at the
+  trailing stages' shapes, beside the row-scan kernels of
+  ``ops/rowscan.py``; the chains ``dcblock``, ``agc`` and ``shift`` through
   ``Executor`` at 1, 7 and 200 windows a batch), and the NCO mix's forms
   at the stage chain's batch (58 windows of 1,154,384): the complex
   product against real planes (seven passes, and ``ops.nco.rotate``'s
@@ -13,8 +14,12 @@ Run from the root of a checkout:
   dependence.
 - ``python3 profile_batches.py stage TREE [TREE ...]``: ``chip_smoke.py``'s
   ``stage_sparkfft`` from each checkout given, in turn, each in a process of
-  its own over the same fresh 2^24-sample capture: to compare two commits
-  in one call (parent, change, change, parent).
+  its own over the same fresh 2^24-sample capture, each tree's kernels
+  built first: to compare two commits in one call (parent, change,
+  change, parent).
+- ``python3 profile_batches.py cpu`` (any host): on the CPU, which of
+  torch's FFT, ``mean`` and ``cumsum`` give a row's values that depend on
+  its batch or the threads, and the FFT through ``ops/fir.fixed_row_calls``.
 - ``python3 profile_batches.py plan`` (any host): the host memory (by
   ``tracemalloc``) and time of ``ToneGen``'s planning of one capped batch
   with noise: 57 windows of 1,154,384 generated samples.
@@ -38,12 +43,17 @@ def per_rows(fn, x: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def reductions(card: str) -> None:
+    from quadrs_tpu_torch.ops import rowscan
+
     g = torch.Generator(device="cuda").manual_seed(0)
     ops = {
         "mean dim 1 (complex)": lambda t: t.mean(dim=1, keepdim=True),
         "sum dim 1 (f32)": lambda t: t.real.sum(dim=1, keepdim=True),
         "cumsum dim 1 (complex)": lambda t: torch.cumsum(t, dim=1),
         "cumsum dim 1 (f32)": lambda t: torch.cumsum(t.real**2 + t.imag**2, dim=1),
+        "row_mean kernel (complex)": rowscan.row_mean,
+        "row_exclusive_prefix kernel (complex)": lambda t: rowscan.row_exclusive_prefix(t, rowscan.row_mean(t)),
+        "row_exclusive_prefix kernel (f32)": lambda t: rowscan.row_exclusive_prefix(t.real**2 + t.imag**2),
     }
     for shape in ((200, 562), (200, 162), (58, 36_061), (200, 4592)):
         x = torch.randn(shape, dtype=torch.complex64, device="cuda", generator=g) + (0.3 - 0.2j)
@@ -133,6 +143,9 @@ def stage(trees: list[str]) -> None:
     tmp = tempfile.mkdtemp()
     cap = os.path.join(tmp, "cap.sr21M.cs8")
     cs.write_capture(cap, 1 << 24)
+    for tree in dict.fromkeys(trees):  # each tree's kernels built before any run is timed
+        subprocess.run([sys.executable, "-c", "from quadrs_tpu_torch.ops import _cuda; _cuda.library()"],
+                       cwd=os.path.abspath(tree), check=True, timeout=600)
     for tree in trees:
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-c", STAGE, cap, tempfile.mkdtemp()], cwd=os.path.abspath(tree),
@@ -141,6 +154,41 @@ def stage(trees: list[str]) -> None:
         print("\n".join(line for line in r.stdout.splitlines() if "│" not in line), r.stderr[-2000:], flush=True)
         if r.returncode:
             raise SystemExit(r.returncode)
+
+
+def cpu() -> None:
+    """On the CPU: how many values of a row change with the rows computed
+    with it (one, 7 or 200 a call) and the threads (1 and 4): torch's FFT
+    over 200 rows of 8192 complex64, as one call and through
+    ``ops/fir.fixed_row_calls``; torch's ``mean`` and ``cumsum`` along
+    rows at the trailing stages' lengths, one row a call against 58."""
+    from quadrs_tpu_torch.ops.fir import fixed_row_calls
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=(200, 8192)) + 1j * rng.normal(size=(200, 8192))).astype(np.complex64))
+    forms = {"torch.fft.fft": torch.fft.fft, "fixed_row_calls(torch.fft.fft)": lambda r: fixed_row_calls(torch.fft.fft, r, 1)}
+    before = torch.get_num_threads()
+    for name, fn in forms.items():
+        runs = {}
+        for t in (1, 4):
+            torch.set_num_threads(t)
+            for b in (1, 7, 200):
+                runs[t, b] = per_rows(fn, x, b)
+        print(f"  {name} over 200 x 8192 complex64: values differing from 1 thread, 200 rows a call, at "
+              + ", ".join(f"{t} threads {b} a call {int((v != runs[1, 200]).sum())}" for (t, b), v in runs.items()),
+              flush=True)
+    for n in (562, 4063, 16_384, 36_062):
+        for dtype in (torch.complex64, torch.float32):
+            y = torch.from_numpy(rng.normal(size=(58, n)) + 1j * rng.normal(size=(58, n)) + (0.3 - 0.2j))
+            y = y.to(dtype) if dtype == torch.complex64 else y.real.float()
+            out = []
+            for t in (1, 4):
+                torch.set_num_threads(t)
+                for op, fn in (("mean", lambda r: r.mean(dim=1, keepdim=True)), ("cumsum", lambda r: torch.cumsum(r, 1))):
+                    whole = fn(y)
+                    out.append(f"{op} at {t} threads {int((per_rows(fn, y, 1) != whole).sum())} of {whole.numel()}")
+            print(f"  58 x {n} {str(dtype).split('.')[-1]}, one row a call against 58: " + ", ".join(out), flush=True)
+    torch.set_num_threads(before)
 
 
 def plan() -> None:
@@ -163,6 +211,9 @@ def plan() -> None:
 def main(argv: list[str]) -> int:
     if argv[:1] == ["plan"]:
         plan()
+        return 0
+    if argv[:1] == ["cpu"]:
+        cpu()
         return 0
     if not torch.cuda.is_available():
         print("profile_batches: CUDA is not available; this needs one CUDA card", file=sys.stderr)

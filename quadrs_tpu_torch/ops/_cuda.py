@@ -26,7 +26,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "frontend.cu", _PKG / "csrc" / "waterfall.cu")
+_SOURCES = (_PKG / "csrc" / "frontend.cu", _PKG / "csrc" / "waterfall.cu", _PKG / "csrc" / "rowscan.cu")
 _HEADERS = (_PKG / "csrc" / "decode.cuh", _PKG / "csrc" / "device.cuh", _PKG / "csrc" / "fft.cuh")
 BUILD_DIR = _PKG.parent / "build" / "quadrs_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -51,6 +51,9 @@ _SIGNATURES = {
     "qt_waterfall_norms": (*_WATERFALL, _P, _P),
     "qt_waterfall_search": (*_WATERFALL, _P, _P, _P),
     "qt_waterfall_scan": (*_WATERFALL, _F, _P, _P, _P),
+    # channels, device, x, rows, len, [sub,] tile, scratch..., out, stream (csrc/rowscan.cu)
+    "qt_row_sum": (_I, _I, _P, _LL, _LL, _I, _P, _P, _P),
+    "qt_row_exclusive_prefix": (_I, _I, _P, _LL, _LL, _P, _I, _P, _P, _P, _P),
 }
 
 

@@ -28,6 +28,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from quadrs_tpu_torch.ops.fir import fixed_row_calls, spectral_product
+
 _TINY = float(np.float32(1e-30))
 
 # the most elements of one group of rows through the inverse FFT (128 MiB
@@ -97,7 +99,7 @@ class XCorr:
         return self._on[device]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.fft.fft(x, dim=-1)
+        return fixed_row_calls(lambda r: torch.fft.fft(r, dim=-1), x, 1)
 
     def energy(self, x: torch.Tensor) -> torch.Tensor:
         """(U, B, n_out) f32: the sum of |x|^2 over ``[n, n + l_k)`` for each
@@ -110,7 +112,8 @@ class XCorr:
     def _rows(self, xf: torch.Tensor, me: torch.Tensor, r0: int, r1: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Rows ``r0..r1-1``: (score, |corr|^2), each (B, r1 - r0, n_out)."""
         spectra, inv_ep, inv_ep2, den_idx = self.on(xf.device)
-        corr = torch.fft.ifft(xf[:, None, :] * spectra[r0:r1][None], dim=-1)[..., : self.n_out]
+        prod = spectral_product(xf[:, None, :], spectra[r0:r1][None])
+        corr = fixed_row_calls(lambda r: torch.fft.ifft(r, dim=-1), prod, 2)[..., : self.n_out]
         num = corr.real**2 + corr.imag**2
         energy = me[0][:, None, :] if len(self.lens) == 1 else me.index_select(0, den_idx[r0:r1]).transpose(0, 1)
         # normalizing by E_p^2 maps a zero-energy window to score 0

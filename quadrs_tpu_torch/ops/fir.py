@@ -39,10 +39,44 @@ import functools
 import numpy as np
 import torch
 
+from quadrs_tpu_torch.ops.nco import rotate
+
 _PI32 = np.float32(np.pi)
 
 IMPLS = ("direct", "polyphase", "banded", "overlap_save", "os_poly")
 _SPECTRAL = ("overlap_save", "os_poly")
+
+# rows of every transform call on the CPU: its FFT splits a lone transform
+# across threads and rounds it otherwise than the same transform inside a
+# batch, but a call of this many rows rounds each row alike at any batch
+# and thread count
+FFT_ROWS = 8
+
+
+def fixed_row_calls(fn, x: torch.Tensor, lead: int) -> torch.Tensor:
+    """``fn`` over the rows of ``x`` (its first ``lead`` dims are rows, each
+    row what is left; ``fn`` takes and returns a stack of rows).  On the
+    card one call, which cuFFT plans by batch; on the CPU calls of exactly
+    :data:`FFT_ROWS` contiguous rows, the last padded with zero rows that
+    are dropped after, so a row's output does not depend on its batch or
+    the threads."""
+    if x.device.type != "cpu" or x.numel() == 0:
+        return fn(x)
+    shape = x.shape[:lead]
+    rows = x.reshape(-1, *x.shape[lead:])
+    n = rows.shape[0]
+    pad = -n % FFT_ROWS
+    rows = torch.cat([rows, rows.new_zeros((pad, *rows.shape[1:]))]) if pad else rows.contiguous()
+    out = torch.cat([fn(rows[i : i + FFT_ROWS]) for i in range(0, n + pad, FFT_ROWS)])
+    return out[:n].reshape(*shape, *out.shape[1:])
+
+
+def spectral_product(xf: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
+    """``xf * hf``: the complex product on the card; on the CPU
+    :func:`~quadrs_tpu_torch.ops.nco.rotate`'s real planes, which round
+    each element alone (the CPU's complex product rounds its vector lanes
+    and its scalar tail apart, and its threads split the batch anywhere)."""
+    return xf * hf if xf.is_cuda else rotate(xf, hf.real, hf.imag)
 
 
 def overlapped_frames(x: torch.Tensor, hop: int, m: int, n_frames: int) -> torch.Tensor:
@@ -268,8 +302,9 @@ def _overlap_save_poly(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) ->
     frames = overlapped_frames(x, hop2 * d, m2 * d, n_frames)  # (B, F, m2*d)
     b = x.shape[0]
     ph = frames.reshape(b, n_frames, m2, d).transpose(2, 3)  # (B, F, d, m2)
-    acc = torch.sum(torch.fft.fft(ph) * hf, dim=2)  # (B, F, m2)
-    y = torch.fft.ifft(acc)[:, :, :hop2]
+    # per frame: the phase spectra, summed, then the one inverse transform
+    y = fixed_row_calls(lambda p: torch.fft.ifft(torch.sum(spectral_product(torch.fft.fft(p), hf), dim=-2)),
+                        ph, 2)[:, :, :hop2]
     return y.reshape(b, n_frames * hop2)[:, :n_out]
 
 
@@ -290,7 +325,7 @@ def _overlap_save(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) -> torc
         torch.tensor(h_f.imag.astype(np.float32), device=x.device),
     )
     frames = overlapped_frames(x, hop, m, n_frames)  # (B, n_frames, m)
-    corr = torch.fft.ifft(torch.fft.fft(frames) * hf)
+    corr = fixed_row_calls(lambda f: torch.fft.ifft(spectral_product(torch.fft.fft(f), hf)), frames, 2)
     # linear-valid decimated outputs of each frame: 0, d, ..., hop-d
     picks = corr[:, :, 0:hop:d]
     return picks.reshape(x.shape[0], n_frames * (hop // d))[:, :n_out]

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from quadrs_tpu_torch.ops.nco import ExactNCO, mix, rotate
+from quadrs_tpu_torch.ops.rowscan import row_exclusive_prefix, row_mean
 
 
 @dataclass
@@ -235,10 +236,13 @@ def _tw_count(abs_c: torch.Tensor, n: int, window: int) -> torch.Tensor:
     return m1.clamp_(max=window).to(torch.float32)
 
 
-def _trailing_sums(v: torch.Tensor, prep: Any, n: int, window: int) -> torch.Tensor:
-    """Each output position's sum of ``v`` over its trailing window, from
-    one prefix sum over the block."""
-    cs = torch.cat([torch.zeros_like(v[:, :1]), torch.cumsum(v, dim=1)], dim=1)
+def _trailing_sums(v: torch.Tensor, prep: Any, n: int, window: int, sub: torch.Tensor | None = None) -> torch.Tensor:
+    """Each output position's sum of ``v - sub`` (``sub``: an optional value
+    a row) over its trailing window, from one prefix sum over the block
+    (:func:`~quadrs_tpu_torch.ops.rowscan.row_exclusive_prefix`: on the card
+    a kernel whose order is fixed by the block's length, so a window's sums
+    do not depend on the windows batched with it)."""
+    cs = row_exclusive_prefix(v, sub)
     _, hi, lo = _tw_indices(prep["lead"], n, window)
     return torch.gather(cs, 1, hi) - torch.gather(cs, 1, lo)
 
@@ -290,7 +294,8 @@ class _Trailing(Stream):
         return torch.where(keep, y, 0)
 
     def _inner_block(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
-        return self.inner.read_batch(ctx, prep["inner"], n + self.window - 1)
+        # contiguous rows: the row-scan kernels read them flat
+        return self.inner.read_batch(ctx, prep["inner"], n + self.window - 1).contiguous()
 
     def _current(self, x: torch.Tensor, prep: Any, n: int) -> torch.Tensor:
         """Each output position's own input sample."""
@@ -317,9 +322,11 @@ class DcBlock(_Trailing):
         x = self._inner_block(ctx, prep, n)
         if self.window == 1:  # the trailing window is the sample itself
             return torch.zeros((x.shape[0], n), dtype=x.dtype, device=x.device)
-        x = x - x.mean(dim=1, keepdim=True)
-        dc = _trailing_sums(x, prep, n, self.window) / _tw_count(prep["abs_c"], n, self.window)
-        return self._mask_valid(self._current(x, prep, n) - dc, prep, n)
+        # the block's mean, subtracted as the prefix sum loads the block (on
+        # the card it is never written out) and from each output's own sample
+        mean = row_mean(x)
+        dc = _trailing_sums(x, prep, n, self.window, sub=mean) / _tw_count(prep["abs_c"], n, self.window)
+        return self._mask_valid((self._current(x, prep, n) - mean) - dc, prep, n)
 
 
 class Agc(_Trailing):

@@ -1,5 +1,7 @@
 """A window's output does not depend on the windows batched with it, on
-the CPU, in the port as in the JAX package.
+the CPU, in the port as in the JAX package.  (The trailing stages' row
+scans on the card are the ``cuda`` test ``-k trailing_stages`` and
+``chip_smoke.py``'s ``batch_invariance``.)
 
 Every complex product over a batch of windows or dispatches goes through
 ``ops/nco.rotate`` (and ``mix``), which the CPU takes in real planes:
@@ -26,10 +28,17 @@ split of the work.  (The card's branch, the complex product, is held in
   batch: at these sizes the CPU's ``auto`` rule (the JAX package's, which
   picks by a batch's total outputs) is on one side of its crossover.
 - **The other batched products**: the FM discriminator and the
-  channelizer's phase, bit-equal at every batch.  (The products inside
-  the spectral FIR impls and ``find``'s correlation rows stay complex
-  products: the FFT around them already varies, cuFFT by batch on the
-  card and the CPU's FFT by threads for a lone long transform.)
+  channelizer's phase, bit-equal at every batch.
+- **The FFT-domain products**: ``fir_decimate``'s ``overlap_save`` and
+  ``os_poly`` (33 taps, D 2) and ``find``'s ``XCorr`` (a 2-template bank
+  over a 5-row grid), bit-equal at every batch and thread count, and
+  within ``test_torch_fir.py``'s and ``test_torch_find.py``'s bounds of
+  the JAX package's.  The CPU's FFT splits a lone long transform across
+  threads and rounds it otherwise than one inside a batch, so every CPU
+  transform call takes exactly ``ops/fir.FFT_ROWS`` rows (the last padded
+  with zero rows), and the products around it take ``rotate``'s real
+  planes (``ops/fir.spectral_product``).  On the card one call, which cuFFT
+  plans by batch (ROADMAP, "Reference behaviour").
 - **The reference**: the JAX package's ``Executor`` and
   ``jit_step_windows`` give the same windows at 7 and at 200 a batch, and
   at one a batch for ``shift``, ``iqbal -c``, ``gen shift`` and the
@@ -41,6 +50,8 @@ split of the work.  (The card's branch, the complex product, is held in
 
 import contextlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -49,6 +60,8 @@ from quadrs_tpu import sources as jsources
 from quadrs_tpu import stream as jstream
 from quadrs_tpu.formats import FileFormat as JFormat
 from quadrs_tpu.models import demod as jd
+from quadrs_tpu.ops import correlate as jcorr
+from quadrs_tpu.ops import fir as jfir
 from quadrs_tpu.models.receiver import PipelineConfig as JConfig
 from quadrs_tpu.models.receiver import PipelineModel as JModel
 from quadrs_tpu.runtime import Executor as JExecutor
@@ -58,9 +71,12 @@ from quadrs_tpu_torch import stream as tstream
 from quadrs_tpu_torch.formats import FileFormat
 from quadrs_tpu_torch.models import demod as td
 from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel
+from quadrs_tpu_torch.ops import correlate as tcorr
+from quadrs_tpu_torch.ops import fir as tfir
 from quadrs_tpu_torch.ops.channelizer import channelize_block
 from quadrs_tpu_torch.ops.fir import lowpass_taps
 from quadrs_tpu_torch.runtime import Executor
+from util import from_device_complex, to_device_complex
 
 CPU = "cpu"
 WINDOWS, N, STRIDE = 200, 63, 16
@@ -292,3 +308,75 @@ def test_batched_product_is_batch_invariant(name):
     want = runs[1, 1]
     for key, got in runs.items():
         assert got.tobytes() == want.tobytes(), (key, int(np.sum(got != want)))
+
+
+# ------------------------------------------------------ the FFT-domain products
+
+
+def spectral_fir(impl: str, x: np.ndarray, port: bool) -> np.ndarray:
+    taps = lowpass_taps(0.1, FIR_TAPS)
+    if port:
+        return tfir.fir_decimate(torch.from_numpy(x), taps, FIR_D, FIR_OUT, impl=impl).numpy()
+    fn = jax.jit(lambda xx: jfir.fir_decimate(xx, taps, FIR_D, FIR_OUT, impl=impl))
+    return from_device_complex(fn(to_device_complex(x)))
+
+
+FIR_TAPS, FIR_D, FIR_OUT = 33, 2, 1000
+
+
+@pytest.mark.parametrize("impl", ["overlap_save", "os_poly"])
+def test_spectral_fir_is_batch_invariant(impl):
+    """The spectral FIR impls over 200 blocks at 1, 7 and 200 blocks a call
+    and 1 and 4 threads: bit-equal (every CPU transform call takes
+    ``FFT_ROWS`` rows; the products take real planes), and within
+    ``test_torch_fir.py``'s bound of the JAX package's."""
+    x = noise((WINDOWS, FIR_OUT * FIR_D + FIR_TAPS), seed=len(impl)).numpy()
+    runs = {}
+    for t in THREADS:
+        with threads(t):
+            for b in BATCHES:
+                runs[t, b] = by_batches(lambda r: spectral_fir(impl, x[r], port=True), np.arange(WINDOWS), b)
+    want = runs[1, 1]
+    assert want.shape == (WINDOWS, FIR_OUT)
+    for key, got in runs.items():
+        assert got.tobytes() == want.tobytes(), (key, int(np.sum(got != want)))
+    j = spectral_fir(impl, x, port=False)
+    np.testing.assert_allclose(want, j, rtol=0, atol=3e-5 * max(np.abs(j).max(), 1.0))
+
+
+XCORR_C = 1024
+
+
+def xcorr_inputs():
+    """A 2-template bank over a 5-row grid (``test_torch_find.py``'s) and
+    200 windows of noise with the templates planted at random offsets."""
+    rng = np.random.default_rng(8)
+    pats = [noise(300, seed=81).numpy(), noise(180, seed=82).numpy()]
+    x = 0.3 * noise((WINDOWS, XCORR_C), seed=83).numpy()
+    for i in range(WINDOWS):
+        p = pats[i % 2]
+        o = int(rng.integers(0, XCORR_C - len(p)))
+        x[i, o : o + len(p)] += np.complex64(0.5 * np.exp(1j * i)) * p
+    return pats, np.arange(-2, 3) * 0.4 / 300, x
+
+
+def test_xcorr_rows_are_batch_invariant():
+    """``find``'s device program (forward FFT, the rows' products and
+    inverse FFTs, the best row a lag) at 1, 7 and 200 windows a batch and 1
+    and 4 threads: bit-equal; scores and scales within ``test_torch_find.py``'s
+    2e-4 of the JAX package's."""
+    pats, freqs, x = xcorr_inputs()
+    xc = tcorr.XCorr(pats, XCORR_C, freqs)
+    runs = {}
+    for t in THREADS:
+        with threads(t):
+            for b in BATCHES:
+                runs[t, b] = [by_batches(lambda r: xc.compute(torch.from_numpy(x[r]))[k].numpy(), np.arange(WINDOWS), b)
+                              for k in range(3)]
+    want = runs[1, 1]
+    for key, got in runs.items():
+        for k in range(3):
+            assert got[k].tobytes() == want[k].tobytes(), (key, k, int(np.sum(got[k] != want[k])))
+    j = [np.asarray(a) for a in jcorr.make_xcorr_post(pats, XCORR_C, freqs)(jnp.asarray(x))]
+    np.testing.assert_allclose(want[0], j[0], rtol=0, atol=2e-4)
+    np.testing.assert_allclose(want[1], j[1], rtol=0, atol=2e-4)

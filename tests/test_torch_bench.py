@@ -8,7 +8,8 @@ its JAX counterpart's fields, read from the JAX source, but for the TPU's
 own.  The flop models, the receivers' combined rate and the synthetic
 captures equal the JAX bench's; the chain entries' step equals the JAX
 stream chain's norms within ``5e-5 * scale`` (the kernel-versus-chain
-bound).  Nothing here is a speed figure."""
+bound).  ``measure_msps`` is held to its arithmetic on a fake clock that
+only the step moves.  Nothing here is a speed figure."""
 
 import ast
 import importlib.util
@@ -19,7 +20,6 @@ import os
 import pathlib
 import subprocess
 import sys
-import time
 import types
 
 import numpy as np
@@ -33,6 +33,7 @@ from quadrs_tpu.formats import FileFormat as JFormat
 from quadrs_tpu_torch import bench
 from quadrs_tpu_torch import bench_suite as bs
 from quadrs_tpu_torch.models.receiver import PipelineModel
+from quadrs_tpu_torch.utils import timing
 from quadrs_tpu_torch.utils.timing import measure_msps
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -180,22 +181,44 @@ def test_roofline_over_the_peak_is_an_error(flops, nbytes, over):
         bs.roofline(1000.0, flops, nbytes)
 
 
-def test_measure_msps_linearity():
-    def step(i):
-        time.sleep(0.002)
+class FakeClock:
+    """A ``perf_counter`` that only a step moves: the timing tests read
+    exact windows whatever the host's load (real sleeps under ``xdist``
+    overran their windows by chance)."""
+
+    def __init__(self):
+        self.ticks = 0  # microseconds
+
+    def __call__(self) -> float:
+        return self.ticks * 1e-6
+
+    def advance(self, ms: int) -> None:
+        self.ticks += 1000 * ms
+
+
+@pytest.fixture
+def clock(monkeypatch) -> FakeClock:
+    fake = FakeClock()
+    monkeypatch.setattr(timing.time, "perf_counter", fake)
+    return fake
+
+
+def test_measure_msps_linearity(clock):
+    def step(i):  # 2 ms a step
+        clock.advance(2)
 
     stats: dict = {}
     msps = measure_msps(step, 1000, 0.1, stats_out=stats, device="cpu")
     assert set(stats) == {"linearity", "n1", "reps", "min", "max"}
-    assert 2.5 <= stats["linearity"] <= 3.5 and stats["n1"] >= 4 and stats["reps"] == 2
+    assert stats["linearity"] == pytest.approx(3.0) and stats["n1"] >= 4 and stats["reps"] == 2
     assert stats["min"] <= msps <= stats["max"]
-    assert 0.1 < msps <= 0.5  # 1000 samples every 2 ms at most
+    assert msps == pytest.approx(0.5)  # 1000 samples every 2 ms
 
 
-def test_measure_msps_refuses_a_step_that_stops_working():
+def test_measure_msps_refuses_a_step_that_stops_working(clock):
     def step(i):  # work that does not grow with the window: one wait a window
         if i == 0:
-            time.sleep(0.01)
+            clock.advance(10)
 
     with pytest.raises(RuntimeError, match="scaled linearly"):
         measure_msps(step, 1000, 0.5, device="cpu")

@@ -11,7 +11,9 @@ package's waterfall ones (``tests/test_waterfall_pallas.py``).  The
 chain of torch ops (``step_stream``, the reference chain's sinks) runs on
 the card and on CPU tensors, held to the same bound; ``find``, the
 conditioning stages and the receivers' channel step to their parity tests'
-bounds."""
+bounds.  The row scans (``csrc/rowscan.cu``) within 1e-5 of each row's sum
+of |v| of their plain versions (torch's ``cumsum`` adds in another order),
+and the trailing stages through them bit-equal at every batch."""
 
 import numpy as np
 import pytest
@@ -514,6 +516,106 @@ def test_batched_products_are_batch_invariant(cuda, chain):
     assert runs[7].tobytes() == runs[1].tobytes() and runs[200].tobytes() == runs[1].tobytes()
     want = Executor(make("cpu"), 63, "cpu").run(offs)[0]
     np.testing.assert_allclose(runs[1], want, rtol=0, atol=2e-6 * np.abs(want).max())
+
+
+# -- the trailing stages' row scans (csrc/rowscan.cu) --------------------------
+
+ROWSCAN_TOL = 1e-5  # of each row's sum of |v| (a channel's, for complex64)
+
+
+def rowscan_rows(b: int, n: int, dtype, device, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, n)) + 1j * rng.normal(size=(b, n)) + (0.3 - 0.2j)
+    x = x.astype(np.complex64) if dtype == torch.complex64 else x.real.astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def rowscan_err(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor) -> float:
+    """The largest |got - want| over each row's (and channel's) sum of
+    |v|: (B, cols[, 2]) outputs, (B, L[, 2]) values."""
+    f = (lambda t: torch.view_as_real(t) if t.is_complex() else t[..., None])
+    scale = f(v).abs().sum(dim=1, keepdim=True).clamp(min=1e-30)
+    return float(((f(got) - f(want)).abs() / scale).max())
+
+
+# (rows, length): the edges of the tile, a length no multiple of it, and
+# the main path's shapes (DcBlock's 36,062 complex64, Agc's 4,063 f32)
+ROWSCAN_SHAPES = [(1, 1), (200, 1), (1, 4095), (200, 4096), (1, 4097), (200, 4097), (3, 3 * 4096 + 5),
+                  (58, 36_062), (58, 4_063)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64], ids=["f32", "c64"])
+@pytest.mark.parametrize("b,n", ROWSCAN_SHAPES)
+def test_rowscan_matches_plain(cuda, b, n, dtype):
+    """``row_mean`` and ``row_exclusive_prefix`` (with and without the
+    subtracted mean) against their plain versions on the same CUDA rows,
+    within 1e-5 of each row's sum of |v|; one launch counted a call; a row
+    alone, the rows again and the rows in a batch of other rows bit-equal
+    (the order is the row length's alone)."""
+    from quadrs_tpu_torch.ops import rowscan
+
+    x = rowscan_rows(b, n, dtype, cuda, seed=n)
+    before = (rowscan.row_mean.launches, rowscan.row_exclusive_prefix.launches)
+    mean = rowscan.row_mean(x)
+    plain_prefix = rowscan.row_exclusive_prefix_reference(x, mean)
+    got = {"plain": rowscan.row_exclusive_prefix(x), "centred": rowscan.row_exclusive_prefix(x, mean)}
+    torch.cuda.synchronize()
+    assert (rowscan.row_mean.launches, rowscan.row_exclusive_prefix.launches) == (before[0] + 1, before[1] + 2)
+    assert mean.shape == (b, 1) and mean.dtype == dtype
+    assert rowscan_err(mean * n, rowscan.row_mean_reference(x) * n, x) <= ROWSCAN_TOL
+    assert got["plain"].shape == (b, n + 1) and bool((got["plain"][:, 0] == 0).all())
+    assert rowscan_err(got["plain"], rowscan.row_exclusive_prefix_reference(x), x) <= ROWSCAN_TOL
+    assert rowscan_err(got["centred"], plain_prefix, x - mean) <= ROWSCAN_TOL
+    assert torch.equal(rowscan.row_exclusive_prefix(x, mean), got["centred"])
+    alone = torch.cat([rowscan.row_exclusive_prefix(x[i : i + 1], mean[i : i + 1]) for i in range(min(b, 3))])
+    assert torch.equal(alone, got["centred"][: min(b, 3)])
+    wide = torch.cat([x, rowscan_rows(5, n, dtype, cuda, seed=n + 1)])
+    assert torch.equal(rowscan.row_mean(wide)[:b], mean)
+
+
+def test_rowscan_checks_inputs(cuda):
+    """The kernels take contiguous rows and a contiguous per-row ``sub``
+    on the rows' device; nothing launches otherwise."""
+    from quadrs_tpu_torch.ops import rowscan
+
+    x = rowscan_rows(4, 100, torch.complex64, cuda, seed=1)
+    before = (rowscan.row_mean.launches, rowscan.row_exclusive_prefix.launches)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        rowscan.row_exclusive_prefix(x[:, ::2])
+    with pytest.raises(ValueError, match="contiguous rows"):
+        rowscan.row_mean(x.t().contiguous().t())
+    with pytest.raises(ValueError, match="sub must be"):
+        rowscan.row_exclusive_prefix(x, x[:, :1].cpu())
+    with pytest.raises(ValueError, match="sub must be"):
+        rowscan.row_exclusive_prefix(x, x[:, :2][:, 1:])
+    assert (rowscan.row_mean.launches, rowscan.row_exclusive_prefix.launches) == before
+
+
+@pytest.mark.parametrize("chain", ["shift dcblock agc", "dcblock", "agc"])
+def test_trailing_stages_are_batch_invariant(cuda, chain):
+    """``shift dcblock -window 500 agc -window 100`` and each stage alone
+    through the executor on the card: 200 windows of 63 at 1, 7 and 200 a
+    batch bit-equal (their sums come from the row-scan kernels, whose
+    order is the block length's), the kernels launched on the way, and
+    within 1e-4 of scale of the CPU (the stage tests' bound)."""
+    from quadrs_tpu_torch import sources, stream
+    from quadrs_tpu_torch.ops import rowscan
+    from quadrs_tpu_torch.runtime import Executor
+
+    raw = np.ascontiguousarray(synth_planes(FileFormat.COMPLEX_INT8, 6_000, seed=7).T).reshape(-1).view(np.uint8)
+    src = sources.SampleSource(raw, FileFormat.COMPLEX_INT8, 48_000)
+    make = {"shift dcblock agc": lambda: stream.Agc(stream.DcBlock(stream.Shift(src, 5_000), 500), window=100),
+            "dcblock": lambda: stream.DcBlock(src, 500), "agc": lambda: stream.Agc(src, window=100)}[chain]
+    offs = 16 * np.arange(200, dtype=np.int64)
+    ex = Executor(make(), 63, cuda)
+    before = (rowscan.row_mean.launches, rowscan.row_exclusive_prefix.launches)
+    runs = {b: np.concatenate([ex.run(offs[i:i + b])[0] for i in range(0, 200, b)]) for b in (1, 7, 200)}
+    means, prefixes = rowscan.row_mean.launches - before[0], rowscan.row_exclusive_prefix.launches - before[1]
+    assert prefixes > 0 and (means > 0) == (chain != "agc")
+    assert runs[7].tobytes() == runs[1].tobytes() and runs[200].tobytes() == runs[1].tobytes()
+    assert ex.run(offs[:7])[0].tobytes() == runs[1][:7].tobytes()
+    want = Executor(make(), 63, "cpu").run(offs)[0]
+    np.testing.assert_allclose(runs[1], want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
 # -- the receivers' channel step on the card (torch ops and cuFFT) ---------------
