@@ -17,8 +17,12 @@ for TPU runtimes that cannot move complex values to the host).  Offsets
 into the staged buffer are int64, where JAX used int32.
 
 While :func:`quadrs_tpu_torch.utils.profiling.profiled` is on, each batch
-accounts the host time of its launch under its stream's class name
-(``shift``, ``lowpass``, ``tonegen``, ...), as the JAX executor does.
+accounts the host time of its launch (the plan's uploads, synchronous
+from pageable memory on a card, and the torch ops it enqueues) under its
+stream's class name (``shift``, ``lowpass``, ``tonegen``, ...), as the JAX
+executor does, and each batch's staging, planning, launch and wait are
+spans keyed ``(executor, batch)``
+(:mod:`quadrs_tpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from quadrs_tpu_torch.staging import Download
 from quadrs_tpu_torch.stream import Stream
-from quadrs_tpu_torch.utils.profiling import PROFILER
+from quadrs_tpu_torch.utils.profiling import OFF, PROFILER
 
 
 def window_batches(
@@ -94,11 +98,15 @@ def stream_batches(stream, offsets: np.ndarray, width: int, **kw) -> tuple[int, 
     return window_batches(offsets, width, root_step=root_step_of(stream), root_read=root_read_of(stream, width), **kw)
 
 
-def _to_device(tree, device: torch.device):
-    """A plan's nested dict of numpy arrays as tensors on ``device``."""
+def _to_device(tree, device: torch.device, span=OFF):
+    """A plan's nested dict of numpy arrays as tensors on ``device``, each
+    counted on ``span`` (``tensors``, ``bytes``)."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return torch.as_tensor(tree, device=device)
+        return {k: _to_device(v, device, span) for k, v in tree.items()}
+    t = torch.as_tensor(tree, device=device)
+    span.count("tensors", 1)
+    span.count("bytes", t.nbytes)
+    return t
 
 
 class Executor:
@@ -134,6 +142,9 @@ class Executor:
         self._slots: list[torch.Tensor | None] = [None, None]
         self._copied: list[torch.cuda.Event | None] = [None, None]
         self._turn = 0
+        # spans' keys: (trace_id, batch), batches counted from 0 by submit
+        self.trace_id = PROFILER.new_id()
+        self._batches = 0
 
     def _stage(self, lo: int, hi: int) -> torch.Tensor:
         """The root source's samples [lo, hi) as (2, hi - lo) planes on the
@@ -142,7 +153,8 @@ class Executor:
         capture loader."""
         j, self._turn = self._turn, self._turn ^ 1
         if self._copied[j] is not None:
-            self._copied[j].synchronize()  # the slot's last copy has left it
+            with PROFILER.span("executor.slot_wait", self.trace_id, self._batches - 1):
+                self._copied[j].synchronize()  # the slot's last copy has left it
         cuda = self.device.type == "cuda"
         n = hi - lo
         if self._slots[j] is None or self._slots[j].numel() < 2 * n:
@@ -157,7 +169,10 @@ class Executor:
 
     def submit(self, offs: np.ndarray, aux=None) -> tuple[Download, np.ndarray]:
         """Stage, plan and launch one batch of window offsets, and start its
-        output on the way back; returns ``(download, valid)``.
+        output on the way back; returns ``(download, valid)``.  Spans
+        ``executor.stage`` (with ``executor.slot_wait``), ``executor.plan``
+        and ``executor.launch`` (with ``executor.sync_upload``), keyed
+        ``(trace_id, batch)``.
         ``download.wait()`` gives the outputs (see :meth:`run`).  One batch
         may be submitted while the one before it is still awaited, so a
         sink can work on batch k while batch k+1 computes."""
@@ -166,23 +181,29 @@ class Executor:
             raise ValueError("empty offset batch")
         if self.batch is not None and len(offs) > self.batch:
             raise ValueError(f"batch of {len(offs)} exceeds executor width {self.batch}")
+        k, self._batches = self._batches, self._batches + 1
         buf, base = None, 0
         if self.source.has_staging:
-            lo, _ = self.stream.span(int(offs.min()), self.n)
-            s_off, s_n = self.stream.span(int(offs.max()), self.n)
-            lo = max(0, min(lo, self.source.length))
-            hi = max(lo, min(s_off + s_n, self.source.length))
-            if hi > lo:
-                buf = self._stage(lo, hi)  # (2, hi - lo) planes
-            else:
-                # every window starts past EOF: one zero sample to gather
-                # from (the source masks it by its valid count)
-                buf = torch.zeros((2, 1), dtype=self.source.format.torch_dtype, device=self.device)
-            base = lo
-        plan = self.stream.plan(offs, self.n, base)
+            with PROFILER.span("executor.stage", self.trace_id, k) as sp:
+                lo, _ = self.stream.span(int(offs.min()), self.n)
+                s_off, s_n = self.stream.span(int(offs.max()), self.n)
+                lo = max(0, min(lo, self.source.length))
+                hi = max(lo, min(s_off + s_n, self.source.length))
+                if hi > lo:
+                    buf = self._stage(lo, hi)  # (2, hi - lo) planes
+                else:
+                    # every window starts past EOF: one zero sample to gather
+                    # from (the source masks it by its valid count)
+                    buf = torch.zeros((2, 1), dtype=self.source.format.torch_dtype, device=self.device)
+                base = lo
+                sp.count("bytes", buf.nbytes)
+        with PROFILER.span("executor.plan", self.trace_id, k):
+            plan = self.stream.plan(offs, self.n, base)
         ctx = {"buf": buf, "device": self.device}
-        with PROFILER.stage(type(self.stream).__name__.lower(), len(offs) * self.n):
-            out = self.stream.read_batch(ctx, _to_device(plan.prep, self.device), self.n)
+        with PROFILER.stage(type(self.stream).__name__.lower(), len(offs) * self.n, self.trace_id, k):
+            with PROFILER.span("executor.sync_upload", self.trace_id, k) as sp:
+                prep = _to_device(plan.prep, self.device, sp)
+            out = self.stream.read_batch(ctx, prep, self.n)
             if self.post_takes_aux:
                 out = self.post(out, torch.tensor(0.0 if aux is None else aux, dtype=torch.float32, device=self.device))
             elif self.post is not None:
@@ -199,17 +220,22 @@ class Executor:
         window's true sample count per the reference's short-read
         semantics."""
         download, valid = self.submit(offs, aux)
-        return download.wait(), valid
+        return self._wait(download, self._batches - 1), valid
+
+    def _wait(self, download: Download, batch: int):
+        with PROFILER.span("executor.wait", self.trace_id, batch):
+            return download.wait()
 
     def run_each(self, batches):
         """:meth:`run` over ``batches``, one ahead: yields ``(offs,
         outputs, valid)`` of each batch in order, with the next batch
-        already submitted."""
+        already submitted.  The i-th batch of a fresh Executor's
+        :meth:`run_each` is its batch i."""
         pending = None
         for offs in batches:
-            nxt = (offs, *self.submit(offs))
+            nxt = (offs, *self.submit(offs), self._batches - 1)
             if pending is not None:
-                yield pending[0], pending[1].wait(), pending[2]
+                yield pending[0], self._wait(pending[1], pending[3]), pending[2]
             pending = nxt
         if pending is not None:
-            yield pending[0], pending[1].wait(), pending[2]
+            yield pending[0], self._wait(pending[1], pending[3]), pending[2]

@@ -26,6 +26,7 @@ from quadrs_tpu_torch.formats import FileFormat, decode_plane, encode_cf32, enco
 from quadrs_tpu_torch.ops.stft import blackman_harris_window, stft_norms
 from quadrs_tpu_torch.runtime import Executor, stream_batches
 from quadrs_tpu_torch.stream import Stream
+from quadrs_tpu_torch.utils.profiling import PROFILER
 
 # The 9 display levels: blank below min, full block at/above max,
 # seven partial blocks between (src/fft.rs:34-36).
@@ -103,7 +104,8 @@ def spark_fft(
     nine glyph levels, framed by ``│``.  With ``out`` None the rows are
     returned; otherwise each line (the header first) goes to ``out`` as
     it is made, or with ``batched`` each batch's lines in one call, joined
-    by newlines (one write per batch for ``print``)."""
+    by newlines (one write per batch for ``print``).  Each batch's rows
+    are the span ``sink.render`` of its Executor's batch."""
     stride = width if stride is None else stride
     lo = DEFAULT_SPARK_MIN if lo is None else lo
     hi = DEFAULT_SPARK_MAX if hi is None else hi
@@ -127,19 +129,21 @@ def spark_fft(
     offsets = np.arange(0, stream.length - width, stride, dtype=np.int64)
     batch, batches = stream_batches(stream, offsets, width)
     ex = Executor(stream, width, device, batch=batch, post=stft_norms)
-    for offs, norms, valid in ex.run_each(batches):  # a batch's rows are made while the next computes
+    # a batch's rows are made while the next computes
+    for i, (offs, norms, valid) in enumerate(ex.run_each(batches)):
         if not np.all(valid == width):
             bad = offs[valid != width][0]
             raise RuntimeError(
                 f"read-exact messed up: {width} (wanted) != "
                 f"{int(valid[valid != width][0])} (read) at {int(bad)}"
             )
-        block = glyph_lines(norms, lo, hi)
-        if batched and out is not None:
-            out(block)
-        else:
-            for line in block.split("\n"):
-                emit(line)
+        with PROFILER.span("sink.render", ex.trace_id, i):
+            block = glyph_lines(norms, lo, hi)
+            if batched and out is not None:
+                out(block)
+            else:
+                for line in block.split("\n"):
+                    emit(line)
     return collected
 
 

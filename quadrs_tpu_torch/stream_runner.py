@@ -28,7 +28,9 @@ comes back through page-locked memory while the next chunk computes.
 
 While :func:`quadrs_tpu_torch.utils.profiling.profiled` is on, each run
 accounts its samples and wall under ``stream_runner`` or
-``waterfall_runner``.
+``waterfall_runner``, and each chunk's steps on the consumer thread
+(``runner.*``) and, for :class:`StreamRunner`, on the staging thread
+(``staging.*``) are spans keyed ``(run, chunk)``.
 
 :func:`burst_spans` and :class:`BurstGate` segment per-window activity
 into bursts for ``stream -trigger``.
@@ -289,7 +291,7 @@ def _check_pipe_sources(sources) -> None:
         raise ValueError("a pipe source cannot be part of a bank")
 
 
-def _pipelined(ring, staged, step, emit, devices, max_chunks: int | None) -> None:
+def _pipelined(ring, staged, step, emit, devices, max_chunks: int | None, run=None) -> None:
     """The runners' consumer loop.  ``staged`` yields ``(slot, first
     window, shapes, account)`` for slots the staging thread has filled;
     each slot is uploaded, ``step(first window, buffers)`` launches its
@@ -298,25 +300,45 @@ def _pipelined(ring, staged, step, emit, devices, max_chunks: int | None) -> Non
     ``emit`` runs while the next one computes.  ``account()`` runs as the
     chunk is launched.  ``max_chunks`` stops after that many.  ``ring``:
     an :class:`UploadRing`, or a :class:`RingSet` of a mesh's shards;
-    ``devices``: the devices the work runs on."""
+    ``devices``: the devices the work runs on.  Spans ``runner.next``,
+    ``.upload``, ``.launch``, ``.wait``, ``.emit`` and ``.recycle`` keyed
+    ``(run, chunk)``, chunks counted from 0 (``run``: by default a new
+    id)."""
+    run = PROFILER.new_id() if run is None else run
     chunks = _background(staged)
-    pending = None
+    pending = None  # (chunk, first window, download)
     done = 0
+
+    def finish(chunk, w0, download) -> None:
+        with PROFILER.span("runner.wait", run, chunk):
+            out = download.wait()
+        with PROFILER.span("runner.emit", run, chunk):
+            emit(w0, out)
+
     try:
-        for k, w0, shapes, account in chunks:
-            out = step(w0, ring.upload(k, **shapes))
-            ring.consumed(k)
-            account()
-            result = (w0, Download(out)) if emit is not None else None
+        while True:
+            with PROFILER.span("runner.next", run, done):
+                item = next(chunks, None)
+            if item is None:
+                break
+            k, w0, shapes, account = item
+            with PROFILER.span("runner.upload", run, done):
+                bufs = ring.upload(k, **shapes)
+            with PROFILER.span("runner.launch", run, done):
+                out = step(w0, bufs)
+                ring.consumed(k)
+                account()
+                result = (done, w0, Download(out)) if emit is not None else None
             if pending is not None:
-                emit(pending[0], pending[1].wait())
+                finish(*pending)
             pending = result
-            ring.recycle(k)
+            with PROFILER.span("runner.recycle", run, done):
+                ring.recycle(k)
             done += 1
             if max_chunks is not None and done >= max_chunks:
                 break  # before pulling (and staging) the next chunk
         if pending is not None:
-            emit(pending[0], pending[1].wait())
+            finish(*pending)
     finally:
         ring.close()
         chunks.close()
@@ -441,21 +463,25 @@ class StreamRunner:
         self._ring: UploadRing | None = None
         self._shard_rings: RingSet | None = None
 
-    def _chunks(self, start_off: int = 0, out=None, source=None) -> Iterator[tuple[int, np.ndarray, int]]:
+    def _chunks(self, start_off: int = 0, out=None, source=None, run=None) -> Iterator[tuple[int, np.ndarray, int]]:
         """(offset, (2, chunk+lookahead) planes, real samples) per chunk of
         ``source`` (by default the runner's), staged with ``source.stage``.
         ``out``: a callable giving the array each chunk is staged into (a
-        slot); by default a new one."""
+        slot); by default a new one.  Each read is the span
+        ``staging.read`` of ``(run, chunk)``."""
         source = self.source if source is None else source
         la = self._lookahead
         length = source.length
         off = start_off
+        chunk = 0
         while off < length - self.model.cfg.taps:
             n = min(self.chunk_samples, (length - off) // self._win_raw * self._win_raw)
             if n <= 0:
                 return
             if out is None:
-                planes = source.stage(off, off + n + la)
+                with PROFILER.span("staging.read", run, chunk) as sp:
+                    planes = source.stage(off, off + n + la)
+                    sp.count("bytes", planes.nbytes)
                 valid = planes.shape[1]
                 if valid < n + la:
                     # raw zero bytes decode to nonzero values for cu8/cs16,
@@ -463,18 +489,23 @@ class StreamRunner:
                     planes = np.pad(planes, ((0, 0), (0, n + la - valid)))
             else:
                 buf = out()
-                valid = source.stage(off, off + n + la, out=buf).shape[1]
+                with PROFILER.span("staging.read", run, chunk) as sp:
+                    got = source.stage(off, off + n + la, out=buf)
+                    sp.count("bytes", got.nbytes)
+                valid = got.shape[1]
                 planes = buf[:, : n + la]
                 planes[:, valid:] = 0  # a reused slot holds an earlier chunk's bytes
             yield off, planes, valid
             off += n
+            chunk += 1
 
-    def _chunks_native(self, start_off: int, out, source=None) -> Iterator[tuple[int, np.ndarray, int]]:
+    def _chunks_native(self, start_off: int, out, source=None, run=None) -> Iterator[tuple[int, np.ndarray, int]]:
         """Chunks through the loader's ring prefetcher: its reader threads
         pread and deinterleave upcoming chunks while the current one
         computes, each delivered into the array ``out()`` gives (a slot),
         the lookahead re-read in C.  The same ``(off, planes, valid)``
-        triples as :meth:`_chunks`."""
+        triples as :meth:`_chunks`; the wait for each is the span
+        ``staging.read`` of ``(run, chunk)``."""
         source = self.source if source is None else source
         la = self._lookahead
         length = source.length
@@ -486,8 +517,17 @@ class StreamRunner:
 
         # the loader holds two slots while a third is on its way to the device
         it = source.native.prefetch(self.chunk_samples, n_buffers=3, start_off=start_off, overlap=la, out=lend)
+        chunk = 0
         try:
-            for off, full in it:
+            while True:
+                with PROFILER.span("staging.read", run, chunk) as sp:
+                    got = next(it, None)
+                    if got is not None:
+                        sp.count("bytes", got[1].nbytes)
+                if got is None:
+                    return
+                off, full = got
+                chunk += 1
                 slot = slots.popleft()
                 if off >= length - self.model.cfg.taps:
                     return
@@ -501,14 +541,15 @@ class StreamRunner:
         finally:
             it.close()
 
-    def _chunks_pipe(self, start_off: int = 0) -> Iterator[tuple[int, np.ndarray, int]]:
+    def _chunks_pipe(self, start_off: int = 0, run=None) -> Iterator[tuple[int, np.ndarray, int]]:
         """Sequential chunks from a :class:`~quadrs_tpu_torch.sources.PipeSource`:
         the same ``(off, planes, valid)`` triples and tail and window-floor
         semantics as :meth:`_chunks`, with the effective capture length
         discovered at EOF.  The lookahead is carried between chunks on the
         host (a pipe cannot re-read), and a nonzero ``start_off`` drains
         the skipped samples (a pipe cannot seek); resume phases stay exact
-        because offsets are absolute."""
+        because offsets are absolute.  Each chunk's read is the span
+        ``staging.read`` of ``(run, chunk)``."""
         la = self._lookahead
         src = self.source
         taps = self.model.cfg.taps
@@ -520,10 +561,13 @@ class StreamRunner:
                 return
             off += m
         buf = None
+        chunk = 0
         while True:
             need = self.chunk_samples + la - (0 if buf is None else buf.shape[1])
             if need > 0:
-                new = src.read_planes(need)
+                with PROFILER.span("staging.read", run, chunk) as sp:
+                    new = src.read_planes(need)
+                    sp.count("bytes", new.nbytes)
                 buf = new if buf is None else np.concatenate([buf, new], axis=1)
             avail = buf.shape[1]
             if avail == self.chunk_samples + la and not src.eof:
@@ -531,6 +575,7 @@ class StreamRunner:
                 yield off, buf, n + la
                 buf = buf[:, n:]
                 off += n
+                chunk += 1
                 continue
             # EOF: the stream's effective length is known now; mirror
             # _chunks' end-of-capture math (floor to whole windows, pad
@@ -559,38 +604,51 @@ class StreamRunner:
             buffers["bases"] = (bases.size, torch.from_numpy(bases).dtype)
         return buffers
 
-    def _staged(self, ring: UploadRing, start_off: int, account, source=None):
+    def _staged(self, ring: UploadRing, start_off: int, account, source=None, run=None):
         """The staging thread's generator: fill a free slot with each
         chunk of ``source`` (by default the runner's; and, on the fused
         route, its NCO bases, planned here from the chunk's absolute
-        offset) and yield what :func:`_pipelined` takes."""
+        offset) and yield what :func:`_pipelined` takes.  Spans
+        ``staging.read``, ``.slot``, ``.fill`` and ``.handoff`` keyed
+        ``(run, chunk)``."""
         source = self.source if source is None else source
         width = self.chunk_samples + self._lookahead
         pipe = getattr(source, "is_pipe", False)
         taken: collections.deque[int] = collections.deque()  # slots handed out, in stream order
+        done = 0  # chunks yielded: the next slot taken is chunk done + len(taken)
+
+        def take() -> None:
+            with PROFILER.span("staging.slot", run, done + len(taken)):
+                taken.append(ring.take())
 
         def slot():
-            taken.append(ring.take())
+            take()
             return ring.host(taken[-1], "planes", (2, width))
 
         if pipe:
-            chunks = self._chunks_pipe(start_off)
+            chunks = self._chunks_pipe(start_off, run)
         elif getattr(source, "native", None) is not None:
-            chunks = self._chunks_native(start_off, slot, source)
+            chunks = self._chunks_native(start_off, slot, source, run)
         else:
-            chunks = self._chunks(start_off, slot, source)
+            chunks = self._chunks(start_off, slot, source, run)
         try:
             for off, planes, valid in chunks:
                 cols = planes.shape[1]
                 if pipe:
-                    slot()[:, :cols] = planes
+                    take()
                 k = taken.popleft()
                 shapes = {"planes": (2, width)}
-                if self.fused:
-                    bases = self.model.stream_bases(off, cols)
-                    ring.host(k, "bases", bases.shape)[...] = bases
-                    shapes["bases"] = bases.shape
-                yield k, (off, cols, valid), shapes, lambda cols=cols: account(cols)
+                with PROFILER.span("staging.fill", run, done):
+                    if pipe:  # a slot's first use page-locks its memory
+                        ring.host(k, "planes", (2, width))[:, :cols] = planes
+                    if self.fused:
+                        bases = self.model.stream_bases(off, cols)
+                        ring.host(k, "bases", bases.shape)[...] = bases
+                        shapes["bases"] = bases.shape
+                # suspended here while the staging thread hands the chunk over
+                with PROFILER.span("staging.handoff", run, done):
+                    yield k, (off, cols, valid), shapes, lambda cols=cols: account(cols)
+                done += 1
         finally:
             chunks.close()
 
@@ -692,8 +750,9 @@ class StreamRunner:
         def emit_at(at, out):
             emit(at[0] // self._win_raw, out)
 
-        _pipelined(ring, self._staged(ring, start_off, account, source), step,
-                   None if emit is None else emit_at, [self.device], max_chunks)
+        run = PROFILER.new_id()
+        _pipelined(ring, self._staged(ring, start_off, account, source, run), step,
+                   None if emit is None else emit_at, [self.device], max_chunks, run)
 
     def _run_sharded(self, mode: str, emit, start_off: int, max_chunks, threshold: float, stats: RunStats) -> None:
         """Time-sharded chunks over the mesh, then the ragged tail.
