@@ -385,7 +385,7 @@ def host_split(run) -> tuple[float, dict[str, float]]:
         finally:
             gen.close()
 
-    background, pipelined, prefetch = sr._background, sr._pipelined, NativeCapture.prefetch
+    pipelined, prefetch = sr._pipelined, NativeCapture.prefetch
 
     class Pool(sr.ThreadPoolExecutor):
         def map(self, fn, *iterables, **k):
@@ -395,12 +395,15 @@ def host_split(run) -> tuple[float, dict[str, float]]:
         __init__ = timed(sr.Download.__init__, "downloads started")
         wait = timed(sr.Download.wait, "downloads awaited")
 
-    def pipelined_timed(ring, staged, step, emit, devices, max_chunks):
-        return pipelined(ring, staged, timed(step, "launches"), None if emit is None else timed(emit, "sink"),
-                         devices, max_chunks)
+    class Background(sr._Background):
+        __next__ = timed(sr._Background.__next__, "awaiting staged chunks")
+        ready = timed(sr._Background.ready, "awaiting staged chunks")
 
-    with mock.patch.object(sr, "_background", lambda gen, depth=2: timed_gen(
-            background(timed_gen(gen, "staging thread"), depth), "awaiting staged chunks")), \
+    def pipelined_timed(ring, staged, step, emit, devices, max_chunks, run=None):
+        return pipelined(ring, staged, timed(step, "launches"), None if emit is None else timed(emit, "sink"),
+                         devices, max_chunks, run)
+
+    with mock.patch.object(sr, "_Background", lambda gen, depth=2: Background(timed_gen(gen, "staging thread"), depth)), \
             mock.patch.object(sr, "_pipelined", pipelined_timed), mock.patch.object(sr, "Download", Download), \
             mock.patch.object(sr, "ThreadPoolExecutor", Pool), \
             mock.patch.object(UploadRing, "upload", timed(UploadRing.upload, "uploads")), \

@@ -11,8 +11,9 @@ before it writes it again.  So the allocator never gives the copy stream
 memory that another stream's work still uses (the compute stream's
 temporaries, freed while its kernels run), and never recycles a slot that
 a kernel still reads.  Outputs cross the other way into page-locked memory
-with a non-blocking copy and an event, so a chunk's ``emit`` runs while
-the next chunk computes.
+with a non-blocking copy and an event, so a chunk's ``emit`` can run while
+the next chunk computes, and :meth:`Download.done` tells whether it is
+back without waiting.
 
 A mesh's runner stages through a :class:`RingSet`: one ring a shard, each
 on its shard's device, taken and recycled together.
@@ -207,6 +208,10 @@ class Download:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev))
             self._events.append(event)
+
+    def done(self) -> bool:
+        """Whether the output is back: :meth:`wait` would not block."""
+        return all(event.query() for event in self._events)
 
     def wait(self):
         for event in self._events:

@@ -24,7 +24,11 @@ fills page-locked slots (a file through the C++ loader's ring
 prefetcher, which re-reads the lookahead in C; a bank file by file
 straight into its row of one slot; a pipe by carrying the lookahead on
 the host), the slot crosses on a copy stream, and each chunk's output
-comes back through page-locked memory while the next chunk computes.
+comes back through page-locked memory.  While the input is ahead of the
+device (a capture, a bank), a chunk's output reaches the caller while the
+next chunk computes; while it is behind (a live pipe), as soon as it is
+back: the consumer loop finishes the pending chunk whenever its output
+is back before the next one is staged.
 
 While :func:`quadrs_tpu_torch.utils.profiling.profiled` is on, each run
 accounts its samples and wall under ``stream_runner`` or
@@ -233,55 +237,74 @@ class BurstGate:
         return max(0, min(cands))
 
 
-def _background(gen, depth: int = 2):
-    """Run a generator on a daemon thread, yielding its items through a
+class _Background:
+    """Run a generator on a daemon thread, handing its items over through a
     bounded queue: staging (file reads, copies into slots) overlaps the
-    consumer's device work.  If the consumer abandons the generator, the
-    producer notices (stop event) and closes its generator; producer
-    exceptions surface in the consumer."""
-    q: queue.Queue = queue.Queue(maxsize=depth)
-    _DONE = object()
-    stop = threading.Event()
+    consumer's device work.  :meth:`ready` says whether ``next`` would
+    return at once: an item, the end of the stream or a producer's
+    exception is waiting.  :meth:`close` stops the producer (stop event),
+    which closes its generator; producer exceptions surface in the
+    consumer."""
 
-    def put(item) -> bool:
-        while not stop.is_set():
+    _DONE = object()
+
+    def __init__(self, gen, depth: int = 2):
+        self._gen = gen
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._head = None  # an item ready() took off the queue, next() hands it over
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
             try:
-                q.put(item, timeout=0.05)
+                self._q.put(item, timeout=0.05)
                 return True
             except queue.Full:
                 continue
         return False
 
-    def fill():
+    def _fill(self) -> None:
         try:
-            for item in gen:
-                if not put(item):
+            for item in self._gen:
+                if not self._put(item):
                     return
-            put(_DONE)
+            self._put(self._DONE)
         except RingClosed:
             pass  # the consumer closed the ring: it is gone
         except BaseException as e:  # surface staging errors to the consumer
-            put(e)
+            self._put(e)
         finally:
-            gen.close()  # stops a loader's prefetcher with its generator
+            self._gen.close()  # stops a loader's prefetcher with its generator
 
-    t = threading.Thread(target=fill, daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if item is _DONE:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            yield item
-    finally:
-        stop.set()
-        while not q.empty():
-            q.get_nowait()
+    def __next__(self):
+        item = self._q.get() if self._head is None else self._head
+        self._head = None
+        if item is self._DONE:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def ready(self, timeout: float = 0.0) -> bool:
+        """Whether ``next`` would return at once, after waiting up to
+        ``timeout`` seconds for the producer."""
+        if self._head is None:
+            try:
+                self._head = self._q.get(timeout=timeout) if timeout > 0 else self._q.get_nowait()
+            except queue.Empty:
+                return False
+        return True
+
+    def close(self) -> None:
+        self._stop.set()
+        self._head = None
+        while not self._q.empty():
+            self._q.get_nowait()
         # the producer sees the stop within its put timeout; a reader blocked
         # on a silent pipe is left to its daemon thread
-        t.join(timeout=2.0)
+        self._thread.join(timeout=2.0)
 
 
 def _check_pipe_sources(sources) -> None:
@@ -291,32 +314,52 @@ def _check_pipe_sources(sources) -> None:
         raise ValueError("a pipe source cannot be part of a bank")
 
 
+# how long the consumer loop waits for the next chunk between two looks at
+# whether the pending output is back (the card returns a live chunk's
+# output within about 0.1 ms of its launch)
+_POLL_S = 0.0002
+
+
 def _pipelined(ring, staged, step, emit, devices, max_chunks: int | None, run=None) -> None:
     """The runners' consumer loop.  ``staged`` yields ``(slot, first
     window, shapes, account)`` for slots the staging thread has filled;
     each slot is uploaded, ``step(first window, buffers)`` launches its
-    work, its output starts back to the host, and only then is the
-    previous chunk's output awaited and handed to ``emit``: a chunk's
-    ``emit`` runs while the next one computes.  ``account()`` runs as the
-    chunk is launched.  ``max_chunks`` stops after that many.  ``ring``:
-    an :class:`UploadRing`, or a :class:`RingSet` of a mesh's shards;
+    work and its output starts back to the host.  While the next chunk is
+    staged in time (a capture, a bank), a chunk's output is awaited and
+    handed to ``emit`` once the next chunk is launched, so its ``emit``
+    runs while the next one computes.  When the output is back before the
+    next chunk is staged (a live pipe, a slow disk), the loop would only
+    block on the staging: it emits the pending chunk first, so each output
+    reaches ``emit`` as soon as it is back.  Outputs reach ``emit`` in
+    chunk order, on this thread.  ``account()`` runs as the chunk is
+    launched.  ``max_chunks`` stops after that many.  ``ring``: an
+    :class:`UploadRing`, or a :class:`RingSet` of a mesh's shards;
     ``devices``: the devices the work runs on.  Spans ``runner.next``,
     ``.upload``, ``.launch``, ``.wait``, ``.emit`` and ``.recycle`` keyed
     ``(run, chunk)``, chunks counted from 0 (``run``: by default a new
-    id)."""
+    id); a ``runner.wait`` begun before the next chunk was staged has the
+    counter ``early`` 1."""
     run = PROFILER.new_id() if run is None else run
-    chunks = _background(staged)
+    chunks = _Background(staged)
     pending = None  # (chunk, first window, download)
     done = 0
 
-    def finish(chunk, w0, download) -> None:
-        with PROFILER.span("runner.wait", run, chunk):
+    def finish(chunk, w0, download, early: bool = False) -> None:
+        with PROFILER.span("runner.wait", run, chunk) as sp:
+            if early:
+                sp.count("early", 1)
             out = download.wait()
         with PROFILER.span("runner.emit", run, chunk):
             emit(w0, out)
 
     try:
         while True:
+            while pending is not None and not chunks.ready():
+                if pending[2].done():
+                    finish(*pending, early=True)
+                    pending = None
+                else:  # the output is on its way: wait a little for the next chunk
+                    chunks.ready(_POLL_S)
             with PROFILER.span("runner.next", run, done):
                 item = next(chunks, None)
             if item is None:

@@ -1,7 +1,9 @@
 """The port's spans (``quadrs_tpu_torch.utils.profiling``): nothing kept and
 no clock read while accounting is off; the Executor's and ``sparkfft``'s
 spans one of each a batch, the runners' one of each a chunk, each keyed by
-its batch or chunk; the spans on ``torch.profiler``'s clock; ``trace()``'s
+its batch or chunk; the runners' consumer loop, whose ``runner.wait``
+spans show when each output was collected (``early``: back before the next
+chunk was staged); the spans on ``torch.profiler``'s clock; ``trace()``'s
 file holding them beside the profiler's events.  The last test needs a
 card (marked ``cuda``, it skips on the CPU): a span around a launched
 kernel and ``torch.cuda.synchronize()`` holds the kernel's device
@@ -10,6 +12,9 @@ interval.  This file imports no JAX: on a card it runs with
 
 import io
 import json
+import os
+import queue
+import threading
 import time
 import tracemalloc
 from collections import Counter, defaultdict
@@ -20,7 +25,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from quadrs_tpu_torch import runtime, sinks  # noqa: E402
+from quadrs_tpu_torch import runtime, sinks, stream_runner  # noqa: E402
 from quadrs_tpu_torch.formats import FileFormat  # noqa: E402
 from quadrs_tpu_torch.models.receiver import PipelineConfig, PipelineModel  # noqa: E402
 from quadrs_tpu_torch.sources import PipeSource, SampleSource  # noqa: E402
@@ -155,11 +160,214 @@ def test_a_runner_gives_one_span_of_each_a_chunk(kind):
     # the staging spans come on the staging thread
     assert len({s.thread for s in consumer}) == 1
     assert not {s.thread for s in staging} & {s.thread for s in consumer}
-    # chunk k's output is awaited only once chunk k+1 is launched
+    # chunk k's output is awaited after its own launch: before chunk k+1 is
+    # staged (counter early), or else once chunk k+1 is launched
     first = {(s.name, s.key[1]): s for s in consumer}
-    for k in range(n - 1):
-        assert first["runner.wait", k].start >= first["runner.launch", k + 1].end
-        assert first["runner.emit", k].start >= first["runner.wait", k].end
+    for k in range(n):
+        wait = first["runner.wait", k]
+        assert wait.start >= first["runner.launch", k].end
+        if wait.counters is not None:
+            assert wait.counters == {"early": 1}
+            assert first["runner.emit", k].end <= first["runner.next", k + 1].start
+        elif k + 1 < n:
+            assert wait.start >= first["runner.launch", k + 1].end
+        else:
+            assert wait.start >= first["runner.next", n].end
+        assert first["runner.emit", k].start >= wait.end
+
+
+def waits() -> dict:
+    """Each chunk's ``runner.wait`` span by chunk."""
+    return {s.key[1]: s for s in PROFILER.spans() if s.name == "runner.wait"}
+
+
+class StubRing:
+    """The ring's side of the consumer loop, on the CPU: a slot's buffers
+    are the tensor staged with it."""
+
+    def upload(self, k, **shapes):
+        return k
+
+    def consumed(self, k):
+        pass
+
+    def recycle(self, k):
+        pass
+
+    def close(self):
+        pass
+
+
+def drive(staged, step, on_emit=lambda w0: None):
+    """``_pipelined`` over a stub ring and ``staged``'s items ``(slot, w0,
+    {}, account)``: the ``(w0, output)`` pairs ``emit`` received, in
+    order, and the ``ValueError`` it raised (or None)."""
+    got = []
+
+    def emit(w0, out):
+        got.append((w0, out.copy()))
+        on_emit(w0)
+
+    try:
+        stream_runner._pipelined(StubRing(), staged, step, emit, [CPU], None)
+    except ValueError as e:
+        return got, e
+    return got, None
+
+
+def test_a_live_pipe_gets_each_output_before_the_next_chunk_is_written():
+    """A writer that sends chunk k+1's samples only once chunk k's output
+    has reached ``emit`` (a source slower than the device, at its
+    limit): every chunk comes out, every wait but the last one's is
+    early, and the rows are those of the same bytes through a
+    ``BytesIO``.  Waiting for chunk k+1 before emitting chunk k would
+    starve the writer; its 10 s timeout then closes the pipe and the
+    count fails."""
+    model = stream_model()
+    probe = StreamRunner(PipeSource(io.BytesIO(b""), CS8, 48_000), model, CPU, chunk_samples=8_000)
+    chunk, la, n = probe.chunk_samples, probe._lookahead, 6
+    raw = cs8(n * chunk + la, 8).tobytes()
+    emitted: queue.Queue = queue.Queue()
+    starved = []
+    r, w = os.pipe()
+
+    def write() -> None:
+        with os.fdopen(w, "wb") as f:
+            for k in range(n):
+                f.write(raw[2 * (k * chunk + (la if k else 0)) : 2 * ((k + 1) * chunk + la)])
+                f.flush()
+                try:
+                    emitted.get(timeout=10)
+                except queue.Empty:
+                    starved.append(k)
+                    return
+
+    writer = threading.Thread(target=write, daemon=True)
+    writer.start()
+    rows = []
+
+    def emit(w0, norms):
+        rows.append((w0, norms.copy()))
+        emitted.put(w0)
+
+    with profiled(), os.fdopen(r, "rb") as f:
+        StreamRunner(PipeSource(f, CS8, 48_000), model, CPU, chunk_samples=8_000).run(emit)
+    writer.join(timeout=30)
+    assert not writer.is_alive() and starved == []
+    assert len(rows) == n
+    spans = waits()
+    assert sorted(spans) == list(range(n))
+    assert all(spans[k].counters == {"early": 1} for k in range(n - 1))
+    want = []
+    StreamRunner(PipeSource(io.BytesIO(raw), CS8, 48_000), model, CPU, chunk_samples=8_000).run(
+        lambda w0, norms: want.append((w0, norms.copy())))
+    assert [w0 for w0, _ in rows] == [w0 for w0, _ in want]
+    for (_, a), (_, b) in zip(rows, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_an_input_ahead_of_the_device_keeps_the_one_ahead_order():
+    """Every chunk's step returns only once the staging queue holds the
+    next item (or the end): no wait is early, each chunk's output is
+    awaited once the next chunk is launched, and the outputs come in
+    order."""
+    n = 8
+    put = [threading.Event() for _ in range(n + 1)]  # item k queued (n: the end)
+
+    def staged():
+        for k in range(n):
+            yield k, k * 10, {}, lambda: None
+            put[k].set()
+        put[n].set()
+
+    def step(w0, k):
+        assert put[k + 1].wait(timeout=10)
+        if k + 1 == n:
+            time.sleep(0.05)  # the producer queues the end right after its last item
+        return torch.full((3,), float(w0))
+
+    with profiled():
+        got, err = drive(staged(), step)
+    assert err is None
+    assert [w0 for w0, _ in got] == [k * 10 for k in range(n)]
+    assert all((out == w0).all() for w0, out in got)
+    spans = {(s.name, s.key[1]): s for s in PROFILER.spans()}
+    for k in range(n):
+        assert spans["runner.wait", k].counters is None
+        if k + 1 < n:
+            assert spans["runner.wait", k].start >= spans["runner.launch", k + 1].end
+
+
+def test_an_output_not_back_waits_for_the_next_chunk(monkeypatch):
+    """The input behind the device (each item 20 ms apart) but no output
+    back before the next chunk is staged (``Download.done`` false, as for
+    work still on the card): nothing is finished early, each chunk's
+    output is awaited once the next chunk is launched, and the outputs
+    come in order."""
+
+    class NeverBack(stream_runner.Download):
+        def done(self) -> bool:
+            return False
+
+    monkeypatch.setattr(stream_runner, "Download", NeverBack)
+    n = 5
+
+    def staged():
+        for k in range(n):
+            yield k, k, {}, lambda: None
+            time.sleep(0.02)
+
+    with profiled():
+        got, err = drive(staged(), lambda w0, k: torch.full((2,), float(w0)))
+    assert err is None and [w0 for w0, _ in got] == list(range(n))
+    spans = {(s.name, s.key[1]): s for s in PROFILER.spans()}
+    for k in range(n):
+        assert spans["runner.wait", k].counters is None
+        if k + 1 < n:
+            assert spans["runner.wait", k].start >= spans["runner.launch", k + 1].end
+
+
+@pytest.mark.parametrize("ending", ["end", "error"])
+@pytest.mark.parametrize("pace", ["ahead", "behind"])
+def test_the_streams_end_and_a_staging_error_still_surface_in_order(pace, ending):
+    """After four chunks the staging generator ends or raises.  Ahead, the
+    end or the error is queued when the loop looks; behind, the generator
+    waits for chunk 3's output before it ends or raises, so the loop has
+    to emit chunk 3 first.  The outputs come in order, once each, and the
+    error surfaces; ahead, an error drops the chunk still pending."""
+    n = 4
+    put = [threading.Event() for _ in range(n + 1)]  # item k queued (n: the end or the error)
+    emitted = threading.Event()
+
+    def staged():
+        for k in range(n):
+            yield k, k, {}, lambda: None
+            put[k].set()
+        if pace == "behind":
+            emitted.wait(timeout=10)
+        put[n].set()
+        if ending == "error":
+            raise ValueError("staging failed")
+
+    def step(w0, k):
+        if k + 1 < n or pace == "ahead":
+            assert put[k + 1].wait(timeout=10)
+        if k + 1 == n and pace == "ahead":
+            time.sleep(0.05)  # the producer queues the end or the error right after
+        return torch.full((2,), float(w0))
+
+    def on_emit(w0):
+        if w0 == n - 1:
+            emitted.set()
+
+    with profiled():
+        got, err = drive(staged(), step, on_emit)
+    assert (None if err is None else str(err)) == ("staging failed" if ending == "error" else None)
+    want = n - 1 if (pace, ending) == ("ahead", "error") else n
+    assert [w0 for w0, _ in got] == list(range(want))
+    assert all((out == w0).all() for w0, out in got)
+    early = {k for k, sp in waits().items() if sp.counters}
+    assert early == ({n - 1} if pace == "behind" else set())
 
 
 def test_spans_sit_on_the_profilers_clock():
