@@ -37,6 +37,16 @@ def spread(values) -> float:
     return (q3 - q1) / statistics.median(values)
 
 
+def trimmed_spread(values) -> float:
+    """``spread`` without the value farthest from the median, where that
+    narrows it (as a check reads a set of runs)."""
+    v = list(values)
+    med = statistics.median(v)
+    far = max(range(len(v)), key=lambda i: abs(v[i] - med))
+    rest = v[:far] + v[far + 1 :]
+    return min(spread(v), spread(rest)) if len(rest) >= 2 else spread(v)
+
+
 def union_length(intervals) -> float:
     """Total length covered by ``(start, end)`` intervals."""
     total, end = 0.0, -math.inf

@@ -80,7 +80,7 @@ def describe(a: dict, b: dict) -> str:
         # process of fixed work, such as the live cell's generator, is late
         # where the machine's cores are short
         parts.append("the machine's CPU counters do not move here")
-    parts.append(f"this process {(b['own_cpu_s'] - a['own_cpu_s']) / wall:.2f} cores")
+    parts.append(f"this process {(b['own_cpu_s'] - a['own_cpu_s']) / wall:.4f} cores")
     for key, name in (("psi_cpu_us", "cpu pressure"), ("psi_io_us", "io pressure")):
         if a[key] is not None and b[key] is not None:
             parts.append(f"{name} {100.0 * (b[key] - a[key]) / 1e6 / wall:.2f}%")

@@ -9,9 +9,11 @@ own as a check runs them, and summarise the spread of their metrics.
 Each run appends one JSON line to ``FILE.jsonl`` (its cell, seed, exit
 code, wall, result line and the end of its standard error).  With
 ``--sets N`` the seeds run N times over, set after set.  The summary, on
-standard output, gives per cell, set and metric the median and the spread
+standard output, gives per cell, set and metric the median, the spread
 (the distance between the quartiles over the median, by
-``statistics.quantiles``), and whether every run was correct.
+``statistics.quantiles``) and the trimmed spread (without the run farthest
+from the median, where that narrows it), and whether every run was
+correct.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import sys
 import time
 from collections import defaultdict
 
-from sdrbench.arith import spread
+from sdrbench.arith import spread, trimmed_spread
 
 
 def _one(cell: str, seed: int, seconds: float, trace: int, timeout: float) -> dict:
@@ -65,7 +67,8 @@ def summarise(records: list[dict]) -> list[str]:
         for name, vals in sorted(by[key].items()):
             line = f"{cell} set {s} trace {trace} {name}: n={len(vals)} median={statistics.median(vals)!r}"
             if len(vals) >= 2:
-                line += f" spread={spread(vals)!r} min={min(vals)!r} max={max(vals)!r}"
+                line += (f" spread={spread(vals)!r} trimmed={trimmed_spread(vals)!r} min={min(vals)!r}"
+                         f" max={max(vals)!r}")
             out.append(line)
         out.append(f"{cell} set {s} trace {trace}: correct {sum(ok[key])}/{len(ok[key])}")
     return out

@@ -1,7 +1,9 @@
 """``executor_host_ms_per_batch``: the host time the program's Executor
-takes to stage, plan and launch a batch, in milliseconds: its stages'
-seconds over their steps under ``utils.profiling.profiled()`` (every
-stage the program accounts but the runners' own)."""
+takes to launch a batch, in milliseconds: its stages' seconds over their
+steps under ``utils.profiling.profiled()`` (every stage the program
+accounts but the runners' own).  A stage is the region the span
+``executor.launch`` covers; the batch's staging and planning lie outside
+it."""
 
 RUNNERS = ("stream_runner", "waterfall_runner")
 

@@ -1,5 +1,6 @@
-"""``latency_p50_ms.live``: the median of the live latencies (the runner's
-hold-back of each output by one chunk sets most of it)."""
+"""``latency_p50_ms.live``: the median of the live latencies, each from a
+chunk's due time to its output reaching the sink (live cells): the read's
+lag behind the source's blocks and the program's own work on the chunk."""
 
 from sdrbench.arith import percentile
 

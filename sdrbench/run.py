@@ -98,6 +98,8 @@ class Run:
         self.passes = 0
         self.chunks = 0
         self.latencies: list[float] = []
+        self.net_latencies: list[float] = []
+        self.cpu_s = 0.0
         self.trace_out: dict = {}
         self.stages: dict = {}
         self.window_peak_bytes = 0
@@ -160,7 +162,9 @@ class Run:
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         self.t_end = self.clock()
-        self.notes.append(hoststat.describe(self._host, hoststat.sample()))
+        host = hoststat.sample()
+        self.cpu_s = host["own_cpu_s"] - self._host["own_cpu_s"]
+        self.notes.append(hoststat.describe(self._host, host))
         if self.device.type == "cuda":
             self.window_peak_bytes = torch.cuda.max_memory_allocated()
         if self._prof is not None:

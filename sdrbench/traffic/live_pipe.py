@@ -8,9 +8,12 @@ peak tracker does, and keeps every chunk's norms for the check.
 
 A chunk's latency runs from the due time of the block that holds the last
 sample the chunk reads (its FIR lookahead included; the end of the stream
-for the last chunk) to its output reaching ``emit``.  The stream is a
-whole number of chunks; a chunk whose output never reaches ``emit``
-counts as failed.
+for the last chunk) to its output reaching ``emit``.  Its net latency, the
+part the program controls, runs from the later of that due time and the
+start of the generator's write of that block: a generator that was late
+is left out, a write that blocked on a pipe the program left full is not.
+The stream is a whole number of chunks; a chunk whose output never reaches
+``emit`` counts as failed.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from sdrbench import capture as synth
 from sdrbench.reference import chain as ref
+from sdrbench.traffic.live_gen import ENV as GEN_ENV
 
 PIPE_BYTES = 1 << 20
 BLOCK_WINDOWS = 4096  # windows the reference computes at once
@@ -111,17 +115,18 @@ def setup(run) -> None:
     feeder.join(30)
 
     r, w = _pipe()
+    block = rate * int(tr["block_ms"]) // 1000
+    started = os.path.join(run.tmp, "started.npy")
     gen = subprocess.Popen(
         [sys.executable, "-m", "sdrbench.traffic.live_gen", "--fd", str(w), "--capture", path, "--rate", str(rate),
-         "--samples", str(run.state["total"]), "--block", str(rate * int(tr["block_ms"]) // 1000), "--pair", str(pair)],
-        pass_fds=(w,), stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+         "--samples", str(run.state["total"]), "--block", str(block), "--pair", str(pair), "--started", started],
+        pass_fds=(w,), stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env={**os.environ, **GEN_ENV},
     )
     os.close(w)
     run.processes.append(gen)
     if gen.stdout.readline().strip() != "ready":
         raise RuntimeError("the live generator did not start")
-    run.state["gen"] = gen
-    run.state["block"] = rate * int(tr["block_ms"]) // 1000
+    run.state.update(gen=gen, started=started, block=block)
     run.state["fileobj"] = os.fdopen(r, "rb")
     run.state["runner"] = _runner(run, run.state["fileobj"])
     if run.device.type == "cuda":
@@ -133,17 +138,34 @@ def _feed(fd: int, payload: bytes) -> None:
         f.write(payload)
 
 
-def due(run, k: int) -> float:
-    """Chunk ``k``'s due time: that of the block holding the last sample
-    it reads."""
+def last_block(run, k: int) -> int:
+    """The block that holds the last sample chunk ``k`` reads."""
     s = run.state
     lp = next(x for x in run.config["chain"] if x["stage"] == "lowpass")
     taps, d = 2 * int(lp["power"]), int(lp["decimate"])
     # the chunk's last output reads ceil(taps/2) + taps - 1 past its own
     # decimation point, (k + 1) chunk - d
     last = min((k + 1) * s["chunk"] - d + (taps - taps // 2) + taps, s["total"]) - 1
-    block_end = min((last // s["block"] + 1) * s["block"], s["total"])
-    return s["t0"] + block_end / s["rate"]
+    return last // s["block"]
+
+
+def due(run, k: int) -> float:
+    """Chunk ``k``'s due time: that of the block holding the last sample
+    it reads."""
+    s = run.state
+    return s["t0"] + min((last_block(run, k) + 1) * s["block"], s["total"]) / s["rate"]
+
+
+def latencies(run, stamps: dict[int, float], started) -> tuple[list[float], list[float]]:
+    """Each emitted chunk's latency (from its due time) and net latency
+    (from the later of its due time and ``started``, the start of the
+    generator's write of its last block), in chunk order."""
+    lat, net = [], []
+    for k in sorted(stamps):
+        t = due(run, k)
+        lat.append(stamps[k] - t)
+        net.append(stamps[k] - max(t, float(started[last_block(run, k)])))
+    return lat, net
 
 
 def window(run) -> None:
@@ -177,12 +199,16 @@ def window(run) -> None:
     run.end()
     report = gen.stdout.readline()
     gen.wait(30)
-    lat = [stamps[k] - due(run, k) for k in sorted(stamps)]
-    run.latencies = lat
-    if lat:
-        thirds = np.array_split(1e3 * np.asarray(lat), 3)
+    run.latencies, run.net_latencies = latencies(run, stamps, np.load(s["started"]))
+    if run.latencies:
+        ms = 1e3 * np.asarray(run.latencies)
+        run.notes.append("latency ms over the window, mean/p50/p90/p95: {:.3f}/{:.3f}/{:.3f}/{:.3f}".format(
+            ms.mean(), *np.percentile(ms, [50, 90, 95])))
         run.notes.append("latency ms by third of the window, p50/p95: " + " ".join(
-            f"{np.percentile(t, 50):.3f}/{np.percentile(t, 95):.3f}" for t in thirds if len(t)))
+            f"{np.percentile(t, 50):.3f}/{np.percentile(t, 95):.3f}" for t in np.array_split(ms, 3) if len(t)))
+    if run.net_latencies:
+        run.notes.append("net latency ms p50/p95: {:.3f}/{:.3f}".format(
+            *np.percentile(1e3 * np.asarray(run.net_latencies), [50, 95])))
     run.attempted = s["n_chunks"]
     run.failed = s["n_chunks"] - len(stamps)
     run.kind = "live"
@@ -192,7 +218,8 @@ def window(run) -> None:
         g = json.loads(report)
         run.notes.append(
             "generator: {blocks} blocks, late max {late_max_ms:.3f} ms p95 {late_p95_ms:.3f} ms, "
-            "write blocked max {blocked_max_ms:.3f} ms p95 {blocked_p95_ms:.3f} ms".format(**g)
+            "write blocked max {blocked_max_ms:.3f} ms p95 {blocked_p95_ms:.3f} ms, sleep overran p95 "
+            "{sleep_over_p95_ms:.3f} ms, its CPU busy {cpu_share:.3f} of the time".format(**g)
         )
     except (ValueError, KeyError):
         run.notes.append(f"generator: no report ({report!r})")
