@@ -19,7 +19,9 @@ magnitudes by one of two routes:
 The model holds no learned weights.  Its state is the f32 taps and the
 host-planned phase tables, registered as buffers so ``.to(device)``
 moves them; phases themselves are planned on the host per chunk
-(:meth:`PipelineModel.stream_bases`, :meth:`PipelineModel.theta0`).
+(:meth:`PipelineModel.stream_bases`, :meth:`PipelineModel.theta0`), and
+the chain's in-window NCO tables are kept on the device once
+(:func:`~quadrs_tpu_torch.ops.tables.device_table`).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from quadrs_tpu_torch.ops import frontend as fe
 from quadrs_tpu_torch.ops.fir import fir_decimate, is_spectral, lowpass_taps
 from quadrs_tpu_torch.ops.nco import ExactNCO, mix
 from quadrs_tpu_torch.ops.stft import stft_norms
+from quadrs_tpu_torch.ops.tables import device_table
 
 
 @dataclass(frozen=True)
@@ -68,7 +71,6 @@ class PipelineModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self._nco = ExactNCO(cfg.shift_freq, cfg.sample_rate)
-        self._cis_row = self._nco.cis(np.arange(self._MIX_TILE, dtype=np.int64))
         self.load_reference_arrays(
             {"taps": lowpass_taps(cfg.lp_freq / cfg.sample_rate, cfg.taps)}
         )
@@ -118,6 +120,14 @@ class PipelineModel(nn.Module):
     def delta(self, n: int) -> np.ndarray:
         return self._nco.angles(np.arange(n, dtype=np.int64))
 
+    def _cis(self, start: int, step: int, count: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The host-exact ``(cos, sin)`` tables at indices ``start + step * i``,
+        ``i < count``, kept on ``device``."""
+        nco = self._nco
+        t = device_table("nco.cis", (nco.frequency, nco.sample_rate, start, step, count), device,
+                         lambda: np.stack(nco.cis(start + step * np.arange(count, dtype=np.int64))))
+        return t[0], t[1]
+
     # -- the chain of torch ops ---------------------------------------------
     def _decode(self, raw: torch.Tensor) -> torch.Tensor:
         """(…, 2, n) native-dtype planes -> (…, n) complex64."""
@@ -129,7 +139,9 @@ class PipelineModel(nn.Module):
         """Rotate each row by ``theta0[b] + delta[k]``: an f32 sum of host
         angles, then f32 cos/sin, then :func:`~quadrs_tpu_torch.ops.nco.mix`'s
         product."""
-        return mix(x, theta0[..., None] + torch.as_tensor(self.delta(n), device=x.device))
+        nco = self._nco
+        delta = device_table("nco.delta", (nco.frequency, nco.sample_rate, n), x.device, lambda: self.delta(n))
+        return mix(x, theta0[..., None] + delta)
 
     def _mix_stream(self, x: torch.Tensor, theta0: torch.Tensor) -> torch.Tensor:
         """NCO mix over a long chunk without an O(chunk) angle table or
@@ -142,9 +154,8 @@ class PipelineModel(nn.Module):
         rows = -(-n // k)
         if rows * k != n:
             x = torch.nn.functional.pad(x, (0, rows * k - n))
-        dev = x.device
-        cq, sq = (torch.as_tensor(a, device=dev) for a in self._nco.cis(np.arange(rows, dtype=np.int64) * k))
-        cr, sr = (torch.as_tensor(a, device=dev) for a in self._cis_row)
+        cq, sq = self._cis(0, k, rows, x.device)
+        cr, sr = self._cis(0, 1, k, x.device)
         c0, s0 = torch.cos(theta0), torch.sin(theta0)
         ca = (c0 * cq - s0 * sq)[:, None]
         sa = (s0 * cq + c0 * sq)[:, None]
@@ -173,10 +184,7 @@ class PipelineModel(nn.Module):
         decimated rate, rotated by the chunk's base angle."""
         cfg = self.cfg
         prefix = cfg.taps - cfg.taps // 2  # fir_decimate's group-delay drop
-        twr, twi = (
-            torch.as_tensor(a, device=y.device)
-            for a in self._nco.cis(prefix + cfg.decimate * np.arange(n_dec, dtype=np.int64))
-        )
+        twr, twi = self._cis(prefix, cfg.decimate, n_dec, y.device)
         c0, s0 = torch.cos(theta0), torch.sin(theta0)
         cr = c0 * twr - s0 * twi
         ci = s0 * twr + c0 * twi

@@ -24,6 +24,10 @@ and cuFFT on the card), with its five implementations:
   (on ``torch.fft``: the JAX package's MXU factorization of these FFTs is
   a TPU layout and is not ported).
 
+Every impl's taps, matrix or tap spectrum is a table kept on the device
+(:func:`~quadrs_tpu_torch.ops.tables.device_table`, keyed by the taps'
+bytes and the impl's shape), uploaded on a filter's first call only.
+
 The frame sizes and the ``auto`` thresholds are the JAX package's, which
 were measured on a TPU v5e; they change outputs only by rounding, and
 keeping them keeps the parity tests tight.  Matrix products run in full
@@ -34,12 +38,11 @@ TF32 by default.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from quadrs_tpu_torch.ops.nco import rotate
+from quadrs_tpu_torch.ops.tables import device_table
 
 _PI32 = np.float32(np.pi)
 
@@ -222,13 +225,11 @@ def fir_decimate(
 
     if impl == "direct":
         frames = overlapped_frames(x, d, size, n_out)  # (B, n_out, size)
-        return _planes(frames, torch.as_tensor(taps, device=dev))
+        return _planes(frames, device_table("fir.direct", taps.tobytes(), dev, lambda: taps))
 
     if impl == "polyphase":
         m = -(-size // d)
-        h = np.zeros(m * d, dtype=np.float32)
-        h[:size] = taps
-        hp = torch.as_tensor(np.ascontiguousarray(h.reshape(m, d).T), device=dev)  # (d, m)
+        hp = device_table("fir.polyphase", (taps.tobytes(), d), dev, lambda: polyphase_matrix(taps, d))  # (d, m)
         t = -(-x.shape[1] // d)
         if x.shape[1] < t * d:
             x = torch.nn.functional.pad(x, (0, t * d - x.shape[1]))
@@ -245,7 +246,23 @@ def fir_decimate(
     return _overlap_save_poly(x, taps, d, n_out)
 
 
-@functools.lru_cache(maxsize=16)
+def polyphase_matrix(taps: np.ndarray, d: int) -> np.ndarray:
+    """(d, m) f32 matrix of the ``m = ceil(N/d)`` phase subfilters:
+    column ``q`` holds taps ``q*d .. q*d + d - 1``, zero past the last."""
+    size = len(taps)
+    m = -(-size // d)
+    h = np.zeros(m * d, dtype=np.float32)
+    h[:size] = taps
+    return np.ascontiguousarray(h.reshape(m, d).T)
+
+
+def _complex64(h: np.ndarray) -> np.ndarray:
+    """``h`` as complex64, each part rounded to f32 alone."""
+    out = np.empty(h.shape, dtype=np.complex64)
+    out.real, out.imag = h.real.astype(np.float32), h.imag.astype(np.float32)
+    return out
+
+
 def banded_weights(taps_key: bytes, d: int) -> np.ndarray:
     """(span_p, 128) banded matrix ``W[p, l] = h[p - l*d]``: 128 decimated
     outputs per row of input span.  ``taps_key``: the f32 taps' bytes."""
@@ -256,17 +273,17 @@ def banded_weights(taps_key: bytes, d: int) -> np.ndarray:
     w = np.zeros((span_p, 128), dtype=np.float32)
     for l in range(128):
         w[l * d : l * d + size, l] = taps
-    w.setflags(write=False)
     return w
 
 
 def _banded(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) -> torch.Tensor:
     """One dense banded product: groups of 128 outputs share one input
     span, ``(B, groups, span) @ (span, 128)``."""
-    w = banded_weights(taps.astype(np.float32).tobytes(), d)
+    key = taps.astype(np.float32).tobytes()
+    w = device_table("fir.banded", (key, d), x.device, lambda: banded_weights(key, d))
     groups = -(-n_out // 128)
     lhs = overlapped_frames(x, 128 * d, w.shape[0], groups)  # (B, groups, span_p)
-    y = _planes(lhs, torch.tensor(w, device=x.device))  # (B, groups, 128)
+    y = _planes(lhs, w)  # (B, groups, 128)
     return y.reshape(x.shape[0], groups * 128)[:, :n_out]
 
 
@@ -290,13 +307,12 @@ def _overlap_save_poly(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) ->
     hop2 = m2 - md + 1  # valid correlation outputs per frame
     n_frames = -(-n_out // hop2)
 
-    hp = np.zeros((md * d,), dtype=np.complex128)
-    hp[:size] = taps
-    h_f = _correlation_spectrum(hp.reshape(md, d), m2, axis=0).T  # (d, m2)
-    hf = torch.complex(
-        torch.tensor(h_f.real.astype(np.float32), device=x.device),
-        torch.tensor(h_f.imag.astype(np.float32), device=x.device),
-    )
+    def spectra() -> np.ndarray:
+        hp = np.zeros((md * d,), dtype=np.complex128)
+        hp[:size] = taps
+        return _complex64(_correlation_spectrum(hp.reshape(md, d), m2, axis=0).T)  # (d, m2)
+
+    hf = device_table("fir.os_poly", (taps.dtype.str, taps.tobytes(), d, m2), x.device, spectra)
 
     # raw frames at stride hop2*d; (m2, d) makes the phase split a view
     frames = overlapped_frames(x, hop2 * d, m2 * d, n_frames)  # (B, F, m2*d)
@@ -319,11 +335,8 @@ def _overlap_save(x: torch.Tensor, taps: np.ndarray, d: int, n_out: int) -> torc
         raise ValueError("filter too long for overlap-save frame")
     n_frames = -(-(n_out * d) // hop)
 
-    h_f = _correlation_spectrum(taps, m)
-    hf = torch.complex(
-        torch.tensor(h_f.real.astype(np.float32), device=x.device),
-        torch.tensor(h_f.imag.astype(np.float32), device=x.device),
-    )
+    hf = device_table("fir.overlap_save", (taps.dtype.str, taps.tobytes(), m), x.device,
+                      lambda: _complex64(_correlation_spectrum(taps, m)))
     frames = overlapped_frames(x, hop, m, n_frames)  # (B, n_frames, m)
     corr = fixed_row_calls(lambda f: torch.fft.ifft(spectral_product(torch.fft.fft(f), hf)), frames, 2)
     # linear-valid decimated outputs of each frame: 0, d, ..., hop-d

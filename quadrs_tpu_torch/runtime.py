@@ -16,13 +16,20 @@ the ``_Planes`` split of complex outputs into real planes (a workaround
 for TPU runtimes that cannot move complex values to the host).  Offsets
 into the staged buffer are int64, where JAX used int32.
 
+The launch never waits on a card: the plan's arrays cross by
+non-blocking copies, the small ones from page-locked memory
+(:func:`_to_device`), and the stages' constant tables are kept on the
+device (:func:`quadrs_tpu_torch.ops.tables.device_table`), uploaded on
+their first batch only.  So the host stages and launches batch k+1 while the
+card computes batch k, and waits only for outputs.
+
 While :func:`quadrs_tpu_torch.utils.profiling.profiled` is on, each batch
-accounts the host time of its launch (the plan's uploads, synchronous
-from pageable memory on a card, and the torch ops it enqueues) under its
-stream's class name (``shift``, ``lowpass``, ``tonegen``, ...), as the JAX
-executor does, and each batch's staging, planning, launch and wait are
-spans keyed ``(executor, batch)``
-(:mod:`quadrs_tpu_torch.utils.profiling`).
+accounts the host time of its launch (the plan's uploads and the torch ops
+it enqueues) under its stream's class name (``shift``, ``lowpass``,
+``tonegen``, ...), as the JAX executor does, and each batch's staging,
+planning, launch and wait are spans keyed ``(executor, batch)``
+(:mod:`quadrs_tpu_torch.utils.profiling`); the launch counts the tables
+it uploaded (``table_uploads``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from quadrs_tpu_torch.ops import tables
 from quadrs_tpu_torch.staging import Download
 from quadrs_tpu_torch.stream import Stream
 from quadrs_tpu_torch.utils.profiling import OFF, PROFILER
@@ -98,12 +106,30 @@ def stream_batches(stream, offsets: np.ndarray, width: int, **kw) -> tuple[int, 
     return window_batches(offsets, width, root_step=root_step_of(stream), root_read=root_read_of(stream, width), **kw)
 
 
+# bytes: a larger plan array crosses from its own pageable memory, so the
+# page-locked memory that torch's caching host allocator keeps (it keeps
+# every block it made) stays small
+_PINNED_MAX = 1 << 20
+
+
 def _to_device(tree, device: torch.device, span=OFF):
     """A plan's nested dict of numpy arrays as tensors on ``device``, each
-    counted on ``span`` (``tensors``, ``bytes``)."""
+    counted on ``span`` (``tensors``, ``bytes``).  On a card each array
+    crosses by a non-blocking copy on the current stream, which does not
+    wait on the card: up to :data:`_PINNED_MAX` bytes from page-locked
+    memory (torch's caching host allocator, which reuses a block only once
+    its copy has left it), a larger array from its own pageable memory,
+    which the copy has read when it returns.  On the CPU each becomes a
+    tensor without a copy."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device, span) for k, v in tree.items()}
-    t = torch.as_tensor(tree, device=device)
+    if device.type == "cuda":
+        t = torch.as_tensor(tree)
+        if t.nbytes <= _PINNED_MAX:
+            t = t.pin_memory()
+        t = t.to(device, non_blocking=True)
+    else:
+        t = torch.as_tensor(tree, device=device)
     span.count("tensors", 1)
     span.count("bytes", t.nbytes)
     return t
@@ -171,8 +197,9 @@ class Executor:
         """Stage, plan and launch one batch of window offsets, and start its
         output on the way back; returns ``(download, valid)``.  Spans
         ``executor.stage`` (with ``executor.slot_wait``), ``executor.plan``
-        and ``executor.launch`` (with ``executor.sync_upload``), keyed
-        ``(trace_id, batch)``.
+        and ``executor.launch`` (counter ``table_uploads``: the constant
+        tables this batch uploaded; with ``executor.sync_upload``, the
+        plan's arrays), keyed ``(trace_id, batch)``.
         ``download.wait()`` gives the outputs (see :meth:`run`).  One batch
         may be submitted while the one before it is still awaited, so a
         sink can work on batch k while batch k+1 computes."""
@@ -200,14 +227,16 @@ class Executor:
         with PROFILER.span("executor.plan", self.trace_id, k):
             plan = self.stream.plan(offs, self.n, base)
         ctx = {"buf": buf, "device": self.device}
-        with PROFILER.stage(type(self.stream).__name__.lower(), len(offs) * self.n, self.trace_id, k):
+        uploads = tables.uploads()
+        with PROFILER.stage(type(self.stream).__name__.lower(), len(offs) * self.n, self.trace_id, k) as launch:
             with PROFILER.span("executor.sync_upload", self.trace_id, k) as sp:
                 prep = _to_device(plan.prep, self.device, sp)
             out = self.stream.read_batch(ctx, prep, self.n)
             if self.post_takes_aux:
-                out = self.post(out, torch.tensor(0.0 if aux is None else aux, dtype=torch.float32, device=self.device))
+                out = self.post(out, _to_device(np.float32(0.0 if aux is None else aux), self.device))
             elif self.post is not None:
                 out = self.post(out)
+            launch.count("table_uploads", tables.uploads() - uploads)
         # back through page-locked memory on a CUDA device
         return Download(out), plan.valid
 

@@ -30,6 +30,7 @@ import torch
 
 from quadrs_tpu_torch.formats import FileDetails, FileFormat, decode_plane, planes_from_bytes
 from quadrs_tpu_torch.ops.nco import ExactNCO
+from quadrs_tpu_torch.ops.tables import device_table
 from quadrs_tpu_torch.stream import Plan, Stream
 from quadrs_tpu_torch.utils.sniff import guess_details
 
@@ -341,7 +342,6 @@ class ToneGen(Stream):
         # reference src/gen.rs:31-33 (f64 multiply, truncate)
         self.length = int(self.seconds * float(self.sample_rate))
         self._ncos = [ExactNCO(f, self.sample_rate) for f in self.cos]
-        self._deltas: dict[int, np.ndarray] = {}
 
     def span(self, off: int, n: int) -> tuple[int, int]:
         return 0, 0  # it stages nothing
@@ -351,10 +351,9 @@ class ToneGen(Stream):
         return n
 
     def _delta(self, n: int) -> np.ndarray:
-        if n not in self._deltas:  # a window's in-window angles, planned once
-            i = np.arange(n, dtype=np.int64)
-            self._deltas[n] = np.stack([nc.angles(i) for nc in self._ncos], axis=0)  # (F, n)
-        return self._deltas[n]
+        """A window's (F, n) in-window angles."""
+        i = np.arange(n, dtype=np.int64)
+        return np.stack([nc.angles(i) for nc in self._ncos], axis=0)
 
     def _noise_planes(self, offs: np.ndarray, n: int):
         """(B, n) f32 (re, im) noise planes for absolute sample indices
@@ -395,7 +394,8 @@ class ToneGen(Stream):
         return Plan(prep=prep, valid=valid)
 
     def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
-        delta = torch.as_tensor(self._delta(n), device=ctx["device"])  # (F, n)
+        # (F, n), planned once and kept on the device
+        delta = device_table("gen.delta", (tuple(self.cos), self.sample_rate, n), ctx["device"], lambda: self._delta(n))
         theta = prep["theta0"][:, :, None] + delta[None, :, :]  # (B, F, n)
         out = torch.complex(torch.cos(theta), torch.sin(theta)).sum(dim=1)
         if self.noise:

@@ -41,6 +41,7 @@ import torch
 
 from quadrs_tpu_torch.ops.nco import ExactNCO, mix, rotate
 from quadrs_tpu_torch.ops.rowscan import row_exclusive_prefix, row_mean
+from quadrs_tpu_torch.ops.tables import device_table
 
 
 @dataclass
@@ -122,7 +123,8 @@ class Shift(Stream):
     window's first sample and for each in-window index; the device adds
     the two in f32, takes f32 cos/sin and rotates
     (:func:`~quadrs_tpu_torch.ops.nco.mix`), so that a window's samples do
-    not depend on the windows batched with it.
+    not depend on the windows batched with it.  The in-window angles are a
+    table kept on the device (:func:`~quadrs_tpu_torch.ops.tables.device_table`).
     """
 
     def __init__(self, inner: Stream, frequency: int, sample_rate: int | None = None):
@@ -137,15 +139,9 @@ class Shift(Stream):
         self.sample_rate = int(sample_rate)
         self.length = inner.length
         self._nco = ExactNCO(self.frequency, self.sample_rate)
-        self._deltas: dict[int, np.ndarray] = {}
 
     def request(self, off: int, n: int) -> tuple[int, int]:
         return off, n
-
-    def _delta(self, n: int) -> np.ndarray:
-        if n not in self._deltas:
-            self._deltas[n] = self._nco.angles(np.arange(n, dtype=np.int64))
-        return self._deltas[n]
 
     def plan(self, offs: np.ndarray, n: int, base: int) -> Plan:
         inner = self.inner.plan(offs, n, base)
@@ -154,7 +150,8 @@ class Shift(Stream):
 
     def read_batch(self, ctx: dict, prep: Any, n: int) -> torch.Tensor:
         x = self.inner.read_batch(ctx, prep["inner"], n)
-        delta = torch.as_tensor(self._delta(n), device=x.device)
+        delta = device_table("nco.delta", (self.frequency, self.sample_rate, n), x.device,
+                             lambda: self._nco.angles(np.arange(n, dtype=np.int64)))
         return mix(x, prep["theta0"][:, None] + delta[None, :])
 
 

@@ -7,7 +7,7 @@ The counterpart of ``quadrs_tpu.utils.profiling``:
   by stage name and the spans, kept while :func:`profiled` is on.  The
   Executor accounts each batch's launch under its stream's class name
   (``shift``, ``lowpass``, ``tonegen``, ...: the host time of the plan's
-  synchronous uploads and the torch ops it enqueues), and the runners
+  uploads and the torch ops it enqueues), and the runners
   each run under ``stream_runner`` and ``waterfall_runner`` (its wall,
   every chunk synchronized).
 * :class:`Span`: one timed region of the program on one thread: its
@@ -19,8 +19,9 @@ The counterpart of ``quadrs_tpu.utils.profiling``:
   - ``executor.stage`` (the root's span staged into a page-locked slot;
     ``bytes``) with ``executor.slot_wait`` (the slot's last copy
     awaited), ``executor.plan``, ``executor.launch`` (the accounted
-    region) with ``executor.sync_upload`` (the plan's tensors put on the
-    device: on a card, synchronous copies from pageable memory;
+    region; ``table_uploads``: the constant tables it uploaded) with
+    ``executor.sync_upload`` (the plan's tensors put on the device: on a
+    card, non-blocking copies, the small ones from page-locked memory;
     ``tensors``, ``bytes``), ``executor.wait`` (a batch's output
     awaited), ``sink.render`` (``sparkfft``'s glyph rows made and
     written);

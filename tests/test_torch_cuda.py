@@ -618,6 +618,67 @@ def test_trailing_stages_are_batch_invariant(cuda, chain):
     np.testing.assert_allclose(runs[1], want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
+
+@pytest.mark.parametrize("chain", ["shift lowpass dcblock agc", "shift lowpass"])
+def test_the_launch_never_waits_on_the_card(cuda, chain, monkeypatch):
+    """``shift 280000 lowpass -power 200 -decimate 32 200000 [dcblock agc]
+    sparkfft -width 64 -stride 16 -range 0.08:1`` over 2^21 cs8 samples at
+    21 Msps (the benchmark's chains, a shorter capture), 58 windows a
+    batch as the conditioned chain's gather cap makes them: every
+    ``Executor.submit`` after the pass's first runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a copy that waits on
+    the card raises; ``table_uploads`` is at least 1 on the first batch and
+    0 on every later one; the rows equal a pass that uploads every table
+    again and synchronizes after each batch."""
+    from quadrs_tpu_torch import runtime, sinks, sources, stream
+    from quadrs_tpu_torch.ops import tables
+    from quadrs_tpu_torch.utils.profiling import PROFILER, profiled
+
+    fmt = FileFormat.COMPLEX_INT8
+    raw = np.ascontiguousarray(synth_planes(fmt, 1 << 21, seed=11).T).reshape(-1).view(np.uint8)
+
+    def make():
+        s = stream.LowPass(stream.Shift(sources.SampleSource(raw, fmt, 21_000_000), 280_000), 200_000, 32, 400)
+        return stream.Agc(stream.DcBlock(s, 32_000), 1.0, 4_000, 1000.0) if "agc" in chain else s
+
+    monkeypatch.setattr(sinks, "stream_batches", lambda s, offs, w: runtime.stream_batches(s, offs, w, budget=w * 58))
+    orig = runtime.Executor.submit
+    submits = []
+
+    def never_waits(self, offs, aux=None):
+        submits.append(len(offs))
+        if len(submits) == 1:
+            return orig(self, offs, aux)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(self, offs, aux)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def synchronized(self, offs, aux=None):
+        tables.clear()
+        out = orig(self, offs, aux)
+        torch.cuda.synchronize()
+        return out
+
+    rows = {}
+    for name, submit in (("async", never_waits), ("synchronized", synchronized)):
+        tables.clear()
+        PROFILER.reset()
+        monkeypatch.setattr(runtime.Executor, "submit", submit)
+        lines: list[str] = []
+        with profiled():
+            sinks.spark_fft(make(), 64, 16, 0.08, 1.0, out=lines.append, device=cuda)
+        rows[name] = lines
+        if name == "async":
+            launches = sorted((s for s in PROFILER.spans() if s.name == "executor.launch"), key=lambda s: s.key[1])
+            counts = [s.counters["table_uploads"] for s in launches]
+    PROFILER.reset()
+    assert len(submits) > 10 and len(counts) == len(submits)
+    assert counts[0] >= 1 and not any(counts[1:]), counts
+    assert rows["async"] == rows["synchronized"] and len(rows["async"]) > 4000
+
+
 # -- the receivers' channel step on the card (torch ops and cuFFT) ---------------
 
 
